@@ -1,0 +1,49 @@
+"""Weight bridge from the JAX reference to the port.
+
+The reference draws its parameters with ``jax.random``, which torch cannot
+regenerate, so parity tests take the JAX parameters after
+``jax.device_get`` — a pytree of numpy arrays — and convert them here.
+This module takes numpy only and never imports JAX.
+
+Layouts carry over unchanged (a linear weight is ``(d_in, d_out)`` in both
+packages); the one structural change is that the reference scans a stacked
+layer segment, ``params["segments"][0]`` with a leading ``n_layers`` axis
+on every leaf, which becomes the port's list ``params["layers"]``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.models.config import ModelConfig
+
+
+def _to_torch(tree: Any, device) -> Any:
+    if isinstance(tree, dict):
+        return {k: _to_torch(v, device) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree)).to(device)
+
+
+def _layer(tree: Any, i: int) -> Any:
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def from_jax_params(np_params: Dict, cfg: ModelConfig, *, device="cuda"
+                    ) -> Dict:
+    """JAX dense-family parameters (numpy leaves) -> the port's layout."""
+    if cfg.family != "dense" or len(np_params["segments"]) != 1:
+        raise ValueError("the bridge takes one dense layer segment")
+    seg = np_params["segments"][0]
+    n = np.shape(seg["norm1"]["scale"])[0]
+    if n != cfg.n_layers:
+        raise ValueError(f"{n} stacked layers for a {cfg.n_layers}-layer config")
+    dev = resolve_device(device)
+    out = {k: _to_torch(v, dev) for k, v in np_params.items()
+           if k != "segments"}
+    out["layers"] = [_to_torch(_layer(seg, i), dev) for i in range(n)]
+    return out

@@ -1,0 +1,17 @@
+"""Architecture registry (port of ``repro/configs``; the port so far holds
+the paper's own evaluation model)."""
+from __future__ import annotations
+
+import importlib
+from typing import List
+
+from repro_torch.configs.base import ArchSpec
+
+ARCH_IDS: List[str] = ["tinyllama_1p1b"]
+
+
+def get_arch(name: str) -> ArchSpec:
+    name = name.replace("-", "_").replace(".", "p")
+    if name not in ARCH_IDS:
+        raise ValueError(f"unknown arch {name!r}; the port has {ARCH_IDS}")
+    return importlib.import_module(f"repro_torch.configs.{name}").ARCH

@@ -1,0 +1,73 @@
+"""CIMple attention datapath, int8 serving mode (port of
+``repro/core/attention.py``: the int8 branch of ``attention`` and the fused
+int8 branch of ``paged_decode_attention``).
+
+Q/K/V are quantized to int8 with absmax scales, scores pass the 32b->8b
+requant unit, and the exp + reciprocal LUTs replace the softmax — through
+the hand-written kernels on the card, their plain versions on the CPU.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core import lut as lut_lib
+from repro_torch.core import quantization as qlib
+from repro_torch.core.lut import LUTConfig
+from repro_torch.kernels import ops
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionSpec:
+    """Static attention configuration of the int8 serving datapath."""
+    scale_z: float = 8.0 / 127         # score quant scale (clip ~ +-8)
+    window: Optional[int] = None       # sliding-window size, None = full
+
+    @property
+    def lut_config(self) -> LUTConfig:
+        return LUTConfig(scale_z=self.scale_z)
+
+
+@functools.lru_cache(maxsize=32)
+def luts_for(scale_z: float, device: torch.device
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(exp LUT, recip LUT) as int32 tensors on ``device``."""
+    cfg = LUTConfig(scale_z=scale_z)
+    return (torch.from_numpy(lut_lib.build_exp_lut(cfg)).to(device),
+            torch.from_numpy(lut_lib.build_recip_lut(cfg)).to(device))
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              spec: AttentionSpec) -> torch.Tensor:
+    """Causal (B,Hq,Sq,D) x (B,Hkv,Sk,D) -> (B,Hq,Sq,D), dtype of q;
+    per-tensor absmax calibration of q, k and v."""
+    s_q = qlib.absmax_scale(q)
+    s_k = qlib.absmax_scale(k)
+    s_v = qlib.absmax_scale(v)
+    exp_lut, recip_lut = luts_for(spec.scale_z, q.device)
+    out = ops.splitmax_attention(
+        qlib.quantize(q, s_q), qlib.quantize(k, s_k), qlib.quantize(v, s_v),
+        s_q, s_k, s_v, exp_lut, recip_lut, cfg=spec.lut_config,
+        causal=True, window=spec.window)
+    return out.to(q.dtype)
+
+
+def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, block_table: torch.Tensor,
+                           s_k: torch.Tensor, s_v: torch.Tensor,
+                           cache_len: torch.Tensor, spec: AttentionSpec
+                           ) -> torch.Tensor:
+    """(B,Hq,D) query vs the paged int8 pool -> (B,Hq,D), dtype of q.
+
+    ``s_q`` is one scale per slot, the absmax of that slot's own query, so a
+    slot's numerics never depend on its batch neighbours.
+    """
+    s_q = qlib.absmax_scale(q, axis=(1, 2))                  # (B,1,1)
+    exp_lut, recip_lut = luts_for(spec.scale_z, q.device)
+    out = ops.splitmax_decode_fused_paged(
+        q, k_pages, v_pages, block_table, s_q, s_k, s_v, cache_len,
+        exp_lut, recip_lut, cfg=spec.lut_config, window=spec.window)
+    return out.to(q.dtype)

@@ -1,0 +1,95 @@
+"""LUT construction and reads for CIMple's split softmax (port of
+``repro/core/lut.py``).
+
+* exp LUT ``E``: 256 entries indexed by ``z_q + 128``,
+  ``E[z_q] = round(exp((z_q - 127) * s_z) * 2^f_e)`` — the int8 ceiling
+  ``z_quant_max = 127`` replaces the row max, so no max pass is needed.
+* reciprocal LUT ``M``: ``1/S`` of the accumulated denominator from the top
+  ``recip_index_bits`` mantissa bits of ``S``, one multiply plus a power of
+  two in place of the division.
+
+The table builders are numpy (host constants), copied verbatim so both
+packages build identical tables.  The reciprocal index and ``2^e`` are read
+from f32 *bit patterns*: float ``log2``/``exp2`` can be an ulp off even at
+powers of two, which flips the table index at bin boundaries.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+import torch
+
+Z_QUANT_MAX = 127  # top of the symmetric int8 domain — replaces the row max
+
+EXP_FRAC_BITS = 15     # exp LUT entries in [0, 2^15]
+RECIP_FRAC_BITS = 15   # reciprocal mantissa table entries in (2^14, 2^15]
+
+
+@dataclasses.dataclass(frozen=True)
+class LUTConfig:
+    """Static configuration of the split-softmax LUT pair."""
+    scale_z: float                  # attention-score quantization scale s_z
+    exp_frac_bits: int = EXP_FRAC_BITS
+    recip_index_bits: int = 8       # mantissa bits indexing the recip table
+    recip_frac_bits: int = RECIP_FRAC_BITS
+
+    @property
+    def recip_table_size(self) -> int:
+        return 1 << self.recip_index_bits
+
+
+def build_exp_lut(cfg: LUTConfig) -> np.ndarray:
+    """256-entry exp table, indexed by ``z_q + 128``; index 255 is 2^f_e."""
+    idx = np.arange(256, dtype=np.float64)
+    z = idx - 128.0 - float(Z_QUANT_MAX)          # z_q - z_quant_max in [-255, 0]
+    vals = np.round(np.exp(z * cfg.scale_z) * (1 << cfg.exp_frac_bits))
+    return vals.astype(np.int32)
+
+
+def build_recip_lut(cfg: LUTConfig) -> np.ndarray:
+    """2^m-entry reciprocal-mantissa table,
+    ``M[i] = round(2^f_m / (1 + (i + 0.5) / 2^m))``."""
+    m = cfg.recip_index_bits
+    i = np.arange(1 << m, dtype=np.float64)
+    mant = 1.0 + (i + 0.5) / (1 << m)
+    vals = np.round((1 << cfg.recip_frac_bits) / mant)
+    return vals.astype(np.int32)
+
+
+def exp_lookup(z_q: torch.Tensor, exp_lut: torch.Tensor) -> torch.Tensor:
+    """E[z_q] — int8 scores -> int32 fixed-point exponentials."""
+    return exp_lut[z_q.long() + 128]
+
+
+def recip_mantissa_index(s: torch.Tensor, mbits: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(idx, expo)`` with ``max(s, 1) = (1 + frac) * 2^expo`` and ``idx``
+    the top ``mbits`` bits of ``frac``, read from the IEEE-754 f32 bits."""
+    s_f = torch.clamp_min(s.to(torch.float32), 1.0)
+    bits = s_f.view(torch.int32)
+    expo = torch.bitwise_and(bits >> 23, 0xFF) - 127
+    idx = torch.bitwise_and(bits >> (23 - mbits), (1 << mbits) - 1)
+    return idx, expo
+
+
+def recip_lookup(s: torch.Tensor, recip_lut: torch.Tensor, cfg: LUTConfig
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(r, e)`` with ``1/s ~= r * 2^e`` (``r`` int32 table value)."""
+    idx, expo = recip_mantissa_index(s, cfg.recip_index_bits)
+    r = recip_lut[idx.long()]
+    e = -expo - cfg.recip_frac_bits
+    return r, e
+
+
+def exp2_int(e: torch.Tensor) -> torch.Tensor:
+    """Exact 2^e for integer e in [-126, 127], by building the f32 bits."""
+    bits = (e.to(torch.int32) + 127) << 23
+    return bits.view(torch.float32)
+
+
+def recip_apply(x: torch.Tensor, r: torch.Tensor, e: torch.Tensor
+                ) -> torch.Tensor:
+    """x / s  ~=  x * r * 2^e   (float32 result)."""
+    return x.to(torch.float32) * r.to(torch.float32) * exp2_int(e)

@@ -1,0 +1,150 @@
+"""Paged int8 KV block pool: storage layout, block-table gather, allocator
+(port of ``repro/core/paged_kv.py``).
+
+The cache is a pool of fixed-size int8 blocks
+
+    k_pages / v_pages : (n_layers, num_blocks, Hkv, block_k, head_dim)  int8
+
+and each slot owns an ordered row of block ids, ``block_table (slots,
+blocks_per_slot)``, so logical position ``p`` of slot ``s`` lives at
+``pages[block_table[s, p // block_k], :, p % block_k, :]``.
+
+Block id 0 is the **trash block**: a freed slot points its whole row at it,
+so a retired slot that keeps stepping in the fixed-shape batch writes into
+block 0 instead of a recycled block.  The decode kernel never reads it.
+
+Unlike the JAX reference, which returns new arrays, the pool tensors here
+are updated **in place** — the port's equivalent of ``donate_argnums``.
+"""
+from __future__ import annotations
+
+from collections import deque
+from typing import Dict, Iterable, List, Optional, Sequence
+
+import torch
+
+TRASH_BLOCK = 0
+
+
+class BlockAllocationError(RuntimeError):
+    """Pool exhausted, double free, or free of an unallocated block; carries
+    the allocator state so the message explains itself."""
+
+    def __init__(self, msg: str, *, requested: Optional[int] = None,
+                 free: Optional[int] = None, live: Optional[int] = None,
+                 high_water: Optional[int] = None,
+                 num_blocks: Optional[int] = None):
+        super().__init__(msg)
+        self.requested = requested
+        self.free = free
+        self.live = live
+        self.high_water = high_water
+        self.num_blocks = num_blocks
+
+
+class BlockAllocator:
+    """Free-list allocator over ``num_blocks`` block ids.
+
+    Reserved ids (by default the trash block) are never handed out; frees
+    recycle ids FIFO; double frees, foreign ids and exhaustion raise
+    :class:`BlockAllocationError`.  ``high_water`` is the peak live count.
+    """
+
+    def __init__(self, num_blocks: int,
+                 reserved: Sequence[int] = (TRASH_BLOCK,)):
+        if num_blocks <= len(set(reserved)):
+            raise ValueError(f"pool of {num_blocks} blocks has no "
+                             f"allocatable ids (reserved: {reserved})")
+        self.num_blocks = num_blocks
+        self._reserved = frozenset(reserved)
+        self._free = deque(i for i in range(num_blocks)
+                           if i not in self._reserved)
+        self._live: set = set()
+        self.high_water = 0
+
+    @property
+    def free_count(self) -> int:
+        return len(self._free)
+
+    @property
+    def live_count(self) -> int:
+        return len(self._live)
+
+    def _error(self, msg: str, requested: Optional[int] = None):
+        return BlockAllocationError(
+            msg, requested=requested, free=len(self._free),
+            live=len(self._live), high_water=self.high_water,
+            num_blocks=self.num_blocks)
+
+    def alloc(self, n: int) -> List[int]:
+        """Allocate ``n`` block ids; all-or-nothing."""
+        if n < 0:
+            raise ValueError(n)
+        if n > len(self._free):
+            raise self._error(
+                f"requested {n} blocks, only {len(self._free)} free "
+                f"({len(self._live)} live of {self.num_blocks}, "
+                f"high water {self.high_water})", requested=n)
+        ids = [self._free.popleft() for _ in range(n)]
+        self._live.update(ids)
+        self.high_water = max(self.high_water, len(self._live))
+        return ids
+
+    def free(self, ids: Iterable[int]) -> None:
+        """Return blocks to the pool; rejects double frees and foreign ids."""
+        ids = list(ids)
+        for i in ids:
+            if i in self._reserved:
+                raise self._error(f"freeing reserved block {i}")
+            if i not in self._live:
+                raise self._error(f"freeing block {i} that is not allocated "
+                                  f"(double free or foreign id)")
+        for i in ids:
+            self._live.discard(i)
+            self._free.append(i)
+
+
+def blocks_per_seq(max_len: int, block_k: int) -> int:
+    """Table width needed to hold ``max_len`` positions."""
+    return -(-max_len // block_k)
+
+
+def init_kv_pages(n_layers: int, num_blocks: int, n_kv_heads: int,
+                  block_k: int, head_dim: int, slots: int,
+                  blocks_per_slot: int, *, device) -> Dict[str, torch.Tensor]:
+    """Zero-initialized paged pool + all-trash block table.
+
+    The block dim is outside the head dim, so one (block, head) pair is a
+    contiguous ``(block_k, head_dim)`` int8 tile — the decode kernel's
+    k-tile, addressed straight from a table entry.
+    """
+    shape = (n_layers, num_blocks, n_kv_heads, block_k, head_dim)
+    return {
+        "k_pages": torch.zeros(shape, dtype=torch.int8, device=device),
+        "v_pages": torch.zeros(shape, dtype=torch.int8, device=device),
+        "scale_k": torch.full((n_layers, 1, 1, 1, 1), 1e-2,
+                              dtype=torch.float32, device=device),
+        "scale_v": torch.full((n_layers, 1, 1, 1, 1), 1e-2,
+                              dtype=torch.float32, device=device),
+        "block_table": torch.full((slots, blocks_per_slot), TRASH_BLOCK,
+                                  dtype=torch.int32, device=device),
+        "length": torch.zeros((slots,), dtype=torch.int32, device=device),
+    }
+
+
+def gather_kv(pages: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
+    """Contiguous K or V through the table (plain paths and tests only).
+
+    pages (num_blocks, H, block_k, d) x table (B, mb) -> (B, H, mb*block_k, d).
+    """
+    b, mb = block_table.shape
+    _, h, bk, d = pages.shape
+    g = pages[block_table.long()]                 # (B, mb, H, bk, d)
+    return g.permute(0, 2, 1, 3, 4).reshape(b, h, mb * bk, d)
+
+
+def release_slot(pool: Dict[str, torch.Tensor], slot: int) -> None:
+    """Point a retired slot's table row at the trash block and zero its
+    length, in place.  The allocator recycles the real blocks separately."""
+    pool["block_table"][slot] = TRASH_BLOCK
+    pool["length"][slot] = 0

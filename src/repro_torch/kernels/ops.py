@@ -1,0 +1,61 @@
+"""Dispatch: one public op per kernel (port of ``repro/kernels/ops.py``).
+
+A CUDA tensor launches the hand-written kernel (or the wrapper raises); a
+CPU tensor takes the kernel's plain PyTorch version.  There is no option
+that sends a CUDA tensor to the plain version.
+
+``m_z = s_q * s_k / (sqrt(f32(D)) * s_z)`` — the 32b->8b requant multiplier
+— is computed here in f32, in the reference's order, so it is bit-equal.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.lut import LUTConfig
+from repro_torch.kernels import splitmax_attn, splitmax_decode
+
+
+def requant_multiplier(s_q: torch.Tensor, s_k: torch.Tensor, d: int,
+                       cfg: LUTConfig) -> torch.Tensor:
+    """``s_q * s_k / (sqrt(d) * s_z)`` in f32.  The f32 denominator is formed
+    on the host (no device tensor per call): the f64 square root rounded to
+    f32 is the correctly rounded f32 square root, and the f32 product is
+    exact in a Python float."""
+    denom = float(np.float32(math.sqrt(d)) * np.float32(cfg.scale_z))
+    return (s_q * s_k / denom).to(torch.float32)
+
+
+def splitmax_attention(q_q, k_q, v_q, s_q, s_k, s_v, exp_lut, recip_lut, *,
+                       cfg: LUTConfig, causal: bool = True,
+                       window: Optional[int] = None,
+                       kv_valid_len: Optional[int] = None) -> torch.Tensor:
+    """(B,Hq,Sq,D) int8 x (B,Hkv,Sk,D) int8 -> (B,Hq,Sq,D) f32; per-tensor
+    scales."""
+    m_z = requant_multiplier(s_q, s_k, q_q.shape[-1], cfg).reshape(())
+    fn = (splitmax_attn.splitmax_attention_cuda if q_q.is_cuda
+          else splitmax_attn.splitmax_attention_plain)
+    return fn(q_q.contiguous(), k_q.contiguous(), v_q.contiguous(), m_z,
+              s_v.to(torch.float32).reshape(()),
+              exp_lut, recip_lut, cfg=cfg, causal=causal, window=window,
+              kv_valid_len=kv_valid_len)
+
+
+def splitmax_decode_fused_paged(q, k_pages, v_pages, block_table, s_q, s_k,
+                                s_v, cache_len, exp_lut, recip_lut, *,
+                                cfg: LUTConfig,
+                                window: Optional[int] = None) -> torch.Tensor:
+    """Fused paged decode: f32-able q (B,Hq,D) + in-kernel quantize +
+    block-table gather -> (B,Hq,D) f32.  ``s_q`` is a scalar or one scale
+    per slot (any shape with B or 1 elements)."""
+    b = q.shape[0]
+    s_q = s_q.to(torch.float32).reshape(-1).expand(b).contiguous()
+    m_z = requant_multiplier(s_q, s_k.reshape(()), q.shape[-1], cfg)
+    fn = (splitmax_decode.splitmax_decode_fused_paged_cuda if q.is_cuda
+          else splitmax_decode.splitmax_decode_fused_paged_plain)
+    return fn(q.to(torch.float32).contiguous(), k_pages, v_pages,
+              block_table, m_z, s_q, s_v.to(torch.float32).reshape(()),
+              cache_len, exp_lut, recip_lut, cfg=cfg, window=window)

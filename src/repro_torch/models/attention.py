@@ -1,0 +1,94 @@
+"""Multi-head attention block wired to the CIMple int8 datapath (port of
+``repro/models/attention.py``: projections, the paged pool and the paged
+decode block).
+
+Projections run in the model's compute dtype; the score -> LUT softmax ->
+PV epilogue runs through :mod:`repro_torch.core.attention`.  The KV cache
+is int8 with static per-layer scales, paged into a block pool.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.core import attention as core_attn
+from repro_torch.core import paged_kv
+from repro_torch.core import quantization as qlib
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+
+
+def attn_block_init(gen, cfg: ModelConfig, *, device) -> L.Params:
+    """QKV + output projections."""
+    hd, hq, hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    d = cfg.d_model
+    return {
+        "wq": L.linear_init(gen, d, hq * hd, device=device),
+        "wk": L.linear_init(gen, d, hkv * hd, device=device),
+        "wv": L.linear_init(gen, d, hkv * hd, device=device),
+        "wo": L.linear_init(gen, hq * hd, d, device=device,
+                            std=(hq * hd) ** -0.5 / (2 * cfg.n_layers) ** 0.5),
+    }
+
+
+def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor):
+    """x: (B, S, d) -> q (B,Hq,S,hd), k/v (B,Hkv,S,hd), roped."""
+    b, s, _ = x.shape
+    dt = cfg.compute_dtype
+    hd = cfg.hd
+    q = L.linear_apply(params["wq"], x, dtype=dt)
+    k = L.linear_apply(params["wk"], x, dtype=dt)
+    v = L.linear_apply(params["wv"], x, dtype=dt)
+    q = q.reshape(b, s, cfg.n_heads, hd).transpose(1, 2)
+    k = k.reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
+    v = v.reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def init_paged_kv_cache(cfg: ModelConfig, num_blocks: int, slots: int,
+                        blocks_per_slot: int, block_k: int, *, device
+                        ) -> Dict[str, torch.Tensor]:
+    """Stacked-by-layer paged int8 pool (see :mod:`repro_torch.core.paged_kv`)."""
+    return paged_kv.init_kv_pages(cfg.n_layers, num_blocks, cfg.n_kv_heads,
+                                  block_k, cfg.hd, slots, blocks_per_slot,
+                                  device=device)
+
+
+def attn_block_decode_paged(params, x: torch.Tensor,
+                            layer_cache: Dict[str, torch.Tensor],
+                            cfg: ModelConfig) -> torch.Tensor:
+    """One-token decode against one layer's slice of the paged pool.
+
+    ``layer_cache``: views ``k_pages``/``v_pages`` (num_blocks, Hkv,
+    block_k, hd), scalar scales, ``block_table`` (B, max_blocks) and
+    ``length`` (B,) before this token.  The new token's K/V are quantized
+    with the static scales and written **in place** into the slot's tail
+    block, then the query attends over ``length + 1`` positions.
+    """
+    b = x.shape[0]
+    hd = cfg.hd
+    table = layer_cache["block_table"]
+    mb = table.shape[1]
+    k_pages, v_pages = layer_cache["k_pages"], layer_cache["v_pages"]
+    block_k = k_pages.shape[2]
+    new_len = layer_cache["length"] + 1            # includes current token
+    positions = (new_len - 1)[:, None]             # (B, 1) absolute (RoPE)
+    q, k, v = _project_qkv(params, x, cfg, positions)
+    s_k = layer_cache["scale_k"].reshape(())
+    s_v = layer_cache["scale_v"].reshape(())
+    # tail-block address; clamp so an over-run slot (retired but still
+    # stepping) stays inside its table row
+    pos = torch.clamp_max(new_len - 1, mb * block_k - 1).long()
+    blk = table[torch.arange(b, device=table.device), pos // block_k].long()
+    off = pos % block_k
+    k_pages[blk, :, off, :] = qlib.quantize(k[:, :, 0, :], s_k)
+    v_pages[blk, :, off, :] = qlib.quantize(v[:, :, 0, :], s_v)
+    out = core_attn.paged_decode_attention(
+        q[:, :, 0, :], k_pages, v_pages, table, s_k, s_v, new_len,
+        cfg.attn_spec())
+    out = out.reshape(b, 1, cfg.n_heads * hd)
+    return L.linear_apply(params["wo"], out, dtype=cfg.compute_dtype)

@@ -1,0 +1,85 @@
+"""Elementary layers (port of ``repro/models/layers.py``).
+
+Parameters are plain dicts of tensors laid out as in the reference (a
+linear weight is ``(d_in, d_out)`` and applies as ``x @ w``), so weights
+bridge over unchanged.  Compute happens in the config's dtype; norms and
+RoPE in float32.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+Params = Dict[str, torch.Tensor]
+
+
+def normal_init(gen: torch.Generator, shape, std: float, device
+                ) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, device=device,
+                       dtype=torch.float32) * std
+
+
+def linear_init(gen, d_in: int, d_out: int, *, device,
+                std: Optional[float] = None) -> Params:
+    std = std if std is not None else d_in ** -0.5
+    return {"w": normal_init(gen, (d_in, d_out), std, device)}
+
+
+def linear_apply(params: Params, x: torch.Tensor, *,
+                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    w = params["w"]
+    if dtype is not None:
+        w = w.to(dtype)
+        x = x.to(dtype)
+    return x @ w
+
+
+def rmsnorm_init(dim: int, device) -> Params:
+    return {"scale": torch.ones(dim, dtype=torch.float32, device=device)}
+
+
+def rmsnorm_apply(params: Params, x: torch.Tensor, eps: float = 1e-6
+                  ) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.to(torch.float32)
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * params["scale"]).to(dt)
+
+
+def pad_vocab(vocab_size: int, multiple: int = 256) -> int:
+    """Round the vocab up to a multiple (logits over padding are computed
+    like any other lane)."""
+    return ((vocab_size + multiple - 1) // multiple) * multiple
+
+
+def embedding_init(gen, vocab_padded: int, dim: int, *, device,
+                   std: float = 0.02) -> Params:
+    return {"table": normal_init(gen, (vocab_padded, dim), std, device)}
+
+
+def embedding_apply(params: Params, token_ids: torch.Tensor, *,
+                    dtype: torch.dtype) -> torch.Tensor:
+    return params["table"][token_ids.long()].to(dtype)
+
+
+def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x: (B, H, S, D); positions: (S,) shared or (B, S) ragged."""
+    d = x.shape[-1]
+    freqs = rope_frequencies(d, theta, x.device)              # (D/2,)
+    pos = positions.to(torch.float32)
+    if positions.dim() == 1:                                  # (S,)
+        angles = pos[None, None, :, None] * freqs
+    else:                                                     # (B, S)
+        angles = pos[:, None, :, None] * freqs
+    cos, sin = torch.cos(angles), torch.sin(angles)           # (B|1,1,S,D/2)
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)

@@ -1,0 +1,184 @@
+"""Dense decoder assembly for int8 paged serving (port of
+``repro/models/transformer.py``, dense family, serve mode).
+
+Parameters are a plain dict laid out like the reference's, except that the
+scanned layer stack is a Python list of per-layer dicts.  Two entry points:
+
+  * :func:`prefill_paged` — run a prompt, write its int8 K/V into the named
+    slots' pool blocks, return last-position logits (per-slot admission);
+  * :func:`decode_step` — one token per slot in, logits out.
+
+The paged cache dict is updated **in place**; both return it for symmetry
+with the reference's functional API.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core import attention as core_attn
+from repro_torch.core import paged_kv
+from repro_torch.core import quantization as qlib
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+from repro_torch.models import mlp as M
+from repro_torch.models.config import ModelConfig
+
+Params = Dict
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Params:
+    """Random float32 master parameters from a seeded ``torch.Generator``,
+    with the reference's initializer scales (the values differ from
+    ``jax.random``'s; bridge JAX parameters with :mod:`repro_torch.bridge`
+    to compare)."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: the port serves the dense family only")
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    vp = L.pad_vocab(cfg.vocab_size, cfg.vocab_pad_multiple)
+    p: Params = {"embed": L.embedding_init(gen, vp, cfg.d_model, device=dev)}
+    p["layers"] = [{
+        "norm1": L.rmsnorm_init(cfg.d_model, dev),
+        "attn": A.attn_block_init(gen, cfg, device=dev),
+        "norm2": L.rmsnorm_init(cfg.d_model, dev),
+        "mlp": M.mlp_init(gen, cfg, device=dev),
+    } for _ in range(cfg.n_layers)]
+    p["final_norm"] = L.rmsnorm_init(cfg.d_model, dev)
+    p["lm_head"] = L.linear_init(gen, cfg.d_model, vp, device=dev)
+    return p
+
+
+def cast_for_serving(params: Params, cfg: ModelConfig) -> Params:
+    """Cast the weights each layer casts at use (the layers' linear
+    weights, the embedding table) to the compute dtype once, so a step does
+    not re-cast them.  Results are unchanged: casting once equals casting at
+    every use.  The f32 LM head and the norms stay f32."""
+    dt = cfg.compute_dtype
+
+    def cast(tree):
+        return {k: (cast(v) if isinstance(v, dict) else
+                    v.to(dt) if k == "w" else v) for k, v in tree.items()}
+
+    return {"embed": {"table": params["embed"]["table"].to(dt)},
+            "layers": [cast(lp) for lp in params["layers"]],
+            "final_norm": params["final_norm"],
+            "lm_head": params["lm_head"]}
+
+
+def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig
+                 ) -> torch.Tensor:
+    return L.embedding_apply(params["embed"], tokens, dtype=cfg.compute_dtype)
+
+
+def unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Final norm and the LM head, in f32 (the reference's default)."""
+    x = L.rmsnorm_apply(params["final_norm"], x)
+    return L.linear_apply(params["lm_head"], x, dtype=torch.float32)
+
+
+def forward(params, tokens: torch.Tensor, cfg: ModelConfig
+            ) -> Tuple[torch.Tensor, List[Tuple[torch.Tensor, torch.Tensor]]]:
+    """Serve-mode forward: tokens (B, S) -> logits (B, S, vocab_padded) and
+    each layer's raw (k, v) (B, Hkv, S, hd) for the cache."""
+    x = embed_tokens(params, tokens, cfg)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)
+    spec = cfg.attn_spec()
+    kvs = []
+    for lp in params["layers"]:
+        h = L.rmsnorm_apply(lp["norm1"], x)
+        q, k, v = A._project_qkv(lp["attn"], h, cfg, positions)
+        o = core_attn.attention(q, k, v, spec)
+        o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd)
+        x = x + L.linear_apply(lp["attn"]["wo"], o, dtype=cfg.compute_dtype)
+        h = L.rmsnorm_apply(lp["norm2"], x)
+        x = x + M.mlp_apply(lp["mlp"], h, cfg)
+        kvs.append((k, v))
+    return unembed(params, x, cfg), kvs
+
+
+def make_paged_cache(cfg: ModelConfig, slots: int, max_len: int, *,
+                     block_k: int = 32, num_blocks: Optional[int] = None,
+                     device="cuda") -> Dict[str, torch.Tensor]:
+    """Paged decode cache: int8 KV block pool + per-slot block tables and
+    lengths.  The default pool reserves ``ceil(max_len / block_k)`` blocks
+    per slot plus the trash block (id 0)."""
+    bps = paged_kv.blocks_per_seq(max_len, block_k)
+    if num_blocks is None:
+        num_blocks = 1 + slots * bps
+    return A.init_paged_kv_cache(cfg, num_blocks, slots, bps, block_k,
+                                 device=resolve_device(device))
+
+
+def prefill_paged(params, tokens: torch.Tensor, cfg: ModelConfig,
+                  cache: Dict[str, torch.Tensor], slot_ids: torch.Tensor,
+                  block_ids: torch.Tensor, *, calibrate: bool = False
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Prefill ``tokens (B, S)`` into the named slots only.
+
+    ``block_ids (B, blocks_per_slot)`` is each slot's table row from the
+    allocator; the prompt's K/V land in its leading ``ceil(S / block_k)``
+    blocks.  ``calibrate=True`` (first admission only) sets the pool's
+    static per-layer scales from this prompt's absmax; later admissions
+    quantize with the existing scales, like decode.
+    """
+    b, s = tokens.shape
+    logits, kvs = forward(params, tokens, cfg)
+    block_k = cache["k_pages"].shape[3]
+    mb = cache["block_table"].shape[1]
+    if block_ids.shape[1] != mb:
+        raise ValueError(f"block_ids {tuple(block_ids.shape)} vs table width {mb}")
+    n_blk = paged_kv.blocks_per_seq(s, block_k)
+    if n_blk > mb:
+        raise ValueError(f"prompt of {s} tokens needs {n_blk} blocks > {mb}")
+    k_all = torch.stack([k for k, _ in kvs])        # (L, B, Hkv, S, hd)
+    v_all = torch.stack([v for _, v in kvs])
+    pad = n_blk * block_k - s
+    if pad:
+        k_all = torch.nn.functional.pad(k_all, (0, 0, 0, pad))
+        v_all = torch.nn.functional.pad(v_all, (0, 0, 0, pad))
+    if calibrate:
+        cache["scale_k"].copy_(qlib.absmax_scale(k_all, axis=(1, 2, 3, 4)))
+        cache["scale_v"].copy_(qlib.absmax_scale(v_all, axis=(1, 2, 3, 4)))
+
+    def to_blocks(x_q):
+        # (L, B, Hkv, n_blk*bk, hd) -> (L, B*n_blk, Hkv, bk, hd)
+        nl, _, hkv, _, hd = x_q.shape
+        x_q = x_q.reshape(nl, b, hkv, n_blk, block_k, hd)
+        return x_q.permute(0, 1, 3, 2, 4, 5).reshape(
+            nl, b * n_blk, hkv, block_k, hd)
+
+    flat_ids = block_ids[:, :n_blk].reshape(-1).long()
+    cache["k_pages"][:, flat_ids] = to_blocks(
+        qlib.quantize(k_all, cache["scale_k"]))
+    cache["v_pages"][:, flat_ids] = to_blocks(
+        qlib.quantize(v_all, cache["scale_v"]))
+    slots = slot_ids.long()
+    cache["block_table"][slots] = block_ids.to(torch.int32)
+    cache["length"][slots] = s
+    return logits[:, s - 1], cache
+
+
+def decode_step(params, token: torch.Tensor, cfg: ModelConfig,
+                cache: Dict[str, torch.Tensor]
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """token (B,) -> logits (B, vocab_padded); every slot's length grows
+    by one (idle slots write into the trash block)."""
+    x = embed_tokens(params, token[:, None], cfg)       # (B, 1, d)
+    for i, lp in enumerate(params["layers"]):
+        layer_cache = {"k_pages": cache["k_pages"][i],
+                       "v_pages": cache["v_pages"][i],
+                       "scale_k": cache["scale_k"][i],
+                       "scale_v": cache["scale_v"][i],
+                       "block_table": cache["block_table"],
+                       "length": cache["length"]}
+        h = L.rmsnorm_apply(lp["norm1"], x)
+        x = x + A.attn_block_decode_paged(lp["attn"], h, layer_cache, cfg)
+        h = L.rmsnorm_apply(lp["norm2"], x)
+        x = x + M.mlp_apply(lp["mlp"], h, cfg)
+    cache["length"] += 1
+    return unembed(params, x, cfg)[:, 0], cache

@@ -1,0 +1,174 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here is marked ``gpu`` and skips without a CUDA device; this
+file imports no JAX, so it runs on the machine with the card:
+
+    PYTHONPATH=src python -m pytest -m gpu tests/test_torch_cuda.py
+
+Tolerance: ``rtol = atol = 2e-5`` at ``s_v = 0.02`` (output scale up to
+127 * s_v = 2.54), because the kernel takes the e*V partial sums in another
+order than the plain version's matmul; integer stages are identical.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import paged_kv
+from repro_torch.core import quantization as qlib
+from repro_torch.core.lut import LUTConfig, build_exp_lut, build_recip_lut
+from repro_torch.kernels import ops, splitmax_attn, splitmax_decode
+
+CFG = LUTConfig(scale_z=8.0 / 127)
+SCALES = (0.01, 0.012, 0.02)
+TOL = dict(rtol=2e-5, atol=2e-5)
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    from repro_torch import resolve_device
+    return resolve_device("cuda")
+
+
+def _luts(dev):
+    return (torch.from_numpy(build_exp_lut(CFG)).to(dev),
+            torch.from_numpy(build_recip_lut(CFG)).to(dev))
+
+
+def _i8(rng, shape, dev):
+    return torch.from_numpy(rng.integers(-128, 128, shape).astype(np.int8)
+                            ).to(dev)
+
+
+@pytest.mark.parametrize("shape", [
+    # b, hq, hkv, sq, sk, d
+    (1, 32, 4, 250, 250, 64),     # the serving prefill
+    (2, 8, 2, 100, 100, 16),      # the smoke model's heads
+    (1, 8, 8, 128, 256, 128),     # MHA, rectangular
+    (1, 4, 1, 1, 1, 32),          # one token
+    (2, 4, 2, 33, 33, 64),        # one past a 32-row tile
+])
+@pytest.mark.parametrize("mode", ["causal", "bidir", "window", "kv_valid"])
+def test_prefill_kernel_matches_plain(rng, cuda, shape, mode):
+    b, hq, hkv, sq, sk, d = shape
+    q, k, v = (_i8(rng, s, cuda) for s in
+               ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d)))
+    m_z = ops.requant_multiplier(torch.tensor(SCALES[0], device=cuda),
+                                 torch.tensor(SCALES[1], device=cuda), d,
+                                 CFG).reshape(())
+    args = (q, k, v, m_z, torch.tensor(SCALES[2], device=cuda), *_luts(cuda))
+    kw = dict(cfg=CFG, causal=mode != "bidir",
+              window=24 if mode == "window" else None,
+              kv_valid_len=(sk + 1) // 2 if mode == "kv_valid" else None)
+    before = splitmax_attn.launches
+    got = splitmax_attn.splitmax_attention_cuda(*args, **kw)
+    want = splitmax_attn.splitmax_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert splitmax_attn.launches == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+
+
+@pytest.mark.parametrize("shape", [
+    # b, hq, hkv, mb, d, bk
+    (8, 32, 4, 10, 64, 32),       # the serving decode
+    (3, 8, 2, 4, 16, 8),          # the smoke model's heads
+    (1, 8, 1, 2, 128, 64),
+])
+@pytest.mark.parametrize("window", [None, 20])
+def test_decode_kernel_matches_plain_and_never_reads_trash(rng, cuda, shape,
+                                                           window):
+    b, hq, hkv, mb, d, bk = shape
+    nb = 1 + b * mb
+    kp, vp = _i8(rng, (nb, hkv, bk, d), cuda), _i8(rng, (nb, hkv, bk, d), cuda)
+    kp[paged_kv.TRASH_BLOCK] = 127
+    vp[paged_kv.TRASH_BLOCK] = 127
+    lens = [1 + (i * 37) % (mb * bk) for i in range(b)]
+    lens[0] = bk                                  # on a block boundary
+    table = np.zeros((b, mb), np.int32)
+    ids = rng.permutation(np.arange(1, nb))
+    for i, n in enumerate(lens):
+        live = paged_kv.blocks_per_seq(n, bk)
+        table[i, :live] = ids[i * mb:i * mb + live]
+    if b > 1:
+        table[-1] = paged_kv.TRASH_BLOCK          # an idle slot
+        lens[-1] = 1
+    q = torch.from_numpy(rng.normal(size=(b, hq, d)).astype(np.float32)).to(cuda)
+    s_q = qlib.absmax_scale(q, axis=(1, 2)).reshape(-1)
+    s_k = torch.tensor(SCALES[1], device=cuda)
+    args = [q, kp, vp, torch.from_numpy(table).to(cuda),
+            ops.requant_multiplier(s_q, s_k, d, CFG), s_q,
+            torch.tensor(SCALES[2], device=cuda),
+            torch.tensor(lens, dtype=torch.int32, device=cuda), *_luts(cuda)]
+    before = splitmax_decode.launches
+    got = splitmax_decode.splitmax_decode_fused_paged_cuda(*args, cfg=CFG,
+                                                           window=window)
+    want = splitmax_decode.splitmax_decode_fused_paged_plain(*args, cfg=CFG,
+                                                             window=window)
+    kp[paged_kv.TRASH_BLOCK] = -77
+    vp[paged_kv.TRASH_BLOCK] = -77
+    again = splitmax_decode.splitmax_decode_fused_paged_cuda(*args, cfg=CFG,
+                                                             window=window)
+    torch.cuda.synchronize()
+    assert splitmax_decode.launches == before + 2
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+    assert torch.equal(got, again)
+    if b > 1:
+        assert not got[-1].any()
+
+
+def test_wrappers_raise_on_bad_input(rng, cuda):
+    q, k, v = (_i8(rng, s, cuda) for s in
+               ((1, 2, 16, 16), (1, 1, 16, 16), (1, 1, 16, 16)))
+    s = torch.tensor(0.01, device=cuda)
+    luts = _luts(cuda)
+    bad = [
+        (q.float(), k, v),                                  # float q
+        (q[..., :8].contiguous(), k[..., :8].contiguous(),
+         v[..., :8].contiguous()),                          # head_dim 8
+        (q.transpose(2, 3), k, v),                          # not contiguous
+        (q.cpu(), k, v),                                    # mixed devices
+    ]
+    for qq, kk, vv in bad:
+        with pytest.raises(ValueError):
+            splitmax_attn.splitmax_attention_cuda(qq, kk, vv, s, s, *luts,
+                                                  cfg=CFG)
+    pages = _i8(rng, (3, 1, 8, 16), cuda)
+    one = torch.ones(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):                         # bf16 q
+        splitmax_decode.splitmax_decode_fused_paged_cuda(
+            torch.zeros(1, 2, 16, device=cuda, dtype=torch.bfloat16), pages,
+            pages, torch.ones(1, 2, dtype=torch.int32, device=cuda),
+            s.reshape(1), s.reshape(1), s, one, *luts, cfg=CFG)
+
+
+def test_smoke_serving_runs_through_the_kernels(cuda):
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve as srv
+    from repro_torch.models import transformer as T
+
+    def tree_to(tree, device):
+        if isinstance(tree, dict):
+            return {k: tree_to(v, device) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [tree_to(v, device) for v in tree]
+        return tree.to(device)
+
+    cfg = get_arch("tinyllama_1p1b").smoke.replace(dtype="float32")
+    cpu_params = T.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, 20, dtype=np.int32)
+               for _ in range(6)]
+    gens = [int(g) for g in rng.integers(6, 13, 6)]
+    splitmax_attn.launches = splitmax_decode.launches = 0
+    stats = srv.serve_paged(tree_to(cpu_params, cuda), cfg, prompts, slots=3,
+                            gen=12, gens=gens, block_k=8)
+    assert stats["served"] == 6 and stats["leaked_blocks"] == 0
+    assert splitmax_attn.launches == stats["slot_prefills"] * cfg.n_layers
+    assert splitmax_decode.launches == stats["decode_steps"] * cfg.n_layers
+    # the same weights on the CPU (plain versions) give the same tokens
+    cpu_stats = srv.serve_paged(cpu_params, cfg, prompts, slots=3, gen=12,
+                                gens=gens, block_k=8)
+    assert stats["finished"] == cpu_stats["finished"]
