@@ -1,6 +1,7 @@
 """CIMple attention datapath, int8 serving mode (port of
-``repro/core/attention.py``: the int8 branch of ``attention`` and the fused
-int8 branch of ``paged_decode_attention``).
+``repro/core/attention.py``: the int8 branches of ``attention``,
+``paged_decode_attention`` -- fused and composed -- and
+``paged_verify_attention``).
 
 Q/K/V are quantized to int8 with absmax scales, scores pass the 32b->8b
 requant unit, and the exp + reciprocal LUTs replace the softmax — through
@@ -25,6 +26,7 @@ class AttentionSpec:
     """Static attention configuration of the int8 serving datapath."""
     scale_z: float = 8.0 / 127         # score quant scale (clip ~ +-8)
     window: Optional[int] = None       # sliding-window size, None = full
+    fused: bool = True                 # decode: in-kernel quantize of q
 
     @property
     def lut_config(self) -> LUTConfig:
@@ -63,11 +65,40 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     """(B,Hq,D) query vs the paged int8 pool -> (B,Hq,D), dtype of q.
 
     ``s_q`` is one scale per slot, the absmax of that slot's own query, so a
-    slot's numerics never depend on its batch neighbours.
+    slot's numerics never depend on its batch neighbours.  ``spec.fused``
+    quantizes q inside the decode kernel; otherwise q is quantized here and
+    the composed kernel takes the int8 query (the same values either way).
     """
     s_q = qlib.absmax_scale(q, axis=(1, 2))                  # (B,1,1)
     exp_lut, recip_lut = luts_for(spec.scale_z, q.device)
-    out = ops.splitmax_decode_fused_paged(
+    if spec.fused:
+        out = ops.splitmax_decode_fused_paged(
+            q, k_pages, v_pages, block_table, s_q, s_k, s_v, cache_len,
+            exp_lut, recip_lut, cfg=spec.lut_config, window=spec.window)
+    else:
+        out = ops.splitmax_decode_paged(
+            qlib.quantize(q, s_q), k_pages, v_pages, block_table, s_q, s_k,
+            s_v, cache_len, exp_lut, recip_lut, cfg=spec.lut_config,
+            window=spec.window)
+    return out.to(q.dtype)
+
+
+def paged_verify_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, block_table: torch.Tensor,
+                           s_k: torch.Tensor, s_v: torch.Tensor,
+                           cache_len: torch.Tensor, spec: AttentionSpec
+                           ) -> torch.Tensor:
+    """(B,Hq,T,D) draft queries vs the paged int8 pool -> (B,Hq,T,D), dtype
+    of q.
+
+    All T tokens' K/V are already in the pool (``cache_len`` counts them)
+    and query t attends ``cache_len - (T-1-t)`` positions.  ``s_q[b, t]`` is
+    the absmax scale of slot b's token-t query, exactly the per-slot scale
+    the sequential decode computes at that step.
+    """
+    s_q = qlib.absmax_scale(q, axis=(1, 3))[:, 0, :, 0]      # (B,T)
+    exp_lut, recip_lut = luts_for(spec.scale_z, q.device)
+    out = ops.splitmax_decode_fused_verify_paged(
         q, k_pages, v_pages, block_table, s_q, s_k, s_v, cache_len,
         exp_lut, recip_lut, cfg=spec.lut_config, window=spec.window)
     return out.to(q.dtype)

@@ -11,7 +11,12 @@ blocks_per_slot)``, so logical position ``p`` of slot ``s`` lives at
 
 Block id 0 is the **trash block**: a freed slot points its whole row at it,
 so a retired slot that keeps stepping in the fixed-shape batch writes into
-block 0 instead of a recycled block.  The decode kernel never reads it.
+block 0 instead of a recycled block.  The decode and verify kernels never
+read it.
+
+Speculative serving adds a multi-token append (:func:`append_kv`) and
+rollback after rejections: :func:`truncate_lengths` rewinds lengths only,
+:func:`rollback_slot` and :func:`tail_blocks` also hand tail blocks back.
 
 Unlike the JAX reference, which returns new arrays, the pool tensors here
 are updated **in place** — the port's equivalent of ``donate_argnums``.
@@ -148,3 +153,59 @@ def release_slot(pool: Dict[str, torch.Tensor], slot: int) -> None:
     length, in place.  The allocator recycles the real blocks separately."""
     pool["block_table"][slot] = TRASH_BLOCK
     pool["length"][slot] = 0
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding: multi-token append + rejection rollback
+# ---------------------------------------------------------------------------
+
+def append_kv(pages: torch.Tensor, block_table: torch.Tensor,
+              base_len: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """Scatter ``T`` new tokens per slot into one layer's pool, in place.
+
+    ``vals (B, T, H, d)`` lands at logical positions ``base_len[b] + t``
+    through the slot's table row.  Positions are clamped to the table's
+    capacity, so an over-run slot (retired but still stepping) writes into
+    its last addressed cell instead of past its row.
+    """
+    b, t = vals.shape[:2]
+    mb = block_table.shape[1]
+    bk = pages.shape[2]
+    pos = torch.clamp_max(
+        base_len.to(torch.int64)[:, None]
+        + torch.arange(t, device=base_len.device)[None, :], mb * bk - 1)
+    blk = torch.gather(block_table.to(torch.int64), 1, pos // bk)   # (B, T)
+    # advanced indices (blk, pos % bk) are non-adjacent, so the indexed dims
+    # come first: the target is (B, T, H, d), the shape of vals
+    pages[blk, :, pos % bk, :] = vals
+    return pages
+
+
+def rollback_slot(pool: Dict[str, torch.Tensor], slot: int,
+                  new_len: int) -> None:
+    """Truncate one slot to ``new_len`` after a rejection, in place: its
+    length drops and table entries past its last still-occupied block point
+    at the trash block, so a later reuse of those blocks is never read
+    through this slot's row.  The host frees the ids (:func:`tail_blocks`)."""
+    bk = pool["k_pages"].shape[-2]
+    keep = (new_len + bk - 1) // bk
+    pool["block_table"][slot, keep:] = TRASH_BLOCK
+    pool["length"][slot] = new_len
+
+
+def tail_blocks(block_ids: Sequence[int], new_len: int,
+                block_k: int) -> List[int]:
+    """Host half of the rollback: the slot's block ids that lie wholly past
+    ``new_len``, i.e. what goes back to the allocator.  The trash block is
+    filtered out (freeing it would corrupt every retired slot)."""
+    keep = blocks_per_seq(new_len, block_k)
+    return [int(i) for i in block_ids[keep:] if int(i) != TRASH_BLOCK]
+
+
+def truncate_lengths(pool: Dict[str, torch.Tensor],
+                     new_lens: torch.Tensor) -> None:
+    """Batch-wide length-only rewind after verify, in place.  Rejected
+    tokens' K/V stay in the blocks past the logical end, masked by every
+    kernel and overwritten by the next append; the slots keep their
+    blocks."""
+    pool["length"].copy_(new_lens)

@@ -1,6 +1,8 @@
-// Shared device code of the split-softmax kernels (prefill and paged decode).
+// Shared device code of the split-softmax kernels (prefill, paged decode and
+// paged verify).
 //
 // The arithmetic is the reference's, stage for stage:
+//   q_q = clip(rint(q / s_q), -128, 127)               fused entries only
 //   z32 = q . k            int8 x int8 dot, int32 accumulation (__dp4a)
 //   z_q = clip(rint(f32(z32) * m_z), -128, 127)       32b -> 8b requant unit
 //   e   = ExpLUT[z_q + 128]                            exact table read
@@ -43,11 +45,28 @@ __device__ __forceinline__ int dot_i8(const int* a, const int* b, int words) {
   return z;
 }
 
+// float -> int8 as core.quantization.quantize: IEEE division by the scale,
+// round half to even, saturate.
+__device__ __forceinline__ int8_t quantize_i8(float x, float scale) {
+  const float r = rintf(__fdiv_rn(x, scale));
+  return static_cast<int8_t>(fminf(fmaxf(r, -128.f), 127.f));
+}
+
 // The 32b -> 8b quantization unit followed by the exp-LUT read.
 __device__ __forceinline__ float requant_exp(int z32, float m_z, const int* exp_lut) {
   float z = rintf(__fmul_rn(static_cast<float>(z32), m_z));
   z = fminf(fmaxf(z, -128.f), 127.f);
   return static_cast<float>(exp_lut[static_cast<int>(z) + 128]);
+}
+
+// One output lane's e * V over a tile: a += e[j] * v[j * d], j in order, one
+// explicit fused multiply-add each.  The decode and verify kernels both take
+// it, so a verify row accumulates exactly as the decode kernel does; a masked
+// lane (e = 0) leaves a unchanged.
+__device__ __forceinline__ float accumulate_ev(float a, const float* e, const int8_t* v,
+                                               int d, int n) {
+  for (int j = 0; j < n; ++j) a = __fmaf_rn(e[j], static_cast<float>(v[j * d]), a);
+  return a;
 }
 
 // Shared-memory carve-up, each region aligned to 16 bytes.

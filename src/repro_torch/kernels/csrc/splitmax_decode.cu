@@ -1,9 +1,13 @@
-// Fused paged split-softmax decode: f32 query of one new token per slot vs
-// the paged int8 KV pool, read through each slot's block table.
+// Paged split-softmax decode: the query of one new token per slot vs the
+// paged int8 KV pool, read through each slot's block table.  Two entries
+// share one kernel body, a compile-time variant apart:
+//   fused    (kQuantizeQ = true):  f32 q, quantized in-kernel with s_q[b];
+//   composed (kQuantizeQ = false): int8 q_q already quantized by the caller.
 //
 // Replaces: repro/kernels/splitmax_decode.py::splitmax_decode_fused_paged_pallas
-//           (_paged_decode_call, _paged_decode_kernel with fused=True,
-//            _quantize_q_tile, _accumulate_tile, _finalize_tile).
+//           and ::splitmax_decode_paged_pallas (_paged_decode_call,
+//           _paged_decode_kernel with fused=True / fused=False,
+//           _quantize_q_tile, _accumulate_tile, _finalize_tile).
 //
 // What bounds it on an H100: every decode step reads each live slot's int8
 // K and V once (2 * Hkv * len * D bytes per slot per layer, ~1.1 MB for 8
@@ -12,8 +16,10 @@
 //
 // Design, simple and right first:
 //  * one block of 128 threads per (slot, KV head) with its GQA group of
-//    Hq / Hkv query rows; the block quantizes its rows in-kernel with the
-//    slot's own s_q (round half to even of an IEEE division, then clip);
+//    Hq / Hkv query rows; the fused entry quantizes its rows in-kernel with
+//    the slot's own s_q (round half to even of an IEEE division, then clip),
+//    which is bit for bit what the composed entry's caller does with
+//    torch.round(q / s_q), so both entries give equal outputs;
 //  * each block loads its own cache length and table row (no scalar
 //    prefetch) and loops over only the ceil(len / block_k) live table
 //    entries: no tile past the length is touched;
@@ -32,8 +38,9 @@ namespace {
 
 using namespace splitmax;
 
+template <bool kQuantizeQ>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const float* __restrict__ q, const int8_t* __restrict__ k_pages,
+paged_decode_kernel(const void* __restrict__ q_in, const int8_t* __restrict__ k_pages,
                     const int8_t* __restrict__ v_pages, const int* __restrict__ table,
                     const float* __restrict__ m_z, const float* __restrict__ s_q,
                     const float* __restrict__ s_v_ptr, const int* __restrict__ cache_len,
@@ -59,17 +66,20 @@ paged_decode_kernel(const float* __restrict__ q, const int8_t* __restrict__ k_pa
   const int b = blockIdx.y;
   const int len = cache_len[b];
   const float mz = m_z[b];
-  const float sq = s_q[b];
   const float s_v = *s_v_ptr;
 
   for (int i = tid; i < 256; i += kThreads) exp_s[i] = exp_lut[i];
   for (int i = tid; i < n_recip; i += kThreads) recip_s[i] = recip_lut_g[i];
   for (int i = tid; i < group; i += kThreads) s_s[i] = 0.f;
-  // stage 0 of the fused datapath: this slot's f32 query rows -> int8 grid
-  const float* qg = q + (static_cast<size_t>(b) * hq + hk * group) * d;
-  for (int i = tid; i < group * d; i += kThreads) {
-    const float x = rintf(__fdiv_rn(qg[i], sq));
-    q_s[i] = static_cast<int8_t>(fminf(fmaxf(x, -128.f), 127.f));
+  const size_t q0 = (static_cast<size_t>(b) * hq + hk * group) * d;
+  if constexpr (kQuantizeQ) {
+    // stage 0 of the fused datapath: this slot's f32 query rows -> int8 grid
+    const float* qg = static_cast<const float*>(q_in) + q0;
+    const float sq = s_q[b];
+    for (int i = tid; i < group * d; i += kThreads) q_s[i] = quantize_i8(qg[i], sq);
+  } else {
+    const int8_t* qg = static_cast<const int8_t*>(q_in) + q0;
+    for (int i = tid; i < group * d; i += kThreads) q_s[i] = qg[i];
   }
 
   const int n_out = group * d;
@@ -115,16 +125,13 @@ paged_decode_kernel(const float* __restrict__ q, const int8_t* __restrict__ k_pa
       const int o = tid + u * kThreads;
       if (o < n_out) {
         const int g = o / d, c = o % d;
-        float a = acc[u];
-        for (int j = 0; j < block_k; ++j)
-          a += e_s[g * e_stride + j] * static_cast<float>(v_s[j * d + c]);
-        acc[u] = a;
+        acc[u] = accumulate_ev(acc[u], e_s + g * e_stride, v_s + c, d, block_k);
       }
     }
   }
   __syncthreads();
 
-  float* og = out + (static_cast<size_t>(b) * hq + hk * group) * d;
+  float* og = out + q0;
 #pragma unroll
   for (int u = 0; u < kMaxOut; ++u) {
     const int o = tid + u * kThreads;
@@ -141,11 +148,36 @@ size_t smem_bytes(int group, int d, int block_k, int recip_bits) {
          align16(block_k * (d / 4 + 1) * 4) + block_k * d;
 }
 
+template <bool kQuantizeQ>
+int launch(const void* q, const void* k_pages, const void* v_pages, const void* table,
+           const void* m_z, const void* s_q, const void* s_v, const void* cache_len,
+           const void* exp_lut, const void* recip_lut, void* out, int b, int hq, int hkv,
+           int d, int block_k, int max_blocks, int window, int recip_bits,
+           int recip_frac_bits, void* stream) {
+  const size_t smem = smem_bytes(hq / hkv, d, block_k, recip_bits);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        paged_decode_kernel<kQuantizeQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid(hkv, b);
+  paged_decode_kernel<kQuantizeQ>
+      <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          q, static_cast<const int8_t*>(k_pages), static_cast<const int8_t*>(v_pages),
+          static_cast<const int*>(table), static_cast<const float*>(m_z),
+          static_cast<const float*>(s_q), static_cast<const float*>(s_v),
+          static_cast<const int*>(cache_len), static_cast<const int*>(exp_lut),
+          static_cast<const int*>(recip_lut), static_cast<float*>(out), hq, hkv, d,
+          block_k, max_blocks, window, recip_bits, recip_frac_bits);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
-// Returns the cudaError_t of the launch (0 = cudaSuccess).
+// Both return the cudaError_t of the launch (0 = cudaSuccess).
 int splitmax_decode_fused_paged_launch(const void* q, const void* k_pages,
                                        const void* v_pages, const void* table,
                                        const void* m_z, const void* s_q, const void* s_v,
@@ -154,23 +186,20 @@ int splitmax_decode_fused_paged_launch(const void* q, const void* k_pages,
                                        int hkv, int d, int block_k, int max_blocks,
                                        int window, int recip_bits, int recip_frac_bits,
                                        void* stream) {
-  const size_t smem = smem_bytes(hq / hkv, d, block_k, recip_bits);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        paged_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const dim3 grid(hkv, b);
-  paged_decode_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const int8_t*>(k_pages),
-      static_cast<const int8_t*>(v_pages), static_cast<const int*>(table),
-      static_cast<const float*>(m_z), static_cast<const float*>(s_q),
-      static_cast<const float*>(s_v), static_cast<const int*>(cache_len),
-      static_cast<const int*>(exp_lut), static_cast<const int*>(recip_lut),
-      static_cast<float*>(out), hq, hkv, d, block_k, max_blocks, window, recip_bits,
-      recip_frac_bits);
-  return static_cast<int>(cudaGetLastError());
+  return launch<true>(q, k_pages, v_pages, table, m_z, s_q, s_v, cache_len, exp_lut,
+                      recip_lut, out, b, hq, hkv, d, block_k, max_blocks, window,
+                      recip_bits, recip_frac_bits, stream);
+}
+
+int splitmax_decode_paged_launch(const void* q_q, const void* k_pages, const void* v_pages,
+                                 const void* table, const void* m_z, const void* s_v,
+                                 const void* cache_len, const void* exp_lut,
+                                 const void* recip_lut, void* out, int b, int hq, int hkv,
+                                 int d, int block_k, int max_blocks, int window,
+                                 int recip_bits, int recip_frac_bits, void* stream) {
+  return launch<false>(q_q, k_pages, v_pages, table, m_z, nullptr, s_v, cache_len,
+                       exp_lut, recip_lut, out, b, hq, hkv, d, block_k, max_blocks,
+                       window, recip_bits, recip_frac_bits, stream);
 }
 
 const char* splitmax_decode_error_string(int code) {

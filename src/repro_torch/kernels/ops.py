@@ -44,6 +44,36 @@ def splitmax_attention(q_q, k_q, v_q, s_q, s_k, s_v, exp_lut, recip_lut, *,
               kv_valid_len=kv_valid_len)
 
 
+def _per_slot_scale(s_q: torch.Tensor, b: int) -> torch.Tensor:
+    """A scalar or one scale per slot (any shape with B or 1 elements) ->
+    (B,) f32."""
+    return s_q.to(torch.float32).reshape(-1).expand(b).contiguous()
+
+
+def _per_token_scale(s_q: torch.Tensor, b: int, t: int) -> torch.Tensor:
+    """A verify scale -- scalar, (T,) or (B, T) -- -> (B, T) f32."""
+    s = s_q.to(torch.float32)
+    if s.dim() < 2:
+        s = s.reshape(1, -1)
+    return s.expand(b, t).contiguous()
+
+
+def splitmax_decode_paged(q_q, k_pages, v_pages, block_table, s_q, s_k, s_v,
+                          cache_len, exp_lut, recip_lut, *, cfg: LUTConfig,
+                          window: Optional[int] = None) -> torch.Tensor:
+    """Composed paged decode: int8 q_q (B,Hq,D) + block-table gather ->
+    (B,Hq,D) f32.  ``s_q`` is the scale ``q_q`` was quantized with, a
+    scalar or one per slot; it enters only through ``m_z``."""
+    b = q_q.shape[0]
+    s_q = _per_slot_scale(s_q, b)
+    m_z = requant_multiplier(s_q, s_k.reshape(()), q_q.shape[-1], cfg)
+    fn = (splitmax_decode.splitmax_decode_paged_cuda if q_q.is_cuda
+          else splitmax_decode.splitmax_decode_paged_plain)
+    return fn(q_q.contiguous(), k_pages, v_pages, block_table, m_z,
+              s_v.to(torch.float32).reshape(()), cache_len, exp_lut,
+              recip_lut, cfg=cfg, window=window)
+
+
 def splitmax_decode_fused_paged(q, k_pages, v_pages, block_table, s_q, s_k,
                                 s_v, cache_len, exp_lut, recip_lut, *,
                                 cfg: LUTConfig,
@@ -52,10 +82,29 @@ def splitmax_decode_fused_paged(q, k_pages, v_pages, block_table, s_q, s_k,
     block-table gather -> (B,Hq,D) f32.  ``s_q`` is a scalar or one scale
     per slot (any shape with B or 1 elements)."""
     b = q.shape[0]
-    s_q = s_q.to(torch.float32).reshape(-1).expand(b).contiguous()
+    s_q = _per_slot_scale(s_q, b)
     m_z = requant_multiplier(s_q, s_k.reshape(()), q.shape[-1], cfg)
     fn = (splitmax_decode.splitmax_decode_fused_paged_cuda if q.is_cuda
           else splitmax_decode.splitmax_decode_fused_paged_plain)
+    return fn(q.to(torch.float32).contiguous(), k_pages, v_pages,
+              block_table, m_z, s_q, s_v.to(torch.float32).reshape(()),
+              cache_len, exp_lut, recip_lut, cfg=cfg, window=window)
+
+
+def splitmax_decode_fused_verify_paged(q, k_pages, v_pages, block_table, s_q,
+                                       s_k, s_v, cache_len, exp_lut,
+                                       recip_lut, *, cfg: LUTConfig,
+                                       window: Optional[int] = None
+                                       ) -> torch.Tensor:
+    """Paged fused verify: f32-able draft queries q (B,Hq,T,D) vs the pool
+    -> (B,Hq,T,D) f32.  ``s_q`` is a scalar, (T,) or (B,T); ``cache_len``
+    counts all T tokens, and token t attends ``cache_len - (T-1-t)``
+    positions."""
+    b, _, t, d = q.shape
+    s_q = _per_token_scale(s_q, b, t)
+    m_z = requant_multiplier(s_q, s_k.reshape(()), d, cfg)
+    fn = (splitmax_decode.splitmax_decode_fused_verify_paged_cuda if q.is_cuda
+          else splitmax_decode.splitmax_decode_fused_verify_paged_plain)
     return fn(q.to(torch.float32).contiguous(), k_pages, v_pages,
               block_table, m_z, s_q, s_v.to(torch.float32).reshape(()),
               cache_len, exp_lut, recip_lut, cfg=cfg, window=window)

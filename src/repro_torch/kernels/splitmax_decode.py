@@ -1,11 +1,20 @@
-"""Fused paged split-softmax decode: the CUDA kernel's wrapper and its plain
-PyTorch version (port of ``repro/kernels/splitmax_decode.py``, the fused
-paged entry only).
+"""Paged split-softmax decode and speculative verify: the CUDA kernels'
+wrappers and their plain PyTorch versions (port of
+``repro/kernels/splitmax_decode.py``, the paged entries).
 
-One new token per slot: the f32 query ``(B, Hq, D)`` is quantized with the
-slot's own ``s_q`` and streams against the int8 pool ``(num_blocks, Hkv,
-block_k, D)`` through the slot's block-table row, masked at ``cache_len``
-(and the window), giving ``(B, Hq, D)`` f32.
+Three entries, each a hand-written kernel with its plain version:
+
+  * fused decode (``csrc/splitmax_decode.cu``): one new token per slot, the
+    f32 query ``(B, Hq, D)`` is quantized in-kernel with the slot's own
+    ``s_q`` and streams against the int8 pool ``(num_blocks, Hkv, block_k,
+    D)`` through the slot's block-table row, masked at ``cache_len`` (and
+    the window), giving ``(B, Hq, D)`` f32;
+  * composed decode (the same source, a compile-time variant): the query
+    arrives already int8 (``--fused off``);
+  * fused verify (``csrc/splitmax_verify.cu``): the T draft queries
+    ``(B, Hq, T, D)`` of every slot in one launch; token t is quantized with
+    ``s_q[b, t]`` and sees ``cache_len[b] - (T-1-t)`` positions, so each row
+    is the fused decode at that length.
 
 Tiles whose table entry is the trash block (id 0) are dead.  A live slot
 never has one inside its length (the allocator never hands out block 0), so
@@ -26,27 +35,37 @@ from repro_torch.core import quantization as qlib
 from repro_torch.core.lut import LUTConfig
 from repro_torch.kernels import cuda_build
 
-# Launches of the CUDA kernel since the last reset (plain versions and CPU
-# calls never count).
+# Launches of each CUDA kernel since the last reset (plain versions and CPU
+# calls never count): fused decode, composed decode, fused verify.
 launches = 0
+composed_launches = 0
+verify_launches = 0
 
 THREADS = 128
+VERIFY_THREADS = 256          # kVerifyThreads in csrc/splitmax_verify.cu
 MAX_OUT_PER_THREAD = 16       # kMaxOut in csrc/splitmax_common.cuh
-_LIB: Optional[ctypes.CDLL] = None
+_LIBS = {}
 
 
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = cuda_build.load("splitmax_decode")
+def _lib(name: str) -> ctypes.CDLL:
+    """``csrc/<name>.cu``'s library with its launchers' signatures set."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        lib = cuda_build.load(name)
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn = lib.splitmax_decode_fused_paged_launch
-        fn.argtypes = [p] * 11 + [i] * 9 + [p]
-        fn.restype = i
-        lib.splitmax_decode_error_string.argtypes = [i]
-        lib.splitmax_decode_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
+        if name == "splitmax_decode":
+            lib.splitmax_decode_fused_paged_launch.argtypes = [p] * 11 + [i] * 9 + [p]
+            lib.splitmax_decode_paged_launch.argtypes = [p] * 10 + [i] * 9 + [p]
+            lib.splitmax_decode_fused_paged_launch.restype = i
+            lib.splitmax_decode_paged_launch.restype = i
+        else:
+            lib.splitmax_verify_paged_launch.argtypes = [p] * 11 + [i] * 10 + [p]
+            lib.splitmax_verify_paged_launch.restype = i
+        err_fn = getattr(lib, f"{name}_error_string")
+        err_fn.argtypes = [i]
+        err_fn.restype = ctypes.c_char_p
+        _LIBS[name] = lib
+    return lib
 
 
 def live_positions(block_table, cache_len, block_k: int,
@@ -62,18 +81,18 @@ def live_positions(block_table, cache_len, block_k: int,
     return live
 
 
-def splitmax_decode_fused_paged_plain(q, k_pages, v_pages, block_table, m_z,
-                                      s_q, s_v, cache_len, exp_lut, recip_lut,
-                                      *, cfg: LUTConfig,
-                                      window: Optional[int] = None
-                                      ) -> torch.Tensor:
-    """The kernel's function in plain PyTorch: quantize, gather the cache
-    through the table, then the grouped int8 split-softmax decode.
-    ``m_z`` and ``s_q`` are per-slot ``(B,)``."""
-    b, hq, d = q.shape
+# ------------------------------------------------------------ plain versions --
+
+def splitmax_decode_paged_plain(q_q, k_pages, v_pages, block_table, m_z, s_v,
+                                cache_len, exp_lut, recip_lut, *,
+                                cfg: LUTConfig,
+                                window: Optional[int] = None) -> torch.Tensor:
+    """The composed kernel's function in plain PyTorch: gather the cache
+    through the table, then the grouped int8 split-softmax decode of the
+    int8 query ``q_q (B, Hq, D)``.  ``m_z`` is per-slot ``(B,)``."""
+    b, hq, d = q_q.shape
     _, hkv, bk, _ = k_pages.shape
     g = hq // hkv
-    q_q = qlib.quantize(q, s_q[:, None, None])
     k_c = paged_kv.gather_kv(k_pages, block_table).to(torch.float32)
     v_c = paged_kv.gather_kv(v_pages, block_table).to(torch.float32)
     # exact f32 integer dot products (|z32| <= D * 2^14 < 2^24)
@@ -89,42 +108,97 @@ def splitmax_decode_fused_paged_plain(q, k_pages, v_pages, block_table, m_z,
     return out.reshape(b, hq, d)
 
 
-def _check(q, k_pages, v_pages, block_table, m_z, s_q, s_v, cache_len,
-           exp_lut, recip_lut, cfg):
+def splitmax_decode_fused_paged_plain(q, k_pages, v_pages, block_table, m_z,
+                                      s_q, s_v, cache_len, exp_lut, recip_lut,
+                                      *, cfg: LUTConfig,
+                                      window: Optional[int] = None
+                                      ) -> torch.Tensor:
+    """The fused kernel's function in plain PyTorch: quantize each slot's
+    query with its own ``s_q (B,)``, then the composed decode."""
+    return splitmax_decode_paged_plain(
+        qlib.quantize(q, s_q[:, None, None]), k_pages, v_pages, block_table,
+        m_z, s_v, cache_len, exp_lut, recip_lut, cfg=cfg, window=window)
+
+
+def splitmax_decode_fused_verify_paged_plain(q, k_pages, v_pages, block_table,
+                                             m_z, s_q, s_v, cache_len,
+                                             exp_lut, recip_lut, *,
+                                             cfg: LUTConfig,
+                                             window: Optional[int] = None
+                                             ) -> torch.Tensor:
+    """The verify kernel's function in plain PyTorch, the reference's
+    ``_verify_fallback``: token t is the fused decode at ``cache_len -
+    (T-1-t)`` with ``s_q[:, t]`` and ``m_z[:, t]``, stacked on axis 2."""
+    t = q.shape[2]
+    outs = [splitmax_decode_fused_paged_plain(
+        q[:, :, i].contiguous(), k_pages, v_pages, block_table,
+        m_z[:, i].contiguous(), s_q[:, i].contiguous(), s_v,
+        cache_len - (t - 1 - i), exp_lut, recip_lut, cfg=cfg, window=window)
+        for i in range(t)]
+    return torch.stack(outs, dim=2)
+
+
+# ---------------------------------------------------------- kernel wrappers --
+
+def _check(q, q_dtype, per_slot, k_pages, v_pages, block_table, s_v,
+           cache_len, exp_lut, recip_lut, cfg, window, *, tokens: int,
+           threads: int):
+    """Raise ValueError unless the inputs are what the kernels take.
+    ``per_slot`` names the per-slot scale tensors, each ``(B,)`` or, with
+    ``tokens > 1``, ``(B, T)``."""
     dev = q.device
-    for name, t, dt in (("q", q, torch.float32), ("k_pages", k_pages, torch.int8),
-                        ("v_pages", v_pages, torch.int8),
-                        ("block_table", block_table, torch.int32),
-                        ("m_z", m_z, torch.float32), ("s_q", s_q, torch.float32),
-                        ("s_v", s_v, torch.float32),
-                        ("cache_len", cache_len, torch.int32),
-                        ("exp_lut", exp_lut, torch.int32),
-                        ("recip_lut", recip_lut, torch.int32)):
+    named = [("q", q, q_dtype), ("k_pages", k_pages, torch.int8),
+             ("v_pages", v_pages, torch.int8),
+             ("block_table", block_table, torch.int32),
+             ("s_v", s_v, torch.float32), ("cache_len", cache_len, torch.int32),
+             ("exp_lut", exp_lut, torch.int32),
+             ("recip_lut", recip_lut, torch.int32)]
+    named += [(name, t, torch.float32) for name, t in per_slot.items()]
+    for name, t, dt in named:
         if t.device != dev or t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"{name}: need a contiguous {dt} tensor on {dev}, "
                              f"got {t.dtype} on {t.device}")
-    if q.dim() != 3 or k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
-        raise ValueError(f"shapes q {tuple(q.shape)} pages "
-                         f"{tuple(k_pages.shape)} / {tuple(v_pages.shape)}")
-    b, hq, d = q.shape
+    if k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
+        raise ValueError(f"pages {tuple(k_pages.shape)} / {tuple(v_pages.shape)}")
+    b, hq, d = q.shape[0], q.shape[1], q.shape[-1]
     _, hkv, _, dk = k_pages.shape
     if dk != d or hq % hkv:
         raise ValueError(f"q {tuple(q.shape)} does not match pages "
                          f"{tuple(k_pages.shape)}")
-    if d % 16 or (hq // hkv) * d > THREADS * MAX_OUT_PER_THREAD:
-        raise ValueError(f"head_dim {d} x group {hq // hkv}: the kernel takes "
-                         f"a multiple of 16 with group * D <= "
-                         f"{THREADS * MAX_OUT_PER_THREAD}")
+    rows = (hq // hkv) * tokens
+    if d % 16 or rows * d > threads * MAX_OUT_PER_THREAD:
+        raise ValueError(f"head_dim {d} x group {hq // hkv} x {tokens} tokens: "
+                         f"the kernel takes D a multiple of 16 with rows * D "
+                         f"<= {threads * MAX_OUT_PER_THREAD}")
     if block_table.dim() != 2 or block_table.shape[0] != b:
         raise ValueError(f"block_table {tuple(block_table.shape)} for {b} slots")
-    if m_z.shape != (b,) or s_q.shape != (b,) or cache_len.shape != (b,) \
-            or s_v.numel() != 1:
-        raise ValueError("m_z, s_q and cache_len are per-slot (B,); s_v a scalar")
+    want = (b,) if q.dim() == 3 else (b, tokens)
+    for name, t in per_slot.items():
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name} {tuple(t.shape)}: need {want}")
+    if cache_len.shape != (b,) or s_v.numel() != 1:
+        raise ValueError("cache_len is per-slot (B,); s_v a scalar")
     if exp_lut.numel() != 256 or recip_lut.numel() != cfg.recip_table_size:
         raise ValueError("LUT sizes do not match the LUTConfig")
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} is not 16-byte aligned")
+    if window is not None and window < 1:
+        raise ValueError(f"window {window} < 1")
+
+
+def _launch(name: str, fn_name: str, q, pointers, dims, cfg, window, out):
+    """Launch ``fn_name`` of ``csrc/<name>.cu`` on PyTorch's current stream;
+    raises on a refused launch."""
+    lib = _lib(name)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, fn_name)(
+            *(t.data_ptr() for t in pointers), out.data_ptr(), *dims,
+            window or 0, cfg.recip_index_bits, cfg.recip_frac_bits, stream)
+    if err:
+        raise RuntimeError(f"{fn_name} failed: "
+                           + getattr(lib, f"{name}_error_string")(err).decode())
 
 
 def splitmax_decode_fused_paged_cuda(q, k_pages, v_pages, block_table, m_z,
@@ -132,33 +206,83 @@ def splitmax_decode_fused_paged_cuda(q, k_pages, v_pages, block_table, m_z,
                                      *, cfg: LUTConfig,
                                      window: Optional[int] = None
                                      ) -> torch.Tensor:
-    """Launch the CUDA kernel on PyTorch's current stream; raises on bad
-    input or a refused launch.  ``q`` is f32; table ids must lie in the pool
-    (the scheduler's allocator guarantees it)."""
+    """Launch the fused decode kernel; raises on bad input or a refused
+    launch.  ``q`` is f32; table ids must lie in the pool (the scheduler's
+    allocator guarantees it)."""
     global launches
     if not q.is_cuda:
         raise ValueError("splitmax_decode_fused_paged_cuda takes CUDA tensors")
-    _check(q, k_pages, v_pages, block_table, m_z, s_q, s_v, cache_len,
-           exp_lut, recip_lut, cfg)
-    if window is not None and window < 1:
-        raise ValueError(f"window {window} < 1")
+    if q.dim() != 3:
+        raise ValueError(f"q {tuple(q.shape)}: need (B, Hq, D)")
+    _check(q, torch.float32, {"m_z": m_z, "s_q": s_q}, k_pages, v_pages,
+           block_table, s_v, cache_len, exp_lut, recip_lut, cfg, window,
+           tokens=1, threads=THREADS)
     b, hq, d = q.shape
     _, hkv, bk, _ = k_pages.shape
     out = torch.empty((b, hq, d), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out
-    lib = _lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.splitmax_decode_fused_paged_launch(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            block_table.data_ptr(), m_z.data_ptr(), s_q.data_ptr(),
-            s_v.data_ptr(), cache_len.data_ptr(), exp_lut.data_ptr(),
-            recip_lut.data_ptr(), out.data_ptr(), b, hq, hkv, d, bk,
-            block_table.shape[1], window or 0, cfg.recip_index_bits,
-            cfg.recip_frac_bits, stream)
-    if err:
-        raise RuntimeError("splitmax_decode_fused_paged launch failed: "
-                           + lib.splitmax_decode_error_string(err).decode())
+    _launch("splitmax_decode", "splitmax_decode_fused_paged_launch", q,
+            (q, k_pages, v_pages, block_table, m_z, s_q, s_v, cache_len,
+             exp_lut, recip_lut),
+            (b, hq, hkv, d, bk, block_table.shape[1]), cfg, window, out)
     launches += 1
+    return out
+
+
+def splitmax_decode_paged_cuda(q_q, k_pages, v_pages, block_table, m_z, s_v,
+                               cache_len, exp_lut, recip_lut, *,
+                               cfg: LUTConfig,
+                               window: Optional[int] = None) -> torch.Tensor:
+    """Launch the composed decode kernel (int8 ``q_q``, no in-kernel
+    quantize); raises on bad input or a refused launch."""
+    global composed_launches
+    if not q_q.is_cuda:
+        raise ValueError("splitmax_decode_paged_cuda takes CUDA tensors")
+    if q_q.dim() != 3:
+        raise ValueError(f"q_q {tuple(q_q.shape)}: need (B, Hq, D)")
+    _check(q_q, torch.int8, {"m_z": m_z}, k_pages, v_pages, block_table, s_v,
+           cache_len, exp_lut, recip_lut, cfg, window, tokens=1,
+           threads=THREADS)
+    b, hq, d = q_q.shape
+    _, hkv, bk, _ = k_pages.shape
+    out = torch.empty((b, hq, d), dtype=torch.float32, device=q_q.device)
+    if out.numel() == 0:
+        return out
+    _launch("splitmax_decode", "splitmax_decode_paged_launch", q_q,
+            (q_q, k_pages, v_pages, block_table, m_z, s_v, cache_len,
+             exp_lut, recip_lut),
+            (b, hq, hkv, d, bk, block_table.shape[1]), cfg, window, out)
+    composed_launches += 1
+    return out
+
+
+def splitmax_decode_fused_verify_paged_cuda(q, k_pages, v_pages, block_table,
+                                            m_z, s_q, s_v, cache_len,
+                                            exp_lut, recip_lut, *,
+                                            cfg: LUTConfig,
+                                            window: Optional[int] = None
+                                            ) -> torch.Tensor:
+    """Launch the fused verify kernel: f32 ``q (B, Hq, T, D)``, ``m_z`` and
+    ``s_q`` per (slot, token) ``(B, T)``, ``cache_len`` counting all T
+    tokens; raises on bad input or a refused launch."""
+    global verify_launches
+    if not q.is_cuda:
+        raise ValueError("splitmax_decode_fused_verify_paged_cuda takes CUDA "
+                         "tensors")
+    if q.dim() != 4:
+        raise ValueError(f"q {tuple(q.shape)}: need (B, Hq, T, D)")
+    b, hq, t, d = q.shape
+    _check(q, torch.float32, {"m_z": m_z, "s_q": s_q}, k_pages, v_pages,
+           block_table, s_v, cache_len, exp_lut, recip_lut, cfg, window,
+           tokens=t, threads=VERIFY_THREADS)
+    _, hkv, bk, _ = k_pages.shape
+    out = torch.empty((b, hq, t, d), dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out
+    _launch("splitmax_verify", "splitmax_verify_paged_launch", q,
+            (q, k_pages, v_pages, block_table, m_z, s_q, s_v, cache_len,
+             exp_lut, recip_lut),
+            (b, hq, hkv, t, d, bk, block_table.shape[1]), cfg, window, out)
+    verify_launches += 1
     return out

@@ -58,6 +58,16 @@ class PoolManager:
     def release(self, slot: int) -> None:
         self.alloc.free(self.owned.pop(slot))
 
+    def reclaim_tail(self, slot: int, keep_len: int) -> int:
+        """Free the blocks wholly past ``keep_len`` (speculative
+        over-coverage); returns how many went back to the free list."""
+        tail = paged_kv.tail_blocks(self.owned[slot], keep_len, self.bk)
+        if tail:
+            keep = paged_kv.blocks_per_seq(keep_len, self.bk)
+            self.owned[slot] = self.owned[slot][:keep]
+            self.alloc.free(tail)
+        return len(tail)
+
 
 class CacheEngine:
     """Base class of the cache engines (contract in the module docstring)."""

@@ -1,6 +1,9 @@
-"""Serve steps shared by the engines (port of ``repro/launch/steps.py``,
-the paged prefill and decode steps)."""
+"""Serve steps shared by the engines and the speculative scheduler (port
+of ``repro/launch/steps.py``: the paged prefill, decode and verify steps and
+the draft loop)."""
 from __future__ import annotations
+
+import torch
 
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
@@ -25,3 +28,36 @@ def make_decode_step(cfg: ModelConfig):
         return T.decode_step(params, token, cfg, cache)
 
     return decode_step
+
+
+def make_verify_step(cfg: ModelConfig):
+    """(params, tokens (B,T), cache) -> (logits (B,T,V), cache): the
+    speculative target step, one verify launch per layer, whose
+    ``logits[:, t]`` is what the decode step gives after accepting
+    ``tokens[:, :t+1]``."""
+
+    def verify_step(params, tokens, cache):
+        return T.verify_step(params, tokens, cfg, cache)
+
+    return verify_step
+
+
+def make_draft_loop(cfg: ModelConfig, gamma: int):
+    """(params, token (B,), cache) -> (drafts (B, gamma), cache).
+
+    The drafter's ``gamma`` greedy decode steps, argmax on the device and no
+    host read inside the loop (the reference scans them into one launch;
+    here they are ``gamma`` eager steps).  ``drafts[:, 0]`` continues
+    ``token``; the cache comes back ``gamma`` tokens longer and is
+    truncated by the scheduler after verification.
+    """
+
+    def draft_loop(params, token, cache):
+        drafts = []
+        for _ in range(gamma):
+            logits, cache = T.decode_step(params, token, cfg, cache)
+            token = torch.argmax(logits, dim=-1)
+            drafts.append(token)
+        return torch.stack(drafts, dim=1), cache
+
+    return draft_loop

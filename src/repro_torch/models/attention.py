@@ -1,6 +1,6 @@
 """Multi-head attention block wired to the CIMple int8 datapath (port of
-``repro/models/attention.py``: projections, the paged pool and the paged
-decode block).
+``repro/models/attention.py``: projections, the paged pool, the paged
+decode block and the paged speculative-verify block).
 
 Projections run in the model's compute dtype; the score -> LUT softmax ->
 PV epilogue runs through :mod:`repro_torch.core.attention`.  The KV cache
@@ -91,4 +91,35 @@ def attn_block_decode_paged(params, x: torch.Tensor,
         q[:, :, 0, :], k_pages, v_pages, table, s_k, s_v, new_len,
         cfg.attn_spec())
     out = out.reshape(b, 1, cfg.n_heads * hd)
+    return L.linear_apply(params["wo"], out, dtype=cfg.compute_dtype)
+
+
+def attn_block_verify_paged(params, x: torch.Tensor,
+                            layer_cache: Dict[str, torch.Tensor],
+                            cfg: ModelConfig) -> torch.Tensor:
+    """T-token speculative verify against one layer's slice of the pool.
+
+    ``x (B, T, d)`` carries the T verify tokens (the last accepted token and
+    the drafts).  Their K/V are quantized with the static scales and written
+    **in place** through the table at positions ``length + t``; then all T
+    queries attend in one verify launch, token t over ``length + t + 1``
+    positions.  The T-token twin of :func:`attn_block_decode_paged`: the
+    scheduler rolls rejected tokens back, never this function.
+    """
+    b, t, _ = x.shape
+    table = layer_cache["block_table"]
+    base_len = layer_cache["length"]
+    positions = (base_len.to(torch.int64)[:, None]
+                 + torch.arange(t, device=x.device)[None, :])   # (B, T)
+    q, k, v = _project_qkv(params, x, cfg, positions)
+    s_k = layer_cache["scale_k"].reshape(())
+    s_v = layer_cache["scale_v"].reshape(())
+    k_pages, v_pages = layer_cache["k_pages"], layer_cache["v_pages"]
+    paged_kv.append_kv(k_pages, table, base_len,
+                       qlib.quantize(k, s_k).transpose(1, 2))   # (B,T,Hkv,hd)
+    paged_kv.append_kv(v_pages, table, base_len,
+                       qlib.quantize(v, s_v).transpose(1, 2))
+    out = core_attn.paged_verify_attention(
+        q, k_pages, v_pages, table, s_k, s_v, base_len + t, cfg.attn_spec())
+    out = out.transpose(1, 2).reshape(b, t, cfg.n_heads * cfg.hd)
     return L.linear_apply(params["wo"], out, dtype=cfg.compute_dtype)

@@ -30,6 +30,7 @@ class ModelConfig:
     vocab_pad_multiple: int = 256
     scale_z: float = 8.0 / 127        # score quantization scale of the LUTs
     window: Optional[int] = None      # sliding-window attention
+    attn_fused: bool = True           # fused decode kernel; False = composed
 
     @property
     def hd(self) -> int:
@@ -41,7 +42,8 @@ class ModelConfig:
 
     def attn_spec(self) -> AttentionSpec:
         """The int8 serving datapath (the port serves int8 only)."""
-        return AttentionSpec(scale_z=self.scale_z, window=self.window)
+        return AttentionSpec(scale_z=self.scale_z, window=self.window,
+                             fused=self.attn_fused)
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

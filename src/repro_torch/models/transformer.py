@@ -2,17 +2,21 @@
 ``repro/models/transformer.py``, dense family, serve mode).
 
 Parameters are a plain dict laid out like the reference's, except that the
-scanned layer stack is a Python list of per-layer dicts.  Two entry points:
+scanned layer stack is a Python list of per-layer dicts.  Three entry
+points:
 
   * :func:`prefill_paged` — run a prompt, write its int8 K/V into the named
     slots' pool blocks, return last-position logits (per-slot admission);
-  * :func:`decode_step` — one token per slot in, logits out.
+  * :func:`decode_step` — one token per slot in, logits out;
+  * :func:`verify_step` — T tokens per slot in, logits for each out
+    (speculative verify).
 
-The paged cache dict is updated **in place**; both return it for symmetry
+The paged cache dict is updated **in place**; each returns it for symmetry
 with the reference's functional API.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -163,6 +167,14 @@ def prefill_paged(params, tokens: torch.Tensor, cfg: ModelConfig,
     return logits[:, s - 1], cache
 
 
+def _layer_cache(cache: Dict[str, torch.Tensor], i: int
+                 ) -> Dict[str, torch.Tensor]:
+    """Layer ``i``'s views of the pool, with the shared table and lengths."""
+    return {"k_pages": cache["k_pages"][i], "v_pages": cache["v_pages"][i],
+            "scale_k": cache["scale_k"][i], "scale_v": cache["scale_v"][i],
+            "block_table": cache["block_table"], "length": cache["length"]}
+
+
 def decode_step(params, token: torch.Tensor, cfg: ModelConfig,
                 cache: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -170,15 +182,45 @@ def decode_step(params, token: torch.Tensor, cfg: ModelConfig,
     by one (idle slots write into the trash block)."""
     x = embed_tokens(params, token[:, None], cfg)       # (B, 1, d)
     for i, lp in enumerate(params["layers"]):
-        layer_cache = {"k_pages": cache["k_pages"][i],
-                       "v_pages": cache["v_pages"][i],
-                       "scale_k": cache["scale_k"][i],
-                       "scale_v": cache["scale_v"][i],
-                       "block_table": cache["block_table"],
-                       "length": cache["length"]}
         h = L.rmsnorm_apply(lp["norm1"], x)
-        x = x + A.attn_block_decode_paged(lp["attn"], h, layer_cache, cfg)
+        x = x + A.attn_block_decode_paged(lp["attn"], h, _layer_cache(cache, i),
+                                          cfg)
         h = L.rmsnorm_apply(lp["norm2"], x)
         x = x + M.mlp_apply(lp["mlp"], h, cfg)
     cache["length"] += 1
     return unembed(params, x, cfg)[:, 0], cache
+
+
+def _tokenwise(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn`` on each token's contiguous (B, 1, d) slice of ``x (B, T, d)``,
+    concatenated on the token axis.  On the card a float reduction (the
+    RMSNorm mean, the f32 LM-head GEMM) sums in an order chosen by the
+    tensor's row count, so verify runs them at the decode step's shape."""
+    return torch.cat([fn(x[:, i:i + 1].contiguous())
+                      for i in range(x.shape[1])], dim=1)
+
+
+def verify_step(params, tokens: torch.Tensor, cfg: ModelConfig,
+                cache: Dict[str, torch.Tensor]
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Speculative verify: tokens (B, T) -> f32 logits (B, T, vocab_padded).
+
+    The T-token twin of :func:`decode_step`: every layer appends all T
+    tokens' K/V through the block table and runs the verify attention with
+    per-token lengths, so ``logits[:, t]`` is bit for bit what
+    ``decode_step`` gives after accepting ``tokens[:, :t+1]``.  The
+    projections and the MLP run on all B * T rows at once (their bf16 GEMM
+    rows do not depend on the row count, which ``chip_smoke.py`` checks on
+    the card); the norms and the f32 LM head run per token.  Every slot's
+    length grows by T; the scheduler truncates it to the accepted prefix.
+    """
+    t = tokens.shape[1]
+    x = embed_tokens(params, tokens, cfg)               # (B, T, d)
+    for i, lp in enumerate(params["layers"]):
+        h = _tokenwise(functools.partial(L.rmsnorm_apply, lp["norm1"]), x)
+        x = x + A.attn_block_verify_paged(lp["attn"], h, _layer_cache(cache, i),
+                                          cfg)
+        h = _tokenwise(functools.partial(L.rmsnorm_apply, lp["norm2"]), x)
+        x = x + M.mlp_apply(lp["mlp"], h, cfg)
+    cache["length"] += t
+    return _tokenwise(lambda y: unembed(params, y, cfg), x), cache

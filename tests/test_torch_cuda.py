@@ -1,4 +1,8 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card:
+prefill, fused and composed paged decode, paged verify (each verify row
+also bit for bit the decode kernel at its effective length, and the
+composed decode bit for bit the fused one), and smoke-size serving through
+them.
 
 Every test here is marked ``gpu`` and skips without a CUDA device; this
 file imports no JAX, so it runs on the machine with the card:
@@ -144,17 +148,144 @@ def test_wrappers_raise_on_bad_input(rng, cuda):
             s.reshape(1), s.reshape(1), s, one, *luts, cfg=CFG)
 
 
-def test_smoke_serving_runs_through_the_kernels(cuda):
+def _paged_case(rng, dev, lens, hq, hkv, d, bk, *, idle=()):
+    """A shuffled pool, table rows one entry wider than the longest slot
+    (rows end in trash), block 0 poisoned with 127; ``idle`` slots own no
+    block."""
+    b = len(lens)
+    mb = paged_kv.blocks_per_seq(max(lens), bk) + 1
+    nb = 1 + b * mb
+    kp, vp = _i8(rng, (nb, hkv, bk, d), dev), _i8(rng, (nb, hkv, bk, d), dev)
+    kp[paged_kv.TRASH_BLOCK] = 127
+    vp[paged_kv.TRASH_BLOCK] = 127
+    table = np.zeros((b, mb), np.int32)
+    ids = rng.permutation(np.arange(1, nb))
+    for i, n in enumerate(lens):
+        if i not in idle:
+            live = paged_kv.blocks_per_seq(n, bk)
+            table[i, :live] = ids[i * mb:i * mb + live]
+    return (kp, vp, torch.from_numpy(table).to(dev),
+            torch.tensor(lens, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("shape", [
+    # b, hq, hkv, d, bk
+    (8, 32, 4, 64, 32),           # the serving verify
+    (3, 8, 2, 16, 8),             # the smoke model's heads
+])
+@pytest.mark.parametrize("gamma", [2, 4, 8])
+@pytest.mark.parametrize("window", [None, 48])
+def test_verify_kernel_matches_plain_and_decode_rows(rng, cuda, shape, gamma,
+                                                     window):
+    b, hq, hkv, d, bk = shape
+    lens = [int(n) for n in rng.integers(251, 283, b)]
+    lens[0] = gamma                               # token 0 sees one position
+    lens[-1] = 2 * bk + gamma // 2                # rows straddle a boundary
+    idle = (1,) if b > 2 else ()
+    if idle:
+        lens[1] = gamma                           # an idle slot's verify
+    kp, vp, table, lens_t = _paged_case(rng, cuda, lens, hq, hkv, d, bk,
+                                        idle=idle)
+    q = torch.from_numpy(rng.normal(size=(b, hq, gamma, d)).astype(
+        np.float32)).to(cuda)
+    s_q = qlib.absmax_scale(q, axis=(1, 3))[:, 0, :, 0].contiguous()
+    m_z = ops.requant_multiplier(s_q, torch.tensor(SCALES[1], device=cuda),
+                                 d, CFG)
+    s_v = torch.tensor(SCALES[2], device=cuda)
+    args = [q, kp, vp, table, m_z, s_q, s_v, lens_t, *_luts(cuda)]
+    before = splitmax_decode.verify_launches
+    got = splitmax_decode.splitmax_decode_fused_verify_paged_cuda(
+        *args, cfg=CFG, window=window)
+    want = splitmax_decode.splitmax_decode_fused_verify_paged_plain(
+        *args, cfg=CFG, window=window)
+    for t in range(gamma):
+        row = splitmax_decode.splitmax_decode_fused_paged_cuda(
+            q[:, :, t].contiguous(), kp, vp, table, m_z[:, t].contiguous(),
+            s_q[:, t].contiguous(), s_v, lens_t - (gamma - 1 - t),
+            *_luts(cuda), cfg=CFG, window=window)
+        assert torch.equal(got[:, :, t], row), t
+    kp[paged_kv.TRASH_BLOCK] = -77
+    vp[paged_kv.TRASH_BLOCK] = -77
+    again = splitmax_decode.splitmax_decode_fused_verify_paged_cuda(
+        *args, cfg=CFG, window=window)
+    torch.cuda.synchronize()
+    assert splitmax_decode.verify_launches == before + 2
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+    assert torch.equal(got, again)
+    if idle:
+        assert not got[1].any()
+
+
+@pytest.mark.parametrize("shape", [(8, 32, 4, 64, 32), (3, 8, 2, 16, 8)])
+@pytest.mark.parametrize("window", [None, 20])
+def test_composed_kernel_equals_fused_kernel(rng, cuda, shape, window):
+    b, hq, hkv, d, bk = shape
+    lens = [1 + (i * 37) % 282 for i in range(b)]
+    kp, vp, table, lens_t = _paged_case(rng, cuda, lens, hq, hkv, d, bk)
+    q = torch.from_numpy(rng.normal(size=(b, hq, d)).astype(np.float32)
+                         ).to(cuda)
+    s_q = qlib.absmax_scale(q, axis=(1, 2))
+    m_z = ops.requant_multiplier(s_q.reshape(-1),
+                                 torch.tensor(SCALES[1], device=cuda), d, CFG)
+    s_v = torch.tensor(SCALES[2], device=cuda)
+    q_q = qlib.quantize(q, s_q)
+    before = splitmax_decode.composed_launches
+    comp = splitmax_decode.splitmax_decode_paged_cuda(
+        q_q, kp, vp, table, m_z, s_v, lens_t, *_luts(cuda), cfg=CFG,
+        window=window)
+    fused = splitmax_decode.splitmax_decode_fused_paged_cuda(
+        q, kp, vp, table, m_z, s_q.reshape(-1), s_v, lens_t, *_luts(cuda),
+        cfg=CFG, window=window)
+    plain = splitmax_decode.splitmax_decode_paged_plain(
+        q_q, kp, vp, table, m_z, s_v, lens_t, *_luts(cuda), cfg=CFG,
+        window=window)
+    torch.cuda.synchronize()
+    assert splitmax_decode.composed_launches == before + 1
+    assert torch.equal(comp, fused)
+    np.testing.assert_allclose(comp.cpu().numpy(), plain.cpu().numpy(), **TOL)
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def test_smoke_speculative_serving_runs_through_the_kernels(cuda):
     from repro_torch.configs import get_arch
     from repro_torch.launch import serve as srv
     from repro_torch.models import transformer as T
 
-    def tree_to(tree, device):
-        if isinstance(tree, dict):
-            return {k: tree_to(v, device) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [tree_to(v, device) for v in tree]
-        return tree.to(device)
+    cfg = get_arch("tinyllama_1p1b").smoke.replace(dtype="float32")
+    cpu_params = T.init_params(cfg, seed=0, device="cpu")
+    params = _tree_to(cpu_params, cuda)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, 20, dtype=np.int32)
+               for _ in range(6)]
+    gens = [int(g) for g in rng.integers(6, 13, 6)]
+    plain = srv.serve_paged(params, cfg, prompts, slots=3, gen=12, gens=gens,
+                            block_k=8)
+    splitmax_decode.verify_launches = 0
+    stats = srv.serve(params, cfg, prompts, slots=3, gen=12, gens=gens,
+                      block_k=8, draft="self", gamma=3)
+    assert stats["served"] == 6 and stats["leaked_blocks"] == 0
+    assert splitmax_decode.verify_launches == (stats["verify_steps"]
+                                               * cfg.n_layers)
+    assert stats["finished"] == plain["finished"]
+    splitmax_decode.composed_launches = 0
+    composed = srv.serve_paged(params, cfg.replace(attn_fused=False), prompts,
+                               slots=3, gen=12, gens=gens, block_k=8)
+    assert splitmax_decode.composed_launches == (composed["decode_steps"]
+                                                 * cfg.n_layers)
+    assert composed["finished"] == plain["finished"]
+
+
+def test_smoke_serving_runs_through_the_kernels(cuda):
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve as srv
+    from repro_torch.models import transformer as T
 
     cfg = get_arch("tinyllama_1p1b").smoke.replace(dtype="float32")
     cpu_params = T.init_params(cfg, seed=0, device="cpu")
@@ -163,7 +294,7 @@ def test_smoke_serving_runs_through_the_kernels(cuda):
                for _ in range(6)]
     gens = [int(g) for g in rng.integers(6, 13, 6)]
     splitmax_attn.launches = splitmax_decode.launches = 0
-    stats = srv.serve_paged(tree_to(cpu_params, cuda), cfg, prompts, slots=3,
+    stats = srv.serve_paged(_tree_to(cpu_params, cuda), cfg, prompts, slots=3,
                             gen=12, gens=gens, block_k=8)
     assert stats["served"] == 6 and stats["leaked_blocks"] == 0
     assert splitmax_attn.launches == stats["slot_prefills"] * cfg.n_layers
