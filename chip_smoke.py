@@ -9,17 +9,24 @@ Phases, each fatal on failure:
      per source, started together);
   3. each kernel against its plain PyTorch version on the card, at the
      serving shapes of TinyLlama-1.1B (Hq 32, Hkv 4, D 64, block_k 32,
-     250-token prefill, 8-slot ragged decode, gamma 4 and 8 verify) and at
-     edge cases (length 1 or gamma, block boundaries, window, padding mask,
-     an idle slot, block 0 filled with 127 and then -77); every verify row
-     bit for bit the decode kernel at its effective length, and the composed
-     decode bit for bit the fused one; times of the kernel, the plain
-     version, the bound and yardsticks (``F.scaled_dot_product_attention``,
-     a float softmax and not this function, which the port never calls;
-     for verify also gamma decode launches, what one verify replaces);
+     250-token prefill and the dense path's 8 x 282 re-prefill, 8-slot
+     ragged decode over the pool and over a 290-position dense cache,
+     gamma 4 and 8 verify over both) and at edge cases (length 0, 1 or
+     gamma, tile boundaries, window, padding mask, an idle slot, a dense
+     cache no tile divides, block 0 filled with 127 and then -77); every
+     verify row bit for bit the decode kernel at its effective length, the
+     composed decodes bit for bit the fused ones, and the dense decode bit
+     for bit the paged one on the same K/V; the int8 GEMM bit for bit at
+     the reference's shapes, a ragged one and TinyLlama's widths; times of
+     the kernel, the plain version, the bound and yardsticks
+     (``F.scaled_dot_product_attention``, a float softmax and not this
+     function, which the port never calls; for verify also gamma decode
+     launches, what one verify replaces; ``torch._int_mm`` for the GEMM);
   4. the port at the smoke size on the card against the port on the CPU
-     (plain versions), on the same random weights, and smoke-size f32
-     speculative serving on the card against plain serving, token for token;
+     (plain versions), on the same random weights: paged prefill + decode
+     logits, a sliding-window ring-buffer config's logits, and dense
+     serving tokens (fused and composed); then smoke-size f32 speculative
+     serving on the card against plain serving, token for token;
   5. the main paths at full TinyLlama-1.1B width (seeded random weights,
      bf16 compute), each with the kernels' launch counts set to 0 just
      before it and read just after:
@@ -30,7 +37,14 @@ Phases, each fatal on failure:
           ``serve_speculative`` with the target as drafter and with its
           first 4 layers, gamma 4;
        c. the first 8 churn requests through the composed decode
-          (``attn_fused=False``) and the fused one.
+          (``attn_fused=False``) and the fused one;
+       d. the same churn through ``serve_dense`` (``--cache dense``), in
+          turns with ``serve_paged`` (dense, paged, dense), then its first
+          8 requests through the composed and the fused dense decode.
+
+Kernels 7 (dense verify) and 8 (int8 GEMM) have no caller in any model, as
+in the reference: they are checked and timed in phase 3 and stand in the
+JSON line with ``"launches": 0`` and ``"path": null``.
 
 The line before the last is the card's name and power limit; before it, one
 JSON object with each kernel's numbers.  The last line is
@@ -53,6 +67,12 @@ DECODE = dict(b=8, hq=32, hkv=4, d=64, block_k=32, prompt=250, gen=32)
 VERIFY = dict(b=8, hq=32, hkv=4, d=64, block_k=32, lens=(251, 282),
               gammas=(4, 8))
 SERVE = dict(requests=24, slots=8, prompt_len=250, gen=32, block_k=32, seed=0)
+# the dense churn's cache: prompt + max gen + 8 (serve_dense's default)
+DENSE = dict(b=8, hq=32, hkv=4, d=64, s_max=290, lens=(251, 282),
+             gammas=(4, 8))
+REPREFILL = dict(b=8, hq=32, hkv=4, s=282, d=64)
+GEMMS = [(256, 512, 256), (128, 128, 128), (512, 256, 384), (300, 1000, 130),
+         (2048, 2048, 5632)]
 SPEC = dict(gamma=4, prefix_layers=4)
 COMPOSED_REQUESTS = 8
 
@@ -196,33 +216,57 @@ def prefill_phase(torch, F, dev):
         _, _, err, tol, _ = case(**e)
         print(f"[prefill] edge {e}: max_abs_err {err:.3g} (tol {tol:.3g})")
 
+    def prefill_bound(b, hq, hkv, s, d):
+        pairs = b * hq * s * (s + 1) // 2                # causal live (q, k)
+        n_bytes = (b * hq * s * d                        # int8 q
+                   + 2 * b * hkv * s * d                 # int8 k, v
+                   + 4 * b * hq * s * d                  # f32 out
+                   + 4 * (256 + cfg.recip_table_size))   # LUTs
+        # 2D for q.k; 4D for e.V with e (<= 2^15) split into two int8 halves
+        return bound_ms(n_bytes, pairs * 6 * d)
+
+    def sdpa_ms(q, k, v):
+        g = q.shape[1] // k.shape[1]
+        kb, vb = (x.to(torch.bfloat16).repeat_interleave(g, dim=1)
+                  for x in (k, v))
+        qb = q.to(torch.bfloat16)
+        return time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qb, kb, vb, is_causal=True))
+
     p = PREFILL
     args, kw, err, tol, (q, k, v) = case(p["b"], p["hq"], p["hkv"], p["s"],
                                          p["s"], p["d"])
     ms = time_ms(torch, lambda: K.splitmax_attention_cuda(*args, **kw))
     plain_ms = time_ms(torch, lambda: K.splitmax_attention_plain(*args, **kw),
                        iters=10)
-    g = p["hq"] // p["hkv"]
-    kb, vb = (x.to(torch.bfloat16).repeat_interleave(g, dim=1) for x in (k, v))
-    qb = q.to(torch.bfloat16)
-    library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qb, kb, vb, is_causal=True))
-    s = p["s"]
-    pairs = p["b"] * p["hq"] * s * (s + 1) // 2          # causal live (q, k)
-    n_bytes = (p["b"] * p["hq"] * s * p["d"]             # int8 q
-               + 2 * p["b"] * p["hkv"] * s * p["d"]      # int8 k, v
-               + 4 * p["b"] * p["hq"] * s * p["d"]       # f32 out
-               + 4 * (256 + cfg.recip_table_size))       # LUTs
-    # 2D for q.k; 4D for e.V with e (<= 2^15) split into two int8 halves
-    bms, by = bound_ms(n_bytes, pairs * 6 * p["d"])
+    library_ms = sdpa_ms(q, k, v)
+    bms, by = prefill_bound(p["b"], p["hq"], p["hkv"], p["s"], p["d"])
     print(f"[prefill] main {p}: max_abs_err {err:.3g} (tol {tol:.3g}), "
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.5f} ms "
           f"({by}), sdpa bf16 yardstick {library_ms:.4f} ms")
+
+    # the dense path's re-prefill: every slot at once, one per-tensor scale
+    r = REPREFILL
+    rargs, rkw, rerr, rtol, (rq, rk, rv) = case(r["b"], r["hq"], r["hkv"],
+                                                r["s"], r["s"], r["d"])
+    r_ms = time_ms(torch, lambda: K.splitmax_attention_cuda(*rargs, **rkw))
+    r_plain_ms = time_ms(torch, lambda: K.splitmax_attention_plain(
+        *rargs, **rkw), iters=10)
+    r_library_ms = sdpa_ms(rq, rk, rv)
+    r_bms, r_by = prefill_bound(r["b"], r["hq"], r["hkv"], r["s"], r["d"])
+    print(f"[prefill] re-prefill {r}: max_abs_err {rerr:.3g} (tol "
+          f"{rtol:.3g}), kernel {r_ms:.4f} ms, plain {r_plain_ms:.4f} ms, "
+          f"bound {r_bms:.5f} ms ({r_by}), sdpa bf16 yardstick "
+          f"{r_library_ms:.4f} ms")
     return {"name": "splitmax_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/splitmax_attn.cu",
             "replaces": "src/repro/kernels/splitmax_attn.py:181",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": library_ms}
+            "path": "paged admissions, dense re-prefills",
+            "max_abs_err": max(err, rerr), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
+            "reprefill": {"shape": r, "ms": r_ms, "plain_ms": r_plain_ms,
+                          "bound_ms": r_bms, "bound_by": r_by,
+                          "library_ms": r_library_ms}}
 
 
 # ----------------------------------------------------------------- decode --
@@ -307,6 +351,7 @@ def decode_phase(torch, F, dev):
     return {"name": "splitmax_decode_fused_paged", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/splitmax_decode.cu",
             "replaces": "src/repro/kernels/splitmax_decode.py:747",
+            "path": "paged decode steps, draft steps",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "library_ms": library_ms}, args
 
@@ -414,7 +459,8 @@ def verify_phase(torch, F, dev, decode_ms):
             "name": "splitmax_decode_fused_verify_paged", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/splitmax_verify.cu",
             "replaces": "src/repro/kernels/splitmax_decode.py:820",
-            "gamma": gamma, "max_abs_err": err, "ms": ms,
+            "path": "paged speculative verify", "gamma": gamma,
+            "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": library_ms, "decodes_ms": decodes_ms})
     # the serving path runs gamma = SPEC["gamma"]: its row goes in the line
@@ -482,8 +528,296 @@ def composed_phase(torch, F, dev, decode_args):
     return {"name": "splitmax_decode_paged", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/splitmax_decode.cu",
             "replaces": "src/repro/kernels/splitmax_decode.py:709",
+            "path": "paged decode steps, --fused off",
             "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "library_ms": library_ms}
+
+
+# ------------------------------------------------------------ dense decode --
+
+def dense_case(torch, gen, dev, cfg, exp_lut, recip_lut, lens, hq, hkv,
+               s_max, d, gamma=None):
+    """A dense (B, Hkv, S_max, D) int8 cache and f32 queries of one token
+    (or ``gamma``) per slot: the fused kernels' argument list."""
+    from repro_torch.core import quantization as qlib
+    from repro_torch.kernels import ops
+    b = len(lens)
+    k = int8_like(torch, gen, (b, hkv, s_max, d), dev)
+    v = int8_like(torch, gen, (b, hkv, s_max, d), dev)
+    shape = (b, hq, d) if gamma is None else (b, hq, gamma, d)
+    q = torch.randn(shape, generator=gen, device=dev)
+    s_q = (qlib.absmax_scale(q, axis=(1, 2)).reshape(-1) if gamma is None
+           else qlib.absmax_scale(q, axis=(1, 3))[:, 0, :, 0].contiguous())
+    s_k, s_v = pool_scales(torch, dev)
+    return [q, k, v, ops.requant_multiplier(s_q, s_k, d, cfg), s_q, s_v,
+            torch.tensor(lens, dtype=torch.int32, device=dev), exp_lut,
+            recip_lut]
+
+
+def dense_to_pool(torch, gen, k, v, bk):
+    """The dense cache ``k, v (B, Hkv, S, D)`` scattered into a shuffled
+    pool of ``bk``-position blocks: (k_pages, v_pages, table) holding the
+    same logical K/V."""
+    b, hkv, s, d = k.shape
+    mb = -(-s // bk)
+    nb = 1 + b * mb
+    table = (torch.randperm(nb - 1, generator=gen, device=k.device) + 1
+             ).reshape(b, mb).to(torch.int32)
+    pools = []
+    for x in (k, v):
+        tiles = torch.nn.functional.pad(x, (0, 0, 0, mb * bk - s))
+        pool = torch.zeros((nb, hkv, bk, d), dtype=torch.int8,
+                           device=k.device)
+        pool[table.long()] = tiles.reshape(b, hkv, mb, bk, d).permute(
+            0, 2, 1, 3, 4)
+        pools.append(pool)
+    return pools[0], pools[1], table
+
+
+def dense_decode_bytes(b, hq, hkv, d, lens, q_bytes, cfg):
+    return (q_bytes * b * hq * d            # q (f32 fused, int8 composed)
+            + 2 * hkv * d * sum(lens)       # int8 k, v at live positions
+            + 4 * b * 4                     # lens, m_z, s_q, s_v
+            + 4 * b * hq * d                # f32 out
+            + 4 * (256 + cfg.recip_table_size))
+
+
+def dense_decode_phase(torch, F, dev):
+    """Kernels 4 and 6 (fused and composed dense decode) against their plain
+    versions, each other and the paged kernel on the same K/V."""
+    from repro_torch.core import quantization as qlib
+    from repro_torch.core.attention import luts_for
+    from repro_torch.core.lut import LUTConfig
+    from repro_torch.kernels import splitmax_decode as K
+
+    cfg = LUTConfig(scale_z=8.0 / 127)
+    exp_lut, recip_lut = luts_for(cfg.scale_z, dev)
+    p = DENSE
+    hq, hkv, d, s_max = p["hq"], p["hkv"], p["d"], p["s_max"]
+    bk = K.DENSE_BLOCK_K
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def composed_args(args):
+        q, k, v, m_z, s_q, s_v, lens_t, el, rl = args
+        return [qlib.quantize(q, s_q[:, None, None]), k, v, m_z, s_v, lens_t,
+                el, rl]
+
+    def compare(args, what, window=None, idle=()):
+        fused = K.splitmax_decode_fused_cuda(*args, cfg=cfg, window=window)
+        plain = K.splitmax_decode_fused_plain(*args, cfg=cfg, window=window)
+        cargs = composed_args(args)
+        comp = K.splitmax_decode_cuda(*cargs, cfg=cfg, window=window)
+        comp_plain = K.splitmax_decode_plain(*cargs, cfg=cfg, window=window)
+        q, k, v, m_z, s_q, s_v, lens_t, el, rl = args
+        kp, vp, table = dense_to_pool(torch, gen, k, v, bk)
+        paged = K.splitmax_decode_fused_paged_cuda(
+            q, kp, vp, table, m_z, s_q, s_v, lens_t, el, rl, cfg=cfg,
+            window=window)
+        torch.cuda.synchronize()
+        err = float((fused - plain).abs().max())
+        cerr = float((comp - comp_plain).abs().max())
+        tol = tolerance(float(s_v))
+        check(bool(torch.isfinite(fused).all()), f"dense {what}: non-finite")
+        check(err <= tol, f"dense fused {what}: max|kernel-plain| {err:.3g} "
+              f"> {tol:.3g}")
+        check(cerr <= tol, f"dense composed {what}: max|kernel-plain| "
+              f"{cerr:.3g} > {tol:.3g}")
+        check(torch.equal(comp, fused), f"dense {what}: composed differs "
+              f"from fused on quantize(q, s_q)")
+        check(torch.equal(fused, paged), f"dense {what}: differs from the "
+              f"paged kernel on the same K/V at block_k {bk}")
+        for i in idle:
+            check(not fused[i].any(), f"dense {what}: idle slot {i} not zero")
+        print(f"[dense] {what}: lens {args[6].tolist()}, S_max "
+              f"{args[1].shape[2]}, window {window}: max_abs_err fused "
+              f"{err:.3g} composed {cerr:.3g} (tol {tol:.3g}), composed == "
+              f"fused == paged bit for bit")
+        return max(err, cerr)
+
+    def make(lens, s, heads=(hq, hkv, d)):
+        return dense_case(torch, gen, dev, cfg, exp_lut, recip_lut, lens,
+                          heads[0], heads[1], s, heads[2])
+
+    # length 1, tile boundaries, an idle slot, the cache's ragged last tile
+    edge_lens = [1, bk, bk + 1, 2 * bk, 0, 250, s_max - 1, s_max]
+    compare(make(edge_lens, s_max), "edges", idle=(4,))
+    compare(make(edge_lens, s_max), "edges window 48", window=48, idle=(4,))
+    compare(make([36, 17, 1], 36, (8, 2, 16)), "smoke heads d 16")
+    compare(make([100, 99, 64], 100), "S_max 100")
+
+    lens = torch.randint(p["lens"][0], p["lens"][1] + 1, (p["b"],),
+                         generator=gen, device=dev).tolist()
+    args = make(lens, s_max)
+    errs = [compare(args, "main"), compare(args, "main window 48", window=48)]
+    cargs = composed_args(args)
+    b = p["b"]
+    library_ms = sdpa_decode_yardstick(torch, F, gen, dev, b, hq, d,
+                                       [[n] for n in lens])
+    rows = []
+    for name, line, fn, plain_fn, a, q_bytes, path in (
+            ("splitmax_decode_fused", 672, K.splitmax_decode_fused_cuda,
+             K.splitmax_decode_fused_plain, args, 4, "dense decode steps"),
+            ("splitmax_decode", 642, K.splitmax_decode_cuda,
+             K.splitmax_decode_plain, cargs, 1,
+             "dense decode steps, --fused off")):
+        ms = time_ms(torch, lambda: fn(*a, cfg=cfg))
+        plain_ms = time_ms(torch, lambda: plain_fn(*a, cfg=cfg), iters=10)
+        bms, by = bound_ms(dense_decode_bytes(b, hq, hkv, d, lens, q_bytes,
+                                              cfg),
+                           sum(lens) * hq * 6 * d)
+        print(f"[dense] {name} main lens {lens}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bms:.5f} ms ({by}), sdpa bf16 "
+              f"yardstick {library_ms:.4f} ms")
+        rows.append({"name": name, "route": "cuda",
+                     "source": ("src/repro_torch/kernels/csrc/"
+                                "splitmax_decode.cu"),
+                     "replaces": ("src/repro/kernels/splitmax_decode.py:"
+                                  f"{line}"),
+                     "path": path, "max_abs_err": max(errs), "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                     "library_ms": library_ms})
+    return rows
+
+
+def dense_verify_phase(torch, F, dev):
+    """Kernel 7 (dense verify) against its plain version; every row bit for
+    bit kernel 4 at its effective length."""
+    from repro_torch.core.attention import luts_for
+    from repro_torch.core.lut import LUTConfig
+    from repro_torch.kernels import splitmax_decode as K
+
+    cfg = LUTConfig(scale_z=8.0 / 127)
+    exp_lut, recip_lut = luts_for(cfg.scale_z, dev)
+    p = DENSE
+    hq, hkv, d, s_max = p["hq"], p["hkv"], p["d"], p["s_max"]
+    bk = K.DENSE_BLOCK_K
+    gen = torch.Generator(device=dev).manual_seed(8)
+
+    def case(lens, gamma, what, window=None):
+        args = dense_case(torch, gen, dev, cfg, exp_lut, recip_lut, lens, hq,
+                          hkv, s_max, d, gamma)
+        q, k, v, m_z, s_q, s_v, lens_t, el, rl = args
+        ker = K.splitmax_decode_fused_verify_cuda(*args, cfg=cfg,
+                                                  window=window)
+        plain = K.splitmax_decode_fused_verify_plain(*args, cfg=cfg,
+                                                     window=window)
+        rows = [[q[:, :, t].contiguous(), k, v, m_z[:, t].contiguous(),
+                 s_q[:, t].contiguous(), s_v, lens_t - (gamma - 1 - t), el,
+                 rl] for t in range(gamma)]
+        for t, row in enumerate(rows):
+            dec = K.splitmax_decode_fused_cuda(*row, cfg=cfg, window=window)
+            check(torch.equal(ker[:, :, t], dec), f"dense verify {what}: "
+                  f"token {t} differs from kernel 4 at its effective length")
+        torch.cuda.synchronize()
+        err = float((ker - plain).abs().max())
+        tol = tolerance(float(s_v))
+        check(bool(torch.isfinite(ker).all()), f"dense verify {what}: "
+              f"non-finite")
+        check(err <= tol, f"dense verify {what}: max|kernel-plain| {err:.3g} "
+              f"> {tol:.3g}")
+        print(f"[dense-verify] {what}: lens {lens}, gamma {gamma}, window "
+              f"{window}: max_abs_err {err:.3g} (tol {tol:.3g}), rows == "
+              f"kernel 4")
+        return args, rows, err
+
+    for gamma in p["gammas"]:
+        edges = [gamma, bk + gamma // 2, s_max, 250, gamma, 2 * bk, 96, 33]
+        case(edges, gamma, "edges")
+        case(edges, gamma, "edges window 48", window=48)
+
+    results = []
+    for gamma in p["gammas"]:
+        lens = torch.randint(p["lens"][0], p["lens"][1] + 1, (p["b"],),
+                             generator=gen, device=dev).tolist()
+        args, rows, err = case(lens, gamma, "main")
+        ms = time_ms(torch, lambda: K.splitmax_decode_fused_verify_cuda(
+            *args, cfg=cfg))
+        plain_ms = time_ms(torch, lambda: K.splitmax_decode_fused_verify_plain(
+            *args, cfg=cfg), iters=10)
+
+        def decodes():
+            for row in rows:
+                K.splitmax_decode_fused_cuda(*row, cfg=cfg)
+
+        decodes_ms = time_ms(torch, decodes)
+        b = p["b"]
+        q_lens = [[n - (gamma - 1 - t) for t in range(gamma)] for n in lens]
+        library_ms = sdpa_decode_yardstick(torch, F, gen, dev, b, hq, d,
+                                           q_lens)
+        pairs = hq * sum(sum(row) for row in q_lens)
+        n_bytes = (4 * b * hq * gamma * d           # f32 q
+                   + 2 * hkv * d * sum(lens)        # int8 k, v, read once
+                   + 4 * b + 2 * 4 * b * gamma + 4  # lens, m_z, s_q, s_v
+                   + 4 * b * hq * gamma * d         # f32 out
+                   + 4 * (256 + cfg.recip_table_size))
+        bms, by = bound_ms(n_bytes, pairs * 6 * d)
+        print(f"[dense-verify] main gamma {gamma}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bms:.5f} ms ({by}), {gamma} "
+              f"kernel-4 launches {decodes_ms:.4f} ms, sdpa bf16 {gamma}-query masked "
+              f"yardstick {library_ms:.4f} ms")
+        results.append({
+            "name": "splitmax_decode_fused_verify", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/splitmax_verify.cu",
+            "replaces": "src/repro/kernels/splitmax_decode.py:780",
+            "path": None, "gamma": gamma, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": library_ms, "decodes_ms": decodes_ms})
+    return next(r for r in results if r["gamma"] == SPEC["gamma"])
+
+
+# ---------------------------------------------------------------- int8 GEMM --
+
+def int8_gemm_phase(torch, dev):
+    """Kernel 8 bit for bit against its plain version, with and without the
+    requant epilogue; timed at TinyLlama's widths beside torch._int_mm
+    (cuBLASLt, the same int32 function; a yardstick the port never calls)."""
+    from repro_torch.kernels import int8_matmul as K
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    out = None
+    for m, k, n in GEMMS:
+        x = torch.randint(-128, 128, (m, k), generator=gen, device=dev,
+                          dtype=torch.int8)
+        w = torch.randint(-128, 128, (k, n), generator=gen, device=dev,
+                          dtype=torch.int8)
+        x[0], w[:, 0] = -128, -128              # |acc| up to K * 2^14
+        mult = torch.tensor(0.05 / k, device=dev)
+        for requant in (None, mult):
+            got = K.int8_matmul_cuda(x, w, requant)
+            want = K.int8_matmul_plain(x, w, requant)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"int8 GEMM {m}x{k}x{n} requant="
+                  f"{requant is not None}: differs from the plain version "
+                  f"({int((got != want).sum())} entries)")
+            if requant is None:
+                acc_max = int(want.abs().max())
+        print(f"[int8-gemm] {m}x{k}x{n}: int32 and requant int8 == plain bit "
+              f"for bit (max |acc| {acc_max})")
+        if (m, k, n) != GEMMS[-1]:
+            continue
+        ms = time_ms(torch, lambda: K.int8_matmul_cuda(x, w), iters=20)
+        rq_ms = time_ms(torch, lambda: K.int8_matmul_cuda(x, w, mult),
+                        iters=20)
+        plain_ms = time_ms(torch, lambda: K.int8_matmul_plain(x, w), iters=5,
+                           warm=1)
+        library_ms = time_ms(torch, lambda: torch._int_mm(x, w), iters=20)
+        check(torch.equal(torch._int_mm(x, w), K.int8_matmul_cuda(x, w)),
+              "int8 GEMM: torch._int_mm disagrees with the kernel")
+        bms, by = bound_ms(m * k + k * n + 4 * m * n, 2 * m * k * n)
+        rq_bms, rq_by = bound_ms(m * k + k * n + m * n + 4, 2 * m * k * n)
+        tops = 2 * m * k * n / (ms * 1e-3) / 1e12
+        print(f"[int8-gemm] {m}x{k}x{n}: kernel {ms:.4f} ms ({tops:.1f} "
+              f"TOPS), requant {rq_ms:.4f} ms (bound {rq_bms:.5f} ms, "
+              f"{rq_by}), plain f64 {plain_ms:.4f} ms, bound {bms:.5f} ms "
+              f"({by}), torch._int_mm {library_ms:.4f} ms")
+        out = {"name": "int8_matmul", "route": "cuda",
+               "source": "src/repro_torch/kernels/csrc/int8_matmul.cu",
+               "replaces": "src/repro/kernels/int8_matmul.py:54",
+               "path": None, "shape": [m, k, n], "max_abs_err": 0.0,
+               "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+               "bound_by": by, "library_ms": library_ms,
+               "requant_ms": rq_ms, "requant_bound_ms": rq_bms}
+    return out
 
 
 # ------------------------------------------------------- model reference --
@@ -498,9 +832,11 @@ def tree_to(tree, device):
 
 def smoke_reference_phase(torch, dev):
     """The port at the smoke size, kernels on the card vs plain versions on
-    the CPU, same weights: prefill logits and 8 decode steps.  Then f32
-    speculative serving on the card against plain serving on the card,
-    token for token (TF32 is off: ``resolve_device``)."""
+    the CPU, same weights: paged prefill logits and 8 decode steps, a
+    sliding-window ring buffer's prefill and 33 decode steps, and dense
+    serving tokens.  Then f32 speculative serving on the card against plain
+    serving on the card, token for token (TF32 is off:
+    ``resolve_device``)."""
     import numpy as np
     from repro_torch.configs import get_arch
     from repro_torch.launch import serve as srv
@@ -537,11 +873,52 @@ def smoke_reference_phase(torch, dev):
     print(f"[model] smoke size, card vs CPU plain path: max|logit diff| "
           f"{err:.3g} (logits up to {scale:.3g}; tol 2e-3 of that)")
 
+    # window 16 over a 16-position ring, a 32-token prompt, 33 decode steps:
+    # the write index wraps twice
+    wcfg = cfg.replace(window=16)
+    wtokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 32))
+
+    def run_ring(device):
+        p = tree_to(params, device)
+        cache = T.make_cache(wcfg, 2, 16, device=device)
+        last, cache = T.prefill(p, torch.as_tensor(wtokens, device=device),
+                                wcfg, cache)
+        outs = [last]
+        nxt = torch.argmax(last, -1)
+        for _ in range(33):
+            logits, cache = T.decode_step(p, nxt, wcfg, cache)
+            outs.append(logits)
+            nxt = torch.argmax(logits, -1)
+        return torch.stack(outs).cpu()
+
+    gpu, ref = run_ring(dev), run_ring(cpu)
+    err = float((gpu - ref).abs().max())
+    scale = float(ref.abs().max())
+    check(bool(torch.isfinite(gpu).all()), "smoke ring: non-finite logits")
+    check(err <= 2e-3 * scale, f"smoke ring buffer: max|gpu-cpu| logits "
+          f"{err:.3g} > 2e-3 * {scale:.3g}")
+    print(f"[model] smoke ring buffer (window 16, cache 16, 32-token prompt, "
+          f"33 steps), card vs CPU: max|logit diff| {err:.3g} (logits up to "
+          f"{scale:.3g}; tol 2e-3 of that)")
+
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, 20, dtype=np.int32)
                for _ in range(6)]
     gens = [int(g) for g in rng.integers(6, 13, 6)]
     p = tree_to(params, dev)
+    for fused in (True, False):
+        c = cfg.replace(attn_fused=fused)
+        on_card = srv.serve(p, c, prompts, slots=3, gen=12, gens=gens,
+                            cache_kind="dense")
+        on_cpu = srv.serve(params, c, prompts, slots=3, gen=12, gens=gens,
+                           cache_kind="dense")
+        check(on_card["finished"] == on_cpu["finished"],
+              f"smoke dense serving (fused={fused}): card tokens differ from "
+              f"the CPU's")
+        check(on_card["batch_prefills"] == on_cpu["batch_prefills"] > 1,
+              "smoke dense serving: batch prefills differ")
+    print("[model] smoke size f32 dense serving (fused, composed): card "
+          "tokens == CPU tokens")
     plain = srv.serve_paged(p, cfg, prompts, slots=3, gen=12, gens=gens,
                             block_k=8)
     for name, draft in (("self", "self"), ("self:1", srv.make_self_draft(
@@ -570,14 +947,19 @@ def churn(cfg):
     return prompts, gens
 
 
-def check_served(stats, gens, vocab, what):
+def check_served(stats, gens, vocab, what, overshoot: int = 0):
+    """Every request served with its tokens in the vocab, none failed, no
+    block leaked.  ``overshoot`` 1 admits the dense scheduler's one extra
+    token for a request whose last token comes from a re-prefill, which
+    the reference emits too (ROADMAP queue 3)."""
     check(stats["served"] == len(gens),
           f"{what}: served {stats['served']} of {len(gens)}")
     check(stats["leaked_blocks"] == 0,
           f"{what}: {stats['leaked_blocks']} blocks leaked")
     check(not stats.get("failed"), f"{what}: failed {stats.get('failed')}")
     for rid, toks in stats["finished"].items():
-        check(len(toks) == gens[rid] and all(0 <= t < vocab for t in toks),
+        check(gens[rid] <= len(toks) <= gens[rid] + overshoot
+              and all(0 <= t < vocab for t in toks),
               f"{what}: request {rid}: {len(toks)} tokens, want {gens[rid]} "
               f"in vocab")
 
@@ -750,6 +1132,72 @@ def composed_serve_phase(torch, dev, params, cfg):
     return n_comp
 
 
+def dense_serve_phase(torch, dev, params, cfg):
+    """The churn through ``serve_dense`` in turns with ``serve_paged``
+    (dense, paged, dense), then its first 8 requests through the composed
+    and the fused dense decode.  Returns each dense kernel's launches in
+    the first dense run (the composed one's in the composed run)."""
+    from repro_torch.kernels import splitmax_attn, splitmax_decode as K
+    from repro_torch.launch import serve as srv
+
+    prompts, gens = churn(cfg)
+    kw = dict(slots=SERVE["slots"], gen=SERVE["gen"], gens=gens)
+    # warm-up: the re-prefill's batch-wide GEMM shapes
+    srv.serve_dense(params, cfg, prompts[:SERVE["slots"]],
+                    slots=SERVE["slots"], gen=4,
+                    gens=[2 + i % 3 for i in range(SERVE["slots"])])
+    torch.cuda.synchronize()
+
+    def dense_run(c, reqs, what):
+        splitmax_attn.launches = 0
+        K.launches = K.dense_launches = K.dense_composed_launches = 0
+        stats = srv.serve_dense(params, c, prompts[:reqs], slots=kw["slots"],
+                                gen=kw["gen"], gens=gens[:reqs])
+        torch.cuda.synchronize()
+        n = (splitmax_attn.launches, K.dense_launches,
+             K.dense_composed_launches, K.launches)
+        check_served(stats, gens[:reqs], cfg.vocab_size, what, overshoot=1)
+        n_dec = n[1] if c.attn_fused else n[2]
+        check(n[0] == stats["batch_prefills"] * cfg.n_layers,
+              f"{what}: prefill launches {n[0]} != {stats['batch_prefills']} "
+              f"batch prefills x {cfg.n_layers}")
+        check(n_dec == stats["decode_steps"] * cfg.n_layers
+              and n[1] + n[2] == n_dec and n[3] == 0,
+              f"{what}: dense decode launches {n[1:3]} (paged {n[3]}) != "
+              f"{stats['decode_steps']} steps x {cfg.n_layers}")
+        print(f"[dense-serve] {what}: served {stats['served']}, "
+              f"{stats['total_tokens']} tokens in {stats['wall_s']:.3f} s, "
+              f"{stats['tok_s']:.1f} tok/s, {stats['decode_steps']} decode "
+              f"steps, {stats['batch_prefills']} batch prefills, p50/p99 step "
+              f"{stats['p50_step_ms']:.2f}/{stats['p99_step_ms']:.2f} ms, "
+              f"launches prefill {n[0]} dense decode {n_dec}")
+        return stats, n
+
+    n_req = SERVE["requests"]
+    dense1, n1 = dense_run(cfg, n_req, "churn dense 1")
+    paged = srv.serve_paged(params, cfg, prompts, block_k=SERVE["block_k"],
+                            **kw)
+    torch.cuda.synchronize()
+    check_served(paged, gens, cfg.vocab_size, "churn paged (between dense)")
+    dense2, _ = dense_run(cfg, n_req, "churn dense 2")
+    check(dense2["finished"] == dense1["finished"],
+          "dense churn: the two runs' tokens differ")
+    dense_tok_s = (dense1["tok_s"] + dense2["tok_s"]) / 2
+    print(f"[dense-serve] paged {paged['tok_s']:.1f} tok/s (p50/p99 step "
+          f"{paged['p50_step_ms']:.2f}/{paged['p99_step_ms']:.2f} ms) between "
+          f"dense {dense1['tok_s']:.1f} and {dense2['tok_s']:.1f} tok/s: "
+          f"paged_over_dense_tok_s {paged['tok_s'] / dense_tok_s:.3f}")
+
+    comp, nc = dense_run(cfg.replace(attn_fused=False), COMPOSED_REQUESTS,
+                         "first 8 composed")
+    fused, _ = dense_run(cfg, COMPOSED_REQUESTS, "first 8 fused")
+    check(comp["finished"] == fused["finished"],
+          "dense composed serving tokens differ from fused serving")
+    print("[dense-serve] composed tokens == fused tokens")
+    return {"splitmax_attention": n1[0], "splitmax_decode_fused": n1[1],
+            "splitmax_decode": nc[2]}
+
+
 def profile_serving(torch, srv, params, cfg, prompts, gen: int = 8):
     """Where the time goes: one full batch (8 admissions, then decode steps)
     under torch.profiler; device busy share and the top kernels."""
@@ -812,23 +1260,44 @@ def main() -> int:
     decode, decode_args = decode_phase(torch, F, dev)
     kernels = [prefill_phase(torch, F, dev), decode,
                verify_phase(torch, F, dev, decode["ms"]),
-               composed_phase(torch, F, dev, decode_args)]
+               composed_phase(torch, F, dev, decode_args),
+               *dense_decode_phase(torch, F, dev),
+               dense_verify_phase(torch, F, dev), int8_gemm_phase(torch, dev)]
     smoke_reference_phase(torch, dev)
 
     from repro_torch.configs import get_arch
+    from repro_torch.kernels import int8_matmul, splitmax_decode
     from repro_torch.models import transformer as T
     cfg = get_arch("tinyllama_1p1b").config
     params = T.init_params(cfg, seed=SERVE["seed"], device=dev)
     print(f"[serve] {cfg.name} at full width ({cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.dtype} compute), seeded random weights")
+    # kernels 7 and 8 have no caller in any model: their counts stay 0 over
+    # every main path below
+    splitmax_decode.dense_verify_launches = int8_matmul.launches = 0
     plain, launches = serve_phase(torch, dev, params, cfg)
     launches["splitmax_decode_fused_verify_paged"] = spec_serve_phase(
         torch, dev, params, cfg, plain)
     launches["splitmax_decode_paged"] = composed_serve_phase(torch, dev,
                                                              params, cfg)
+    dense = dense_serve_phase(torch, dev, params, cfg)
+    by_path = {"paged churn": launches["splitmax_attention"],
+               "dense churn": dense.pop("splitmax_attention")}
+    launches["splitmax_attention"] = sum(by_path.values())
+    launches.update(dense)
+    launches["splitmax_decode_fused_verify"] = (
+        splitmax_decode.dense_verify_launches)
+    launches["int8_matmul"] = int8_matmul.launches
     for k in kernels:
         k["launches"] = launches[k["name"]]
-        check(k["launches"] > 0, f"{k['name']} never launched on the main path")
+    kernels[0]["launches_by_path"] = by_path
+    for name in ("splitmax_attention", "splitmax_decode_fused_paged",
+                 "splitmax_decode_fused_verify_paged", "splitmax_decode_paged",
+                 "splitmax_decode_fused", "splitmax_decode"):
+        check(launches[name] > 0, f"{name} never launched on the main path")
+    for name in ("splitmax_decode_fused_verify", "int8_matmul"):
+        check(launches[name] == 0, f"{name} launched {launches[name]} times "
+              f"on a main path, which no model of the reference does")
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -2,8 +2,8 @@
 reference it is held against).
 
 The module tree mirrors ``repro/`` file for file.  Plain tensor code is
-PyTorch; the two Pallas kernels of the paged serving path are hand-written
-CUDA for Hopper (``kernels/csrc``), built at first use.  Entry points run on
+PyTorch; every Pallas kernel of the reference is hand-written CUDA for
+Hopper (``kernels/csrc``), built at first use.  Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"``; on the CPU every kernel
 wrapper takes its plain PyTorch version.
 """

@@ -1,7 +1,7 @@
 """CIMple attention datapath, int8 serving mode (port of
 ``repro/core/attention.py``: the int8 branches of ``attention``,
-``paged_decode_attention`` -- fused and composed -- and
-``paged_verify_attention``).
+``decode_attention`` and ``paged_decode_attention`` -- fused and composed
+-- and ``paged_verify_attention``).
 
 Q/K/V are quantized to int8 with absmax scales, scores pass the 32b->8b
 requant unit, and the exp + reciprocal LUTs replace the softmax — through
@@ -54,6 +54,27 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         qlib.quantize(q, s_q), qlib.quantize(k, s_k), qlib.quantize(v, s_v),
         s_q, s_k, s_v, exp_lut, recip_lut, cfg=spec.lut_config,
         causal=True, window=spec.window)
+    return out.to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache_q: torch.Tensor,
+                     v_cache_q: torch.Tensor, s_k: torch.Tensor,
+                     s_v: torch.Tensor, cache_len: torch.Tensor,
+                     spec: AttentionSpec) -> torch.Tensor:
+    """(B,Hq,D) query vs the dense int8 cache (B,Hkv,S_max,D) -> (B,Hq,D),
+    dtype of q.  One ``s_q`` per slot, as in :func:`paged_decode_attention`;
+    ``spec.fused`` picks the fused or the composed kernel."""
+    s_q = qlib.absmax_scale(q, axis=(1, 2))                  # (B,1,1)
+    exp_lut, recip_lut = luts_for(spec.scale_z, q.device)
+    if spec.fused:
+        out = ops.splitmax_decode_fused(
+            q, k_cache_q, v_cache_q, s_q, s_k, s_v, cache_len, exp_lut,
+            recip_lut, cfg=spec.lut_config, window=spec.window)
+    else:
+        out = ops.splitmax_decode(
+            qlib.quantize(q, s_q), k_cache_q, v_cache_q, s_q, s_k, s_v,
+            cache_len, exp_lut, recip_lut, cfg=spec.lut_config,
+            window=spec.window)
     return out.to(q.dtype)
 
 

@@ -1,15 +1,22 @@
-// Paged fused speculative verify: the T draft queries of every slot vs the
-// paged int8 KV pool, read through each slot's block table, in one launch.
+// Fused speculative verify: the T draft queries of every slot vs the int8
+// KV cache in one launch.  Two entries, one compile-time variant apart:
+//   paged (kDense = false): the pool, read through each slot's block table;
+//   dense (kDense = true):  the slot's rows of a (B, Hkv, S_max, D) cache,
+//                           in tiles of block_k positions, the last one
+//                           ragged (zero-filled past S_max, its lanes dead).
 //
 // Replaces: repro/kernels/splitmax_decode.py::
 //           splitmax_decode_fused_verify_paged_pallas (_paged_verify_call,
-//           _paged_verify_kernel, _verify_body, _per_row).
+//           _paged_verify_kernel, _verify_body, _per_row) and
+//           ::splitmax_decode_fused_verify_pallas (_dense_verify_call,
+//           _verify_kernel).
 //
 // Contract: token t of slot b sees the first eff_t = cache_len[b] - (T-1-t)
 // cache positions (and, with a window, only those > eff_t - 1 - window),
 // is quantized with its own s_q[b, t] and requantized with its own
 // m_z[b, t].  Each output row is bit for bit the decode kernel
-// (splitmax_decode.cu, fused entry) at length eff_t with scale s_q[b, t]:
+// (splitmax_decode.cu, fused entry, same layout) at length eff_t with scale
+// s_q[b, t]:
 // acc runs over tiles in table order and over j in order inside a tile with
 // the same accumulate_ev, and s adds exact integer tile sums in tile order.
 // A tile that is dead for row t but live for another row adds exact zeros
@@ -50,15 +57,17 @@ using namespace splitmax;
 
 constexpr int kVerifyThreads = 256;  // T * group * D <= kVerifyThreads * kMaxOut
 
+// ``extent`` is the table width (paged) or S_max (dense); ``table`` is
+// unused when dense.
+template <bool kDense>
 __global__ void __launch_bounds__(kVerifyThreads)
-paged_verify_kernel(const float* __restrict__ q, const int8_t* __restrict__ k_pages,
-                    const int8_t* __restrict__ v_pages, const int* __restrict__ table,
-                    const float* __restrict__ m_z, const float* __restrict__ s_q,
-                    const float* __restrict__ s_v_ptr, const int* __restrict__ cache_len,
-                    const int* __restrict__ exp_lut, const int* __restrict__ recip_lut_g,
-                    float* __restrict__ out, int hq, int hkv, int n_tok, int d,
-                    int block_k, int max_blocks, int window, int recip_bits,
-                    int recip_frac_bits) {
+verify_kernel(const float* __restrict__ q, const int8_t* __restrict__ k_cache,
+              const int8_t* __restrict__ v_cache, const int* __restrict__ table,
+              const float* __restrict__ m_z, const float* __restrict__ s_q,
+              const float* __restrict__ s_v_ptr, const int* __restrict__ cache_len,
+              const int* __restrict__ exp_lut, const int* __restrict__ recip_lut_g,
+              float* __restrict__ out, int hq, int hkv, int n_tok, int d, int block_k,
+              int extent, int window, int recip_bits, int recip_frac_bits) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int group = hq / hkv;
   const int rows = group * n_tok;
@@ -104,22 +113,31 @@ paged_verify_kernel(const float* __restrict__ q, const int8_t* __restrict__ k_pa
 #pragma unroll
   for (int u = 0; u < kMaxOut; ++u) acc[u] = 0.f;
 
-  const int n_tiles = min((len + block_k - 1) / block_k, max_blocks);
+  const int n_tiles = kDense ? (min(len, extent) + block_k - 1) / block_k
+                             : min((len + block_k - 1) / block_k, extent);
   const int shortest = len - (n_tok - 1);    // token 0's effective length
-  const int* row_ids = table + static_cast<size_t>(b) * max_blocks;
+  const int* row_ids = kDense ? nullptr : table + static_cast<size_t>(b) * extent;
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * block_k;
     // window-dead for every row: token 0's window starts furthest left
     if (window > 0 && k0 + block_k - 1 < shortest - window) continue;
-    const int blk = row_ids[t];
-    if (blk == kTrashBlock) continue;
+    size_t tile;
+    int in_cache = block_k;  // positions of this tile that exist in the cache
+    if constexpr (kDense) {
+      tile = ((static_cast<size_t>(b) * hkv + hk) * extent + k0) * d;
+      in_cache = min(block_k, extent - k0);
+    } else {
+      const int blk = row_ids[t];
+      if (blk == kTrashBlock) continue;
+      tile = (static_cast<size_t>(blk) * hkv + hk) * block_k * d;
+    }
     __syncthreads();  // the previous tile's readers are done
-    const size_t tile = (static_cast<size_t>(blk) * hkv + hk) * block_k * d;
-    const int* kg = reinterpret_cast<const int*>(k_pages + tile);
-    const int* vg = reinterpret_cast<const int*>(v_pages + tile);
+    const int* kg = reinterpret_cast<const int*>(k_cache + tile);
+    const int* vg = reinterpret_cast<const int*>(v_cache + tile);
     for (int c = tid; c < block_k * dw; c += kVerifyThreads) {
-      k_s[(c / dw) * (dw + 1) + c % dw] = kg[c];
-      reinterpret_cast<int*>(v_s)[c] = vg[c];
+      const bool in = c < in_cache * dw;
+      k_s[(c / dw) * (dw + 1) + c % dw] = in ? kg[c] : 0;
+      reinterpret_cast<int*>(v_s)[c] = in ? vg[c] : 0;
     }
     __syncthreads();
 
@@ -127,7 +145,7 @@ paged_verify_kernel(const float* __restrict__ q, const int8_t* __restrict__ k_pa
       const int r = i / block_k, j = i % block_k;
       const int col = k0 + j;
       const int eff = eff_s[r];
-      bool live = col < eff;
+      bool live = col < eff && j < in_cache;
       if (window > 0) live = live && col > eff - 1 - window;
       const int z = dot_i8(reinterpret_cast<const int*>(q_s + r * d),
                            k_s + j * (dw + 1), dw);
@@ -168,11 +186,36 @@ size_t smem_bytes(int rows, int d, int block_k, int recip_bits) {
          align16(block_k * (d / 4 + 1) * 4) + block_k * d;
 }
 
+template <bool kDense>
+int launch(const void* q, const void* k_cache, const void* v_cache, const void* table,
+           const void* m_z, const void* s_q, const void* s_v, const void* cache_len,
+           const void* exp_lut, const void* recip_lut, void* out, int b, int hq, int hkv,
+           int n_tok, int d, int block_k, int extent, int window, int recip_bits,
+           int recip_frac_bits, void* stream) {
+  const size_t smem = smem_bytes(hq / hkv * n_tok, d, block_k, recip_bits);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        verify_kernel<kDense>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid(hkv, b);
+  verify_kernel<kDense><<<grid, kVerifyThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const int8_t*>(k_cache),
+      static_cast<const int8_t*>(v_cache), static_cast<const int*>(table),
+      static_cast<const float*>(m_z), static_cast<const float*>(s_q),
+      static_cast<const float*>(s_v), static_cast<const int*>(cache_len),
+      static_cast<const int*>(exp_lut), static_cast<const int*>(recip_lut),
+      static_cast<float*>(out), hq, hkv, n_tok, d, block_k, extent, window, recip_bits,
+      recip_frac_bits);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
-// Returns the cudaError_t of the launch (0 = cudaSuccess).
+// Each returns the cudaError_t of the launch (0 = cudaSuccess).
 int splitmax_verify_paged_launch(const void* q, const void* k_pages, const void* v_pages,
                                  const void* table, const void* m_z, const void* s_q,
                                  const void* s_v, const void* cache_len,
@@ -180,23 +223,20 @@ int splitmax_verify_paged_launch(const void* q, const void* k_pages, const void*
                                  int b, int hq, int hkv, int n_tok, int d, int block_k,
                                  int max_blocks, int window, int recip_bits,
                                  int recip_frac_bits, void* stream) {
-  const size_t smem = smem_bytes(hq / hkv * n_tok, d, block_k, recip_bits);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        paged_verify_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const dim3 grid(hkv, b);
-  paged_verify_kernel<<<grid, kVerifyThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const int8_t*>(k_pages),
-      static_cast<const int8_t*>(v_pages), static_cast<const int*>(table),
-      static_cast<const float*>(m_z), static_cast<const float*>(s_q),
-      static_cast<const float*>(s_v), static_cast<const int*>(cache_len),
-      static_cast<const int*>(exp_lut), static_cast<const int*>(recip_lut),
-      static_cast<float*>(out), hq, hkv, n_tok, d, block_k, max_blocks, window,
-      recip_bits, recip_frac_bits);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(q, k_pages, v_pages, table, m_z, s_q, s_v, cache_len, exp_lut,
+                       recip_lut, out, b, hq, hkv, n_tok, d, block_k, max_blocks, window,
+                       recip_bits, recip_frac_bits, stream);
+}
+
+int splitmax_verify_dense_launch(const void* q, const void* k_cache, const void* v_cache,
+                                 const void* m_z, const void* s_q, const void* s_v,
+                                 const void* cache_len, const void* exp_lut,
+                                 const void* recip_lut, void* out, int b, int hq, int hkv,
+                                 int n_tok, int d, int block_k, int s_max, int window,
+                                 int recip_bits, int recip_frac_bits, void* stream) {
+  return launch<true>(q, k_cache, v_cache, nullptr, m_z, s_q, s_v, cache_len, exp_lut,
+                      recip_lut, out, b, hq, hkv, n_tok, d, block_k, s_max, window,
+                      recip_bits, recip_frac_bits, stream);
 }
 
 const char* splitmax_verify_error_string(int code) {

@@ -21,7 +21,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNELS = ("splitmax_attn", "splitmax_decode", "splitmax_verify")
+KERNELS = ("splitmax_attn", "splitmax_decode", "splitmax_verify",
+           "int8_matmul")
 
 # No --use_fast_math: quantize divides by the scale and rounds half to even,
 # and the requant multiply must round to nearest; fast math changes both.

@@ -16,7 +16,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.lut import LUTConfig
-from repro_torch.kernels import splitmax_attn, splitmax_decode
+from repro_torch.kernels import int8_matmul as int8_mm
+from repro_torch.kernels import splitmax_attn
+from repro_torch.kernels import splitmax_decode as decode_k
 
 
 def requant_multiplier(s_q: torch.Tensor, s_k: torch.Tensor, d: int,
@@ -58,6 +60,59 @@ def _per_token_scale(s_q: torch.Tensor, b: int, t: int) -> torch.Tensor:
     return s.expand(b, t).contiguous()
 
 
+def splitmax_decode(q_q, k_cache, v_cache, s_q, s_k, s_v, cache_len, exp_lut,
+                    recip_lut, *, cfg: LUTConfig,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """Composed dense decode: int8 q_q (B,Hq,D) x int8 (B,Hkv,S_max,D)
+    cache -> (B,Hq,D) f32.  ``s_q`` is the scale ``q_q`` was quantized
+    with, a scalar or one per slot; it enters only through ``m_z``."""
+    b = q_q.shape[0]
+    s_q = _per_slot_scale(s_q, b)
+    m_z = requant_multiplier(s_q, s_k.reshape(()), q_q.shape[-1], cfg)
+    fn = (decode_k.splitmax_decode_cuda if q_q.is_cuda
+          else decode_k.splitmax_decode_plain)
+    return fn(q_q.contiguous(), k_cache.contiguous(), v_cache.contiguous(),
+              m_z, s_v.to(torch.float32).reshape(()), cache_len, exp_lut,
+              recip_lut, cfg=cfg, window=window)
+
+
+def splitmax_decode_fused(q, k_cache, v_cache, s_q, s_k, s_v, cache_len,
+                          exp_lut, recip_lut, *, cfg: LUTConfig,
+                          window: Optional[int] = None) -> torch.Tensor:
+    """Fused dense decode: f32-able q (B,Hq,D) + in-kernel quantize x int8
+    (B,Hkv,S_max,D) cache -> (B,Hq,D) f32.  ``s_q`` is a scalar or one
+    scale per slot."""
+    b = q.shape[0]
+    s_q = _per_slot_scale(s_q, b)
+    m_z = requant_multiplier(s_q, s_k.reshape(()), q.shape[-1], cfg)
+    fn = (decode_k.splitmax_decode_fused_cuda if q.is_cuda
+          else decode_k.splitmax_decode_fused_plain)
+    return fn(q.to(torch.float32).contiguous(), k_cache.contiguous(),
+              v_cache.contiguous(), m_z, s_q,
+              s_v.to(torch.float32).reshape(()), cache_len, exp_lut,
+              recip_lut, cfg=cfg, window=window)
+
+
+def splitmax_decode_fused_verify(q, k_cache, v_cache, s_q, s_k, s_v,
+                                 cache_len, exp_lut, recip_lut, *,
+                                 cfg: LUTConfig,
+                                 window: Optional[int] = None
+                                 ) -> torch.Tensor:
+    """Dense fused verify: f32-able draft queries q (B,Hq,T,D) vs the dense
+    cache -> (B,Hq,T,D) f32.  ``s_q`` is a scalar, (T,) or (B,T);
+    ``cache_len`` counts all T tokens, and token t attends ``cache_len -
+    (T-1-t)`` positions."""
+    b, _, t, d = q.shape
+    s_q = _per_token_scale(s_q, b, t)
+    m_z = requant_multiplier(s_q, s_k.reshape(()), d, cfg)
+    fn = (decode_k.splitmax_decode_fused_verify_cuda if q.is_cuda
+          else decode_k.splitmax_decode_fused_verify_plain)
+    return fn(q.to(torch.float32).contiguous(), k_cache.contiguous(),
+              v_cache.contiguous(), m_z, s_q,
+              s_v.to(torch.float32).reshape(()), cache_len, exp_lut,
+              recip_lut, cfg=cfg, window=window)
+
+
 def splitmax_decode_paged(q_q, k_pages, v_pages, block_table, s_q, s_k, s_v,
                           cache_len, exp_lut, recip_lut, *, cfg: LUTConfig,
                           window: Optional[int] = None) -> torch.Tensor:
@@ -67,8 +122,8 @@ def splitmax_decode_paged(q_q, k_pages, v_pages, block_table, s_q, s_k, s_v,
     b = q_q.shape[0]
     s_q = _per_slot_scale(s_q, b)
     m_z = requant_multiplier(s_q, s_k.reshape(()), q_q.shape[-1], cfg)
-    fn = (splitmax_decode.splitmax_decode_paged_cuda if q_q.is_cuda
-          else splitmax_decode.splitmax_decode_paged_plain)
+    fn = (decode_k.splitmax_decode_paged_cuda if q_q.is_cuda
+          else decode_k.splitmax_decode_paged_plain)
     return fn(q_q.contiguous(), k_pages, v_pages, block_table, m_z,
               s_v.to(torch.float32).reshape(()), cache_len, exp_lut,
               recip_lut, cfg=cfg, window=window)
@@ -84,8 +139,8 @@ def splitmax_decode_fused_paged(q, k_pages, v_pages, block_table, s_q, s_k,
     b = q.shape[0]
     s_q = _per_slot_scale(s_q, b)
     m_z = requant_multiplier(s_q, s_k.reshape(()), q.shape[-1], cfg)
-    fn = (splitmax_decode.splitmax_decode_fused_paged_cuda if q.is_cuda
-          else splitmax_decode.splitmax_decode_fused_paged_plain)
+    fn = (decode_k.splitmax_decode_fused_paged_cuda if q.is_cuda
+          else decode_k.splitmax_decode_fused_paged_plain)
     return fn(q.to(torch.float32).contiguous(), k_pages, v_pages,
               block_table, m_z, s_q, s_v.to(torch.float32).reshape(()),
               cache_len, exp_lut, recip_lut, cfg=cfg, window=window)
@@ -103,8 +158,20 @@ def splitmax_decode_fused_verify_paged(q, k_pages, v_pages, block_table, s_q,
     b, _, t, d = q.shape
     s_q = _per_token_scale(s_q, b, t)
     m_z = requant_multiplier(s_q, s_k.reshape(()), d, cfg)
-    fn = (splitmax_decode.splitmax_decode_fused_verify_paged_cuda if q.is_cuda
-          else splitmax_decode.splitmax_decode_fused_verify_paged_plain)
+    fn = (decode_k.splitmax_decode_fused_verify_paged_cuda if q.is_cuda
+          else decode_k.splitmax_decode_fused_verify_paged_plain)
     return fn(q.to(torch.float32).contiguous(), k_pages, v_pages,
               block_table, m_z, s_q, s_v.to(torch.float32).reshape(()),
               cache_len, exp_lut, recip_lut, cfg=cfg, window=window)
+
+
+def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor,
+                multiplier: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(M,K) int8 @ (K,N) int8 -> int32, or int8 through the fused requant
+    ``clip(round(f32(acc) * multiplier))`` when a scalar multiplier is
+    given."""
+    if multiplier is not None:
+        multiplier = torch.as_tensor(multiplier, dtype=torch.float32,
+                                     device=x_q.device).reshape(())
+    fn = int8_mm.int8_matmul_cuda if x_q.is_cuda else int8_mm.int8_matmul_plain
+    return fn(x_q.contiguous(), w_q.contiguous(), multiplier)

@@ -1,8 +1,8 @@
-"""Paged split-softmax decode and speculative verify: the CUDA kernels'
-wrappers and their plain PyTorch versions (port of
-``repro/kernels/splitmax_decode.py``, the paged entries).
+"""Split-softmax decode and speculative verify over the paged pool and the
+dense cache: the CUDA kernels' wrappers and their plain PyTorch versions
+(port of ``repro/kernels/splitmax_decode.py``).
 
-Three entries, each a hand-written kernel with its plain version:
+Three paged entries, each a hand-written kernel with its plain version:
 
   * fused decode (``csrc/splitmax_decode.cu``): one new token per slot, the
     f32 query ``(B, Hq, D)`` is quantized in-kernel with the slot's own
@@ -15,6 +15,13 @@ Three entries, each a hand-written kernel with its plain version:
     ``(B, Hq, T, D)`` of every slot in one launch; token t is quantized with
     ``s_q[b, t]`` and sees ``cache_len[b] - (T-1-t)`` positions, so each row
     is the fused decode at that length.
+
+The same three functions run over a dense ``(B, Hkv, S_max, D)`` int8 cache
+(``kDense`` variants of the same kernels): slot b reads its own rows,
+masked at ``cache_len[b]`` (and the window), in tiles of ``DENSE_BLOCK_K``
+positions; ``S_max`` need not be a multiple of the tile.  Dense and paged
+give equal bits on the same logical K/V when the dense tile equals the
+pool's ``block_k``.
 
 Tiles whose table entry is the trash block (id 0) are dead.  A live slot
 never has one inside its length (the allocator never hands out block 0), so
@@ -36,10 +43,16 @@ from repro_torch.core.lut import LUTConfig
 from repro_torch.kernels import cuda_build
 
 # Launches of each CUDA kernel since the last reset (plain versions and CPU
-# calls never count): fused decode, composed decode, fused verify.
+# calls never count): fused, composed and verify over the paged pool, then
+# over the dense cache.
 launches = 0
 composed_launches = 0
 verify_launches = 0
+dense_launches = 0
+dense_composed_launches = 0
+dense_verify_launches = 0
+
+DENSE_BLOCK_K = 32            # dense k-tile: the serving pool's block_k
 
 THREADS = 128
 VERIFY_THREADS = 256          # kVerifyThreads in csrc/splitmax_verify.cu
@@ -54,13 +67,16 @@ def _lib(name: str) -> ctypes.CDLL:
         lib = cuda_build.load(name)
         p, i = ctypes.c_void_p, ctypes.c_int
         if name == "splitmax_decode":
-            lib.splitmax_decode_fused_paged_launch.argtypes = [p] * 11 + [i] * 9 + [p]
-            lib.splitmax_decode_paged_launch.argtypes = [p] * 10 + [i] * 9 + [p]
-            lib.splitmax_decode_fused_paged_launch.restype = i
-            lib.splitmax_decode_paged_launch.restype = i
+            sigs = {"splitmax_decode_fused_paged_launch": [p] * 11 + [i] * 9,
+                    "splitmax_decode_paged_launch": [p] * 10 + [i] * 9,
+                    "splitmax_decode_fused_dense_launch": [p] * 10 + [i] * 9,
+                    "splitmax_decode_dense_launch": [p] * 9 + [i] * 9}
         else:
-            lib.splitmax_verify_paged_launch.argtypes = [p] * 11 + [i] * 10 + [p]
-            lib.splitmax_verify_paged_launch.restype = i
+            sigs = {"splitmax_verify_paged_launch": [p] * 11 + [i] * 10,
+                    "splitmax_verify_dense_launch": [p] * 10 + [i] * 10}
+        for fn_name, args in sigs.items():
+            getattr(lib, fn_name).argtypes = args + [p]
+            getattr(lib, fn_name).restype = i
         err_fn = getattr(lib, f"{name}_error_string")
         err_fn.argtypes = [i]
         err_fn.restype = ctypes.c_char_p
@@ -68,20 +84,48 @@ def _lib(name: str) -> ctypes.CDLL:
     return lib
 
 
-def live_positions(block_table, cache_len, block_k: int,
-                   window: Optional[int]) -> torch.Tensor:
-    """(B, max_blocks * block_k) bool: the cache positions a slot attends."""
-    pos = torch.arange(block_table.shape[1] * block_k,
-                       device=block_table.device)[None, :]
+def dense_live_positions(cache_len, s_max: int,
+                         window: Optional[int]) -> torch.Tensor:
+    """(B, s_max) bool: the cache positions a slot attends."""
+    pos = torch.arange(s_max, device=cache_len.device)[None, :]
     lens = cache_len.to(torch.int64)[:, None]
-    live = (pos < lens) & (block_table.repeat_interleave(block_k, dim=1)
-                           != paged_kv.TRASH_BLOCK)
+    live = pos < lens
     if window is not None:
         live = live & (pos > lens - 1 - window)
     return live
 
 
+def live_positions(block_table, cache_len, block_k: int,
+                   window: Optional[int]) -> torch.Tensor:
+    """(B, max_blocks * block_k) bool: the pool positions a slot attends."""
+    live = dense_live_positions(cache_len, block_table.shape[1] * block_k,
+                                window)
+    return live & (block_table.repeat_interleave(block_k, dim=1)
+                   != paged_kv.TRASH_BLOCK)
+
+
 # ------------------------------------------------------------ plain versions --
+
+def _grouped_decode(q_q, k_c, v_c, live, m_z, s_v, exp_lut, recip_lut,
+                    cfg: LUTConfig) -> torch.Tensor:
+    """The grouped int8 split-softmax decode of ``q_q (B, Hq, D)`` over a
+    contiguous int8 cache ``(B, Hkv, S, D)`` at the ``live (B, S)``
+    positions; ``m_z`` is per-slot ``(B,)``."""
+    b, hq, d = q_q.shape
+    hkv = k_c.shape[1]
+    g = hq // hkv
+    k_c, v_c = k_c.to(torch.float32), v_c.to(torch.float32)
+    # exact f32 integer dot products (|z32| <= D * 2^14 < 2^24)
+    z32 = q_q.reshape(b, hkv, g, d).to(torch.float32) @ k_c.transpose(-1, -2)
+    z_q = qlib.requantize_int32(z32, m_z[:, None, None, None])
+    e = lut_lib.exp_lookup(z_q, exp_lut).to(torch.float32)   # (B,Hkv,G,S)
+    e = torch.where(live[:, None, None, :], e, 0.0)
+    acc = e @ v_c                                            # (B,Hkv,G,D)
+    s = torch.clamp_min(e.sum(-1, keepdim=True), 1.0)
+    r, ex = lut_lib.recip_lookup(s, recip_lut, cfg)
+    out = acc * (r.to(torch.float32) * lut_lib.exp2_int(ex)) * s_v
+    return out.reshape(b, hq, d)
+
 
 def splitmax_decode_paged_plain(q_q, k_pages, v_pages, block_table, m_z, s_v,
                                 cache_len, exp_lut, recip_lut, *,
@@ -90,22 +134,10 @@ def splitmax_decode_paged_plain(q_q, k_pages, v_pages, block_table, m_z, s_v,
     """The composed kernel's function in plain PyTorch: gather the cache
     through the table, then the grouped int8 split-softmax decode of the
     int8 query ``q_q (B, Hq, D)``.  ``m_z`` is per-slot ``(B,)``."""
-    b, hq, d = q_q.shape
-    _, hkv, bk, _ = k_pages.shape
-    g = hq // hkv
-    k_c = paged_kv.gather_kv(k_pages, block_table).to(torch.float32)
-    v_c = paged_kv.gather_kv(v_pages, block_table).to(torch.float32)
-    # exact f32 integer dot products (|z32| <= D * 2^14 < 2^24)
-    z32 = q_q.reshape(b, hkv, g, d).to(torch.float32) @ k_c.transpose(-1, -2)
-    z_q = qlib.requantize_int32(z32, m_z[:, None, None, None])
-    e = lut_lib.exp_lookup(z_q, exp_lut).to(torch.float32)   # (B,Hkv,G,S)
-    live = live_positions(block_table, cache_len, bk, window)
-    e = torch.where(live[:, None, None, :], e, 0.0)
-    acc = e @ v_c                                            # (B,Hkv,G,D)
-    s = torch.clamp_min(e.sum(-1, keepdim=True), 1.0)
-    r, ex = lut_lib.recip_lookup(s, recip_lut, cfg)
-    out = acc * (r.to(torch.float32) * lut_lib.exp2_int(ex)) * s_v
-    return out.reshape(b, hq, d)
+    live = live_positions(block_table, cache_len, k_pages.shape[2], window)
+    return _grouped_decode(q_q, paged_kv.gather_kv(k_pages, block_table),
+                           paged_kv.gather_kv(v_pages, block_table), live,
+                           m_z, s_v, exp_lut, recip_lut, cfg)
 
 
 def splitmax_decode_fused_paged_plain(q, k_pages, v_pages, block_table, m_z,
@@ -138,6 +170,43 @@ def splitmax_decode_fused_verify_paged_plain(q, k_pages, v_pages, block_table,
     return torch.stack(outs, dim=2)
 
 
+def splitmax_decode_plain(q_q, k_cache, v_cache, m_z, s_v, cache_len,
+                          exp_lut, recip_lut, *, cfg: LUTConfig,
+                          window: Optional[int] = None) -> torch.Tensor:
+    """The composed dense kernel's function in plain PyTorch: int8 ``q_q
+    (B, Hq, D)`` against the dense cache ``(B, Hkv, S_max, D)``."""
+    live = dense_live_positions(cache_len, k_cache.shape[2], window)
+    return _grouped_decode(q_q, k_cache, v_cache, live, m_z, s_v, exp_lut,
+                           recip_lut, cfg)
+
+
+def splitmax_decode_fused_plain(q, k_cache, v_cache, m_z, s_q, s_v,
+                                cache_len, exp_lut, recip_lut, *,
+                                cfg: LUTConfig,
+                                window: Optional[int] = None) -> torch.Tensor:
+    """The fused dense kernel's function in plain PyTorch: quantize each
+    slot's query with its own ``s_q (B,)``, then the composed decode."""
+    return splitmax_decode_plain(
+        qlib.quantize(q, s_q[:, None, None]), k_cache, v_cache, m_z, s_v,
+        cache_len, exp_lut, recip_lut, cfg=cfg, window=window)
+
+
+def splitmax_decode_fused_verify_plain(q, k_cache, v_cache, m_z, s_q, s_v,
+                                       cache_len, exp_lut, recip_lut, *,
+                                       cfg: LUTConfig,
+                                       window: Optional[int] = None
+                                       ) -> torch.Tensor:
+    """The dense verify kernel's function in plain PyTorch, the reference's
+    ``_verify_fallback``: token t is the fused dense decode at ``cache_len
+    - (T-1-t)``, stacked on axis 2."""
+    t = q.shape[2]
+    outs = [splitmax_decode_fused_plain(
+        q[:, :, i].contiguous(), k_cache, v_cache, m_z[:, i].contiguous(),
+        s_q[:, i].contiguous(), s_v, cache_len - (t - 1 - i), exp_lut,
+        recip_lut, cfg=cfg, window=window) for i in range(t)]
+    return torch.stack(outs, dim=2)
+
+
 # ---------------------------------------------------------- kernel wrappers --
 
 def _check(q, q_dtype, per_slot, k_pages, v_pages, block_table, s_v,
@@ -145,32 +214,35 @@ def _check(q, q_dtype, per_slot, k_pages, v_pages, block_table, s_v,
            threads: int):
     """Raise ValueError unless the inputs are what the kernels take.
     ``per_slot`` names the per-slot scale tensors, each ``(B,)`` or, with
-    ``tokens > 1``, ``(B, T)``."""
+    ``tokens > 1``, ``(B, T)``.  ``block_table`` None means a dense cache
+    ``(B, Hkv, S_max, D)`` in ``k_pages``/``v_pages``."""
     dev = q.device
-    named = [("q", q, q_dtype), ("k_pages", k_pages, torch.int8),
-             ("v_pages", v_pages, torch.int8),
-             ("block_table", block_table, torch.int32),
+    named = [("q", q, q_dtype), ("k_cache", k_pages, torch.int8),
+             ("v_cache", v_pages, torch.int8),
              ("s_v", s_v, torch.float32), ("cache_len", cache_len, torch.int32),
              ("exp_lut", exp_lut, torch.int32),
              ("recip_lut", recip_lut, torch.int32)]
+    if block_table is not None:
+        named.append(("block_table", block_table, torch.int32))
     named += [(name, t, torch.float32) for name, t in per_slot.items()]
     for name, t, dt in named:
         if t.device != dev or t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"{name}: need a contiguous {dt} tensor on {dev}, "
                              f"got {t.dtype} on {t.device}")
     if k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
-        raise ValueError(f"pages {tuple(k_pages.shape)} / {tuple(v_pages.shape)}")
+        raise ValueError(f"cache {tuple(k_pages.shape)} / {tuple(v_pages.shape)}")
     b, hq, d = q.shape[0], q.shape[1], q.shape[-1]
     _, hkv, _, dk = k_pages.shape
-    if dk != d or hq % hkv:
-        raise ValueError(f"q {tuple(q.shape)} does not match pages "
+    if dk != d or hq % hkv or (block_table is None and k_pages.shape[0] != b):
+        raise ValueError(f"q {tuple(q.shape)} does not match the cache "
                          f"{tuple(k_pages.shape)}")
     rows = (hq // hkv) * tokens
     if d % 16 or rows * d > threads * MAX_OUT_PER_THREAD:
         raise ValueError(f"head_dim {d} x group {hq // hkv} x {tokens} tokens: "
                          f"the kernel takes D a multiple of 16 with rows * D "
                          f"<= {threads * MAX_OUT_PER_THREAD}")
-    if block_table.dim() != 2 or block_table.shape[0] != b:
+    if block_table is not None and (block_table.dim() != 2
+                                    or block_table.shape[0] != b):
         raise ValueError(f"block_table {tuple(block_table.shape)} for {b} slots")
     want = (b,) if q.dim() == 3 else (b, tokens)
     for name, t in per_slot.items():
@@ -180,7 +252,7 @@ def _check(q, q_dtype, per_slot, k_pages, v_pages, block_table, s_v,
         raise ValueError("cache_len is per-slot (B,); s_v a scalar")
     if exp_lut.numel() != 256 or recip_lut.numel() != cfg.recip_table_size:
         raise ValueError("LUT sizes do not match the LUTConfig")
-    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
+    for name, t in (("k_cache", k_pages), ("v_cache", v_pages)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} is not 16-byte aligned")
     if window is not None and window < 1:
@@ -285,4 +357,85 @@ def splitmax_decode_fused_verify_paged_cuda(q, k_pages, v_pages, block_table,
              exp_lut, recip_lut),
             (b, hq, hkv, t, d, bk, block_table.shape[1]), cfg, window, out)
     verify_launches += 1
+    return out
+
+
+def splitmax_decode_fused_cuda(q, k_cache, v_cache, m_z, s_q, s_v, cache_len,
+                               exp_lut, recip_lut, *, cfg: LUTConfig,
+                               window: Optional[int] = None) -> torch.Tensor:
+    """Launch the fused dense decode kernel: f32 ``q (B, Hq, D)`` against
+    the dense cache ``(B, Hkv, S_max, D)``; raises on bad input or a
+    refused launch."""
+    global dense_launches
+    if not q.is_cuda:
+        raise ValueError("splitmax_decode_fused_cuda takes CUDA tensors")
+    if q.dim() != 3:
+        raise ValueError(f"q {tuple(q.shape)}: need (B, Hq, D)")
+    _check(q, torch.float32, {"m_z": m_z, "s_q": s_q}, k_cache, v_cache, None,
+           s_v, cache_len, exp_lut, recip_lut, cfg, window, tokens=1,
+           threads=THREADS)
+    b, hq, d = q.shape
+    _, hkv, s_max, _ = k_cache.shape
+    out = torch.empty((b, hq, d), dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out
+    _launch("splitmax_decode", "splitmax_decode_fused_dense_launch", q,
+            (q, k_cache, v_cache, m_z, s_q, s_v, cache_len, exp_lut,
+             recip_lut), (b, hq, hkv, d, DENSE_BLOCK_K, s_max), cfg, window,
+            out)
+    dense_launches += 1
+    return out
+
+
+def splitmax_decode_cuda(q_q, k_cache, v_cache, m_z, s_v, cache_len, exp_lut,
+                         recip_lut, *, cfg: LUTConfig,
+                         window: Optional[int] = None) -> torch.Tensor:
+    """Launch the composed dense decode kernel (int8 ``q_q``, no in-kernel
+    quantize); raises on bad input or a refused launch."""
+    global dense_composed_launches
+    if not q_q.is_cuda:
+        raise ValueError("splitmax_decode_cuda takes CUDA tensors")
+    if q_q.dim() != 3:
+        raise ValueError(f"q_q {tuple(q_q.shape)}: need (B, Hq, D)")
+    _check(q_q, torch.int8, {"m_z": m_z}, k_cache, v_cache, None, s_v,
+           cache_len, exp_lut, recip_lut, cfg, window, tokens=1,
+           threads=THREADS)
+    b, hq, d = q_q.shape
+    _, hkv, s_max, _ = k_cache.shape
+    out = torch.empty((b, hq, d), dtype=torch.float32, device=q_q.device)
+    if out.numel() == 0:
+        return out
+    _launch("splitmax_decode", "splitmax_decode_dense_launch", q_q,
+            (q_q, k_cache, v_cache, m_z, s_v, cache_len, exp_lut, recip_lut),
+            (b, hq, hkv, d, DENSE_BLOCK_K, s_max), cfg, window, out)
+    dense_composed_launches += 1
+    return out
+
+
+def splitmax_decode_fused_verify_cuda(q, k_cache, v_cache, m_z, s_q, s_v,
+                                      cache_len, exp_lut, recip_lut, *,
+                                      cfg: LUTConfig,
+                                      window: Optional[int] = None
+                                      ) -> torch.Tensor:
+    """Launch the dense verify kernel: f32 ``q (B, Hq, T, D)``, ``m_z`` and
+    ``s_q`` per (slot, token) ``(B, T)``, ``cache_len`` counting all T
+    tokens; raises on bad input or a refused launch."""
+    global dense_verify_launches
+    if not q.is_cuda:
+        raise ValueError("splitmax_decode_fused_verify_cuda takes CUDA tensors")
+    if q.dim() != 4:
+        raise ValueError(f"q {tuple(q.shape)}: need (B, Hq, T, D)")
+    b, hq, t, d = q.shape
+    _check(q, torch.float32, {"m_z": m_z, "s_q": s_q}, k_cache, v_cache, None,
+           s_v, cache_len, exp_lut, recip_lut, cfg, window, tokens=t,
+           threads=VERIFY_THREADS)
+    _, hkv, s_max, _ = k_cache.shape
+    out = torch.empty((b, hq, t, d), dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out
+    _launch("splitmax_verify", "splitmax_verify_dense_launch", q,
+            (q, k_cache, v_cache, m_z, s_q, s_v, cache_len, exp_lut,
+             recip_lut), (b, hq, hkv, t, d, DENSE_BLOCK_K, s_max), cfg, window,
+            out)
+    dense_verify_launches += 1
     return out

@@ -1,18 +1,22 @@
-"""Continuous-batching int8 paged serving (port of
-``repro/launch/serve.py``: ``serve_paged``, ``make_self_draft``,
+"""Continuous-batching int8 serving (port of ``repro/launch/serve.py``:
+``serve_paged``, ``serve_dense``, ``make_self_draft``,
 ``serve_speculative``, the ``serve`` dispatcher and the CLI for the dense
 family).
 
-Every admission is a per-slot prefill that allocates only the blocks its
-prompt needs; a slot grows one block at a time as it crosses block
-boundaries, and retirement returns its blocks.  The prefill attention runs
-the split-softmax prefill kernel and every decode step the fused paged
-decode kernel (``--fused off``: the composed one), on the card; on the CPU
-their plain versions.  ``--draft`` serves speculatively: drafter decode
-steps, then one verify step of the target through the paged verify kernel.
+Paged (the default): every admission is a per-slot prefill that allocates
+only the blocks its prompt needs; a slot grows one block at a time as it
+crosses block boundaries, and retirement returns its blocks.  The prefill
+attention runs the split-softmax prefill kernel and every decode step the
+fused paged decode kernel (``--fused off``: the composed one), on the card;
+on the CPU their plain versions.  ``--draft`` serves speculatively: drafter
+decode steps, then one verify step of the target through the paged verify
+kernel.  ``--cache dense`` is the baseline the paged pool is measured
+against: one ``(slots, max_len)`` int8 cache, and every retirement
+re-prefills the whole batch; its decode steps run the dense decode kernels.
 
     python -m repro_torch.launch.serve --arch tinyllama_1p1b
     python -m repro_torch.launch.serve --arch tinyllama_1p1b --draft self:4
+    python -m repro_torch.launch.serve --arch tinyllama_1p1b --cache dense
     python -m repro_torch.launch.serve --arch tinyllama_1p1b --smoke \\
         --device cpu --requests 8 --slots 4 --prompt-len 32 --gen 24 \\
         --draft self --gamma 3
@@ -20,12 +24,15 @@ steps, then one verify step of the target through the paged verify kernel.
 from __future__ import annotations
 
 import argparse
+import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.launch import scheduler as sched
+from repro_torch.launch import steps as st
 from repro_torch.launch.engines import PagedKVEngine
 from repro_torch.models import transformer as T
 
@@ -50,6 +57,110 @@ def serve_paged(params, cfg, prompts: List[np.ndarray], *, slots: int,
     engine = PagedKVEngine(params, cfg, prompts, slots=slots, max_len=max_len,
                            block_k=block_k, pool_blocks=pool_blocks)
     return sched.run_schedule(engine, prompts, gens=gens, verbose=verbose)
+
+
+def serve_dense(params, cfg, prompts: List[np.ndarray], *, slots: int,
+                gen: int, max_len: Optional[int] = None,
+                gens: Optional[Sequence[int]] = None,
+                verbose: bool = False) -> Dict:
+    """The pre-paged baseline scheduler, greedy: one dense ``(slots,
+    max_len)`` int8 cache, and every retirement re-prefills the *entire*
+    batch (prompt + generated-so-far of each in-flight slot, the newly
+    admitted request's prompt, zero rows of length 1 for idle slots) into a
+    fresh cache, recalibrating its scales batch-wide.
+
+    Returns the stats of :func:`repro_torch.launch.scheduler.finalize_stats`
+    with ``batch_prefills``, ``slot_prefills`` (0), ``decode_steps``,
+    ``kv_bytes_per_step``, ``leaked_blocks`` (0) and ``finished``.
+
+    Every cache write stays inside ``max_len`` at its default: a live slot
+    writes at most at ``prompt_len + gens - 2`` and an idle one at most
+    ``max(gens)`` positions past its re-prefilled length 1.
+    """
+    requests = len(prompts)
+    prompt_len = len(prompts[0])
+    if any(len(p) != prompt_len for p in prompts):
+        raise ValueError("the dense scheduler takes prompts of one length")
+    slots = min(slots, requests)
+    gens = list(gens) if gens is not None else [gen] * requests
+    if len(gens) != requests:
+        raise ValueError(f"{len(gens)} gens for {requests} prompts")
+    if max_len is None:
+        max_len = prompt_len + max(gens) + 8
+    seq_pad = prompt_len + max(gens)    # fixed re-prefill width
+    device = params["embed"]["table"].device
+    prefill_step = st.make_prefill_step(cfg, max_len)
+    decode_step = st.make_decode_step(cfg)
+
+    def reprefill_step(seqs, lens):
+        return T.prefill(params, seqs, cfg,
+                         T.make_cache(cfg, slots, max_len, device=device),
+                         valid_len=lens)
+
+    stats: Dict = {"batch_prefills": 0, "slot_prefills": 0,
+                   "decode_steps": 0, "step_s": []}
+    queue = list(range(requests))
+    generated: Dict[int, List[int]] = {}
+    finished: Dict[int, List[int]] = {}
+    active: Dict[int, int] = {}
+
+    t0 = time.perf_counter()
+    for slot in range(slots):
+        active[slot] = queue.pop(0)
+    prompts_arr = torch.as_tensor(
+        np.stack([prompts[active[s]] for s in range(slots)]), device=device)
+    last, cache = prefill_step(params, {"tokens": prompts_arr})
+    stats["batch_prefills"] += 1
+    tokens = torch.argmax(last, dim=-1)
+    tok_host = tokens.cpu().numpy()
+    for slot in range(slots):
+        generated[active[slot]] = [int(tok_host[slot])]
+
+    while active:
+        ts = time.perf_counter()
+        logits, cache = decode_step(params, tokens, cache)
+        tokens = torch.argmax(logits, dim=-1)
+        tok_host = tokens.cpu().numpy()
+        stats["step_s"].append(time.perf_counter() - ts)
+        stats["decode_steps"] += 1
+        retired = False
+        for slot in sorted(active):
+            rid = active[slot]
+            generated[rid].append(int(tok_host[slot]))
+            if len(generated[rid]) >= gens[rid]:
+                finished[rid] = generated.pop(rid)
+                del active[slot]
+                retired = True
+                if queue:
+                    active[slot] = queue.pop(0)
+                    generated[active[slot]] = []
+                    if verbose:
+                        print(f"[serve-dense] step {stats['decode_steps']}: "
+                              f"admitted request {active[slot]} into slot "
+                              f"{slot}", flush=True)
+        if retired and active:
+            # admission (or plain retirement) = full-batch re-prefill, the
+            # throughput collapse the paged scheduler removes
+            seqs = np.zeros((slots, seq_pad), np.int32)
+            lens = np.ones((slots,), np.int32)
+            for slot, rid in active.items():
+                seq = np.concatenate([prompts[rid],
+                                      np.asarray(generated[rid], np.int32)])
+                seqs[slot, :len(seq)] = seq
+                lens[slot] = len(seq)
+            last, cache = reprefill_step(torch.as_tensor(seqs, device=device),
+                                         torch.as_tensor(lens, device=device))
+            stats["batch_prefills"] += 1
+            tokens = torch.argmax(last, dim=-1)
+            tok_host = tokens.cpu().numpy()
+            for slot, rid in active.items():
+                generated[rid].append(int(tok_host[slot]))
+
+    stats["leaked_blocks"] = 0
+    stats["finished"] = finished
+    stats["kv_bytes_per_step"] = (2 * cfg.n_layers * slots * cfg.n_kv_heads
+                                  * max_len * cfg.hd)
+    return sched.finalize_stats(stats, finished, t0)
 
 
 def make_self_draft(params, cfg, n_layers: Optional[int] = None):
@@ -109,10 +220,23 @@ def serve_speculative(params, cfg, prompts: List[np.ndarray], *, slots: int,
 def serve(params, cfg, prompts: List[np.ndarray], *, slots: int, gen: int,
           block_k: int = 32, gens: Optional[Sequence[int]] = None,
           gamma: int = 4, draft=None, pool_blocks: Optional[int] = None,
-          verbose: bool = False) -> Dict:
-    """Plain paged serving, or speculative serving when ``draft`` is given:
+          cache_kind: str = "paged", verbose: bool = False) -> Dict:
+    """Dispatch on the cache layout and the speculative mode: plain paged
+    serving, dense serving (``cache_kind="dense"``, see
+    :func:`serve_dense`), or speculative serving when ``draft`` is given:
     ``"self"`` or a ``(draft_params, draft_cfg)`` pair.  Speculation is
-    greedy and paged only, as in the reference."""
+    greedy and paged only, and ``pool_blocks`` a paged-pool option, as in
+    the reference."""
+    if cache_kind not in ("paged", "dense"):
+        raise ValueError(f"cache_kind {cache_kind!r}: 'paged' or 'dense'")
+    if draft is not None and cache_kind != "paged":
+        raise ValueError("speculative serving is paged-only")
+    if cache_kind == "dense":
+        if pool_blocks is not None:
+            raise ValueError("pool_blocks is a paged-path option; "
+                             "--cache dense has no block pool to squeeze")
+        return serve_dense(params, cfg, prompts, slots=slots, gen=gen,
+                           gens=gens, verbose=verbose)
     if draft is None:
         return serve_paged(params, cfg, prompts, slots=slots, gen=gen,
                            block_k=block_k, gens=gens,
@@ -133,6 +257,10 @@ def main(argv=None) -> None:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=24)
     ap.add_argument("--block-k", type=int, default=32)
+    ap.add_argument("--cache", choices=("paged", "dense"), default="paged",
+                    help="KV cache: the paged int8 block pool, or the dense "
+                         "(slots, max_len) baseline whose admissions "
+                         "re-prefill the whole batch")
     ap.add_argument("--fused", choices=("auto", "on", "off"), default="auto",
                     help="decode datapath: the fused kernel quantizes q "
                          "in-kernel (auto/on); off quantizes outside and "
@@ -170,14 +298,18 @@ def main(argv=None) -> None:
                                    device=args.device), dcfg)
     stats = serve(params, cfg, prompts, slots=args.slots, gen=args.gen,
                   block_k=args.block_k, gamma=args.gamma, draft=draft,
-                  pool_blocks=args.pool_blocks, verbose=True)
-    mode = "paged+spec" if args.draft else "paged"
+                  pool_blocks=args.pool_blocks, cache_kind=args.cache,
+                  verbose=True)
+    mode = args.cache + ("+spec" if args.draft else "")
     steps = (f"{stats['verify_steps']} verify rounds" if args.draft
              else f"{stats['decode_steps']} decode steps")
+    prefills = (f"{stats['batch_prefills']} batch prefills"
+                if args.cache == "dense"
+                else f"{stats['slot_prefills']} slot prefills")
     print(f"[{mode}:{cfg.family}:{args.device}] served {stats['served']} "
           f"requests, {stats['total_tokens']} tokens in "
           f"{stats['wall_s']:.2f}s ({stats['tok_s']:.1f} tok/s, {steps}, "
-          f"{stats['slot_prefills']} slot prefills, p50/p99 step "
+          f"{prefills}, p50/p99 step "
           f"{stats['p50_step_ms']:.1f}/{stats['p99_step_ms']:.1f} ms, "
           f"{stats['leaked_blocks']} leaked blocks)", flush=True)
     if args.draft:

@@ -1,12 +1,25 @@
-"""Serve steps shared by the engines and the speculative scheduler (port
-of ``repro/launch/steps.py``: the paged prefill, decode and verify steps and
-the draft loop)."""
+"""Serve steps shared by the engines and the schedulers (port of
+``repro/launch/steps.py``: the dense and paged prefill steps, the decode
+and verify steps and the draft loop)."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
+
+
+def make_prefill_step(cfg: ModelConfig, cache_len: int):
+    """(params, {"tokens": (B,S)}) -> (last_logits, cache): a fresh dense
+    cache of ``cache_len`` positions, filled and calibrated by the batch."""
+
+    def prefill_step(params, batch):
+        tokens = batch["tokens"]
+        cache = T.make_cache(cfg, tokens.shape[0], cache_len,
+                             device=tokens.device)
+        return T.prefill(params, tokens, cfg, cache)
+
+    return prefill_step
 
 
 def make_paged_prefill_step(cfg: ModelConfig, *, calibrate: bool):
@@ -22,7 +35,8 @@ def make_paged_prefill_step(cfg: ModelConfig, *, calibrate: bool):
 
 
 def make_decode_step(cfg: ModelConfig):
-    """(params, token (B,), cache) -> (logits (B, V), cache)."""
+    """(params, token (B,), cache) -> (logits (B, V), cache), on a paged or
+    a dense cache (``transformer.decode_step`` tells them apart)."""
 
     def decode_step(params, token, cache):
         return T.decode_step(params, token, cfg, cache)

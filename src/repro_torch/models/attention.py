@@ -1,13 +1,16 @@
 """Multi-head attention block wired to the CIMple int8 datapath (port of
-``repro/models/attention.py``: projections, the paged pool, the paged
-decode block and the paged speculative-verify block).
+``repro/models/attention.py``: projections, the dense cache and its decode
+block with the sliding-window ring buffer, the paged pool, the paged decode
+block and the paged speculative-verify block).
 
 Projections run in the model's compute dtype; the score -> LUT softmax ->
 PV epilogue runs through :mod:`repro_torch.core.attention`.  The KV cache
-is int8 with static per-layer scales, paged into a block pool.
+is int8 with static per-layer scales, either one dense ``(slots, max_len)``
+row per slot or paged into a block pool.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict
 
 import torch
@@ -47,6 +50,67 @@ def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig,
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, *, device
+                  ) -> Dict[str, torch.Tensor]:
+    """Stacked-by-layer dense int8 cache ``(L, B, Hkv, max_len, hd)``.
+    ``scale_k``/``scale_v`` are static per-layer scales, fixed at prefill
+    (calibration) time."""
+    nl = cfg.n_layers
+    shape = (nl, batch, cfg.n_kv_heads, max_len, cfg.hd)
+    return {
+        "k_q": torch.zeros(shape, dtype=torch.int8, device=device),
+        "v_q": torch.zeros(shape, dtype=torch.int8, device=device),
+        "scale_k": torch.full((nl, 1, 1, 1, 1), 1e-2, dtype=torch.float32,
+                              device=device),
+        "scale_v": torch.full((nl, 1, 1, 1, 1), 1e-2, dtype=torch.float32,
+                              device=device),
+        "length": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+def attn_block_decode(params, x: torch.Tensor,
+                      layer_cache: Dict[str, torch.Tensor],
+                      cfg: ModelConfig) -> torch.Tensor:
+    """One-token decode against one layer's slice of the dense cache.
+
+    ``layer_cache``: views ``k_q``/``v_q`` (B, Hkv, S, hd), scalar scales and
+    ``length`` (B,) before this token.  The new token's K/V are quantized
+    with the static scales and written **in place** at its position, then
+    the query attends over the cache.  With a window the cache is a ring
+    of ``S`` (== window) positions: the write goes to ``(len-1) % S``, the
+    query attends ``min(len, S)`` positions and no window mask is applied
+    at score time.  Without one, a write at a position >= S is dropped, as
+    the reference's out-of-bounds scatter is.
+    """
+    b = x.shape[0]
+    spec = cfg.attn_spec()
+    k_q, v_q = layer_cache["k_q"], layer_cache["v_q"]
+    cache_size = k_q.shape[2]
+    new_len = layer_cache["length"] + 1            # includes current token
+    positions = (new_len - 1)[:, None]             # (B, 1) absolute (RoPE)
+    q, k, v = _project_qkv(params, x, cfg, positions)
+    s_k = layer_cache["scale_k"].reshape(())
+    s_v = layer_cache["scale_v"].reshape(())
+    k_new = qlib.quantize(k[:, :, 0, :], s_k)      # (B, Hkv, hd)
+    v_new = qlib.quantize(v[:, :, 0, :], s_v)
+    if spec.window is not None:
+        pos = ((new_len - 1) % cache_size).long()
+        attn_len = torch.clamp_max(new_len, cache_size)
+        spec = dataclasses.replace(spec, window=None)
+    else:
+        pos = (new_len - 1).long()
+        attn_len = new_len
+    b_idx = torch.arange(b, device=x.device)
+    inside = (pos < cache_size)[:, None, None]
+    pos = torch.clamp_max(pos, cache_size - 1)
+    k_q[b_idx, :, pos, :] = torch.where(inside, k_new, k_q[b_idx, :, pos, :])
+    v_q[b_idx, :, pos, :] = torch.where(inside, v_new, v_q[b_idx, :, pos, :])
+    out = core_attn.decode_attention(q[:, :, 0, :], k_q, v_q, s_k, s_v,
+                                     attn_len, spec)
+    out = out.reshape(b, 1, cfg.n_heads * cfg.hd)
+    return L.linear_apply(params["wo"], out, dtype=cfg.compute_dtype)
 
 
 def init_paged_kv_cache(cfg: ModelConfig, num_blocks: int, slots: int,

@@ -1,18 +1,23 @@
-"""Dense decoder assembly for int8 paged serving (port of
+"""Dense decoder assembly for int8 serving (port of
 ``repro/models/transformer.py``, dense family, serve mode).
 
 Parameters are a plain dict laid out like the reference's, except that the
-scanned layer stack is a Python list of per-layer dicts.  Three entry
-points:
+scanned layer stack is a Python list of per-layer dicts.  Two cache
+layouts, told apart by their keys: the paged pool (``k_pages``, from
+:func:`make_paged_cache`) and the dense ``(slots, max_len)`` cache
+(``k_q``, from :func:`make_cache`).  Entry points:
 
+  * :func:`prefill` — run the whole batch, calibrate and fill a dense
+    cache, return each row's last valid logits;
   * :func:`prefill_paged` — run a prompt, write its int8 K/V into the named
     slots' pool blocks, return last-position logits (per-slot admission);
-  * :func:`decode_step` — one token per slot in, logits out;
+  * :func:`decode_step` — one token per slot in, logits out, on either
+    layout;
   * :func:`verify_step` — T tokens per slot in, logits for each out
-    (speculative verify).
+    (speculative verify, paged).
 
-The paged cache dict is updated **in place**; each returns it for symmetry
-with the reference's functional API.
+The cache dict is updated **in place**; each returns it for symmetry with
+the reference's functional API.
 """
 from __future__ import annotations
 
@@ -105,6 +110,53 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig
     return unembed(params, x, cfg), kvs
 
 
+def make_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda"
+               ) -> Dict[str, torch.Tensor]:
+    """Dense decode cache: int8 K/V ``(L, batch, Hkv, max_len, hd)``,
+    per-layer scales and lengths.  With a sliding window, ``max_len`` is
+    the ring's size (the reference's callers pass the window)."""
+    return A.init_kv_cache(cfg, batch, max_len, device=resolve_device(device))
+
+
+def prefill(params, tokens: torch.Tensor, cfg: ModelConfig,
+            cache: Dict[str, torch.Tensor], *,
+            valid_len: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Run ``tokens (B, S)`` and fill the dense cache with their int8 K/V;
+    returns the logits at each row's ``valid_len - 1`` (B, vocab_padded).
+
+    Calibration is batch-wide, as in the reference: each layer's
+    ``scale_k``/``scale_v`` is the absmax over the whole padded batch
+    (padding and idle rows included).  A ring cache shorter than the
+    prompt keeps the last ``cache_size`` positions, which needs ``S`` to
+    be a multiple of ``cache_size`` so that they land at ring indices 0..
+    """
+    b, s = tokens.shape
+    if valid_len is None:
+        valid_len = torch.full((b,), s, dtype=torch.int32,
+                               device=tokens.device)
+    logits, kvs = forward(params, tokens, cfg)
+    k_all = torch.stack([k for k, _ in kvs])        # (L, B, Hkv, S, hd)
+    v_all = torch.stack([v for _, v in kvs])
+    cache_size = cache["k_q"].shape[3]
+    if cache_size < s:
+        if s % cache_size:
+            raise ValueError(f"a ring cache of {cache_size} positions takes "
+                             f"a prompt whose length is a multiple of it, "
+                             f"got {s}")
+        k_all = k_all[:, :, :, -cache_size:]
+        v_all = v_all[:, :, :, -cache_size:]
+    w = k_all.shape[3]
+    cache["scale_k"].copy_(qlib.absmax_scale(k_all, axis=(1, 2, 3, 4)))
+    cache["scale_v"].copy_(qlib.absmax_scale(v_all, axis=(1, 2, 3, 4)))
+    cache["k_q"][:, :, :, :w] = qlib.quantize(k_all, cache["scale_k"])
+    cache["v_q"][:, :, :, :w] = qlib.quantize(v_all, cache["scale_v"])
+    cache["length"].copy_(valid_len)
+    idx = torch.clamp_min(valid_len.to(torch.int64) - 1, 0)
+    last = logits[torch.arange(b, device=logits.device), idx]
+    return last, cache
+
+
 def make_paged_cache(cfg: ModelConfig, slots: int, max_len: int, *,
                      block_k: int = 32, num_blocks: Optional[int] = None,
                      device="cuda") -> Dict[str, torch.Tensor]:
@@ -169,22 +221,24 @@ def prefill_paged(params, tokens: torch.Tensor, cfg: ModelConfig,
 
 def _layer_cache(cache: Dict[str, torch.Tensor], i: int
                  ) -> Dict[str, torch.Tensor]:
-    """Layer ``i``'s views of the pool, with the shared table and lengths."""
-    return {"k_pages": cache["k_pages"][i], "v_pages": cache["v_pages"][i],
-            "scale_k": cache["scale_k"][i], "scale_v": cache["scale_v"][i],
-            "block_table": cache["block_table"], "length": cache["length"]}
+    """Layer ``i``'s views of the cache (pool or dense), with the shared
+    lengths and, paged, the shared table."""
+    shared = ("block_table", "length")
+    return {k: (v if k in shared else v[i]) for k, v in cache.items()}
 
 
 def decode_step(params, token: torch.Tensor, cfg: ModelConfig,
                 cache: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """token (B,) -> logits (B, vocab_padded); every slot's length grows
-    by one (idle slots write into the trash block)."""
+    by one.  Paged, idle slots write into the trash block; dense, each slot
+    writes its own row (a ring with a window)."""
+    block = (A.attn_block_decode_paged if "k_pages" in cache
+             else A.attn_block_decode)
     x = embed_tokens(params, token[:, None], cfg)       # (B, 1, d)
     for i, lp in enumerate(params["layers"]):
         h = L.rmsnorm_apply(lp["norm1"], x)
-        x = x + A.attn_block_decode_paged(lp["attn"], h, _layer_cache(cache, i),
-                                          cfg)
+        x = x + block(lp["attn"], h, _layer_cache(cache, i), cfg)
         h = L.rmsnorm_apply(lp["norm2"], x)
         x = x + M.mlp_apply(lp["mlp"], h, cfg)
     cache["length"] += 1

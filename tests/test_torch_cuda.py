@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
-prefill, fused and composed paged decode, paged verify (each verify row
-also bit for bit the decode kernel at its effective length, and the
-composed decode bit for bit the fused one), and smoke-size serving through
-them.
+prefill, fused and composed decode over the paged pool and the dense cache,
+paged and dense verify (each verify row also bit for bit the decode kernel
+at its effective length, the composed decode bit for bit the fused one, and
+a dense slot bit for bit a paged slot holding the same K/V), the int8 GEMM
+(bit for bit), and smoke-size serving through them.
 
 Every test here is marked ``gpu`` and skips without a CUDA device; this
 file imports no JAX, so it runs on the machine with the card:
@@ -20,7 +21,8 @@ import torch
 from repro_torch.core import paged_kv
 from repro_torch.core import quantization as qlib
 from repro_torch.core.lut import LUTConfig, build_exp_lut, build_recip_lut
-from repro_torch.kernels import ops, splitmax_attn, splitmax_decode
+from repro_torch.kernels import (int8_matmul, ops, splitmax_attn,
+                                 splitmax_decode)
 
 CFG = LUTConfig(scale_z=8.0 / 127)
 SCALES = (0.01, 0.012, 0.02)
@@ -245,6 +247,132 @@ def test_composed_kernel_equals_fused_kernel(rng, cuda, shape, window):
     np.testing.assert_allclose(comp.cpu().numpy(), plain.cpu().numpy(), **TOL)
 
 
+def _dense_case(rng, dev, lens, hq, hkv, s_max, d, gamma=None):
+    """A dense (B, Hkv, S_max, D) int8 cache and f32 queries with their
+    per-slot (or per-(slot, token)) scales and multipliers."""
+    b = len(lens)
+    k, v = (_i8(rng, (b, hkv, s_max, d), dev) for _ in range(2))
+    shape = (b, hq, d) if gamma is None else (b, hq, gamma, d)
+    q = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+    s_q = (qlib.absmax_scale(q, axis=(1, 2)).reshape(-1) if gamma is None
+           else qlib.absmax_scale(q, axis=(1, 3))[:, 0, :, 0].contiguous())
+    m_z = ops.requant_multiplier(s_q, torch.tensor(SCALES[1], device=dev),
+                                 d, CFG)
+    return (q, k, v, m_z, s_q, torch.tensor(SCALES[2], device=dev),
+            torch.tensor(lens, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("shape", [
+    # b, hq, hkv, s_max, d
+    (8, 32, 4, 290, 64),          # the dense churn: no tile divides S_max
+    (3, 8, 2, 36, 16),            # the smoke model's heads
+    (2, 8, 1, 256, 128),
+])
+@pytest.mark.parametrize("window", [None, 48])
+def test_dense_decode_kernels_match_plain_and_each_other(rng, cuda, shape,
+                                                         window):
+    b, hq, hkv, s_max, d = shape
+    lens = [1 + (i * 101) % s_max for i in range(b)]
+    lens[0] = s_max                               # the ragged last tile
+    if b > 2:
+        lens[1], lens[2] = 32, 0                  # a tile boundary; idle
+    q, k, v, m_z, s_q, s_v, lens_t = _dense_case(rng, cuda, lens, hq, hkv,
+                                                 s_max, d)
+    luts = _luts(cuda)
+    q_q = qlib.quantize(q, s_q[:, None, None])
+    before = (splitmax_decode.dense_launches,
+              splitmax_decode.dense_composed_launches)
+    fused = splitmax_decode.splitmax_decode_fused_cuda(
+        q, k, v, m_z, s_q, s_v, lens_t, *luts, cfg=CFG, window=window)
+    comp = splitmax_decode.splitmax_decode_cuda(
+        q_q, k, v, m_z, s_v, lens_t, *luts, cfg=CFG, window=window)
+    want = splitmax_decode.splitmax_decode_fused_plain(
+        q, k, v, m_z, s_q, s_v, lens_t, *luts, cfg=CFG, window=window)
+    torch.cuda.synchronize()
+    assert (splitmax_decode.dense_launches,
+            splitmax_decode.dense_composed_launches) == (before[0] + 1,
+                                                         before[1] + 1)
+    np.testing.assert_allclose(fused.cpu().numpy(), want.cpu().numpy(), **TOL)
+    assert torch.equal(comp, fused)
+    if b > 2:
+        assert not fused[2].any()
+
+
+@pytest.mark.parametrize("window", [None, 48])
+def test_dense_decode_kernel_equals_paged_kernel(rng, cuda, window):
+    """The same K/V dense and scattered into a shuffled pool with block_k
+    equal to the dense tile: equal bits."""
+    b, hq, hkv, d, bk = 8, 32, 4, 64, splitmax_decode.DENSE_BLOCK_K
+    mb = 10
+    lens = [int(n) for n in rng.integers(251, 283, b)]
+    lens[0], lens[1] = 1, bk
+    q, k, v, m_z, s_q, s_v, lens_t = _dense_case(rng, cuda, lens, hq, hkv,
+                                                 mb * bk - 7, d)
+    nb = 1 + b * mb
+    table = torch.from_numpy(rng.permutation(np.arange(1, nb)).reshape(
+        b, mb).astype(np.int32)).to(cuda)
+    kp = torch.zeros((nb, hkv, bk, d), dtype=torch.int8, device=cuda)
+    vp = torch.zeros_like(kp)
+    pad = (0, 0, 0, mb * bk - k.shape[2])
+    for src, dst in ((k, kp), (v, vp)):
+        tiles = torch.nn.functional.pad(src, pad).reshape(b, hkv, mb, bk, d)
+        dst[table.long()] = tiles.permute(0, 2, 1, 3, 4)
+    luts = _luts(cuda)
+    dense = splitmax_decode.splitmax_decode_fused_cuda(
+        q, k, v, m_z, s_q, s_v, lens_t, *luts, cfg=CFG, window=window)
+    paged = splitmax_decode.splitmax_decode_fused_paged_cuda(
+        q, kp, vp, table, m_z, s_q, s_v, lens_t, *luts, cfg=CFG,
+        window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(dense, paged)
+
+
+@pytest.mark.parametrize("gamma", [2, 4, 8])
+@pytest.mark.parametrize("window", [None, 48])
+def test_dense_verify_kernel_matches_plain_and_decode_rows(rng, cuda, gamma,
+                                                           window):
+    b, hq, hkv, s_max, d = 8, 32, 4, 290, 64
+    lens = [int(n) for n in rng.integers(251, 283, b)]
+    lens[0], lens[1], lens[2] = gamma, s_max, 64 + gamma // 2
+    q, k, v, m_z, s_q, s_v, lens_t = _dense_case(rng, cuda, lens, hq, hkv,
+                                                 s_max, d, gamma)
+    luts = _luts(cuda)
+    before = splitmax_decode.dense_verify_launches
+    got = splitmax_decode.splitmax_decode_fused_verify_cuda(
+        q, k, v, m_z, s_q, s_v, lens_t, *luts, cfg=CFG, window=window)
+    want = splitmax_decode.splitmax_decode_fused_verify_plain(
+        q, k, v, m_z, s_q, s_v, lens_t, *luts, cfg=CFG, window=window)
+    for t in range(gamma):
+        row = splitmax_decode.splitmax_decode_fused_cuda(
+            q[:, :, t].contiguous(), k, v, m_z[:, t].contiguous(),
+            s_q[:, t].contiguous(), s_v, lens_t - (gamma - 1 - t), *luts,
+            cfg=CFG, window=window)
+        assert torch.equal(got[:, :, t], row), t
+    torch.cuda.synchronize()
+    assert splitmax_decode.dense_verify_launches == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (256, 512, 256), (128, 128, 128), (512, 256, 384),   # the reference's
+    (37, 100, 70),                                       # ragged edges
+    (300, 2048, 260),                                    # |acc| past 2^24
+])
+@pytest.mark.parametrize("requant", [False, True])
+def test_int8_matmul_kernel_equals_plain(rng, cuda, m, k, n, requant):
+    x, w = _i8(rng, (m, k), cuda), _i8(rng, (k, n), cuda)
+    x[0], w[:, 0] = -128, -128
+    mult = torch.tensor(3.7e-6 if k >= 2048 else 3.7e-4, device=cuda)
+    mult = mult if requant else None
+    before = int8_matmul.launches
+    got = int8_matmul.int8_matmul_cuda(x, w, mult)
+    want = int8_matmul.int8_matmul_plain(x, w, mult)
+    torch.cuda.synchronize()
+    assert int8_matmul.launches == before + 1
+    assert got.dtype == (torch.int8 if requant else torch.int32)
+    assert torch.equal(got, want)
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -303,3 +431,32 @@ def test_smoke_serving_runs_through_the_kernels(cuda):
     cpu_stats = srv.serve_paged(cpu_params, cfg, prompts, slots=3, gen=12,
                                 gens=gens, block_k=8)
     assert stats["finished"] == cpu_stats["finished"]
+
+
+def test_smoke_dense_serving_runs_through_the_kernels(cuda):
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve as srv
+    from repro_torch.models import transformer as T
+
+    cfg = get_arch("tinyllama_1p1b").smoke.replace(dtype="float32")
+    cpu_params = T.init_params(cfg, seed=0, device="cpu")
+    params = _tree_to(cpu_params, cuda)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, 20, dtype=np.int32)
+               for _ in range(6)]
+    gens = [int(g) for g in rng.integers(6, 13, 6)]
+    for fused in (True, False):
+        c = cfg.replace(attn_fused=fused)
+        splitmax_attn.launches = 0
+        splitmax_decode.dense_launches = 0
+        splitmax_decode.dense_composed_launches = 0
+        stats = srv.serve(params, c, prompts, slots=3, gen=12, gens=gens,
+                          cache_kind="dense")
+        n_dec = (splitmax_decode.dense_launches if fused
+                 else splitmax_decode.dense_composed_launches)
+        assert stats["served"] == 6
+        assert splitmax_attn.launches == stats["batch_prefills"] * cfg.n_layers
+        assert n_dec == stats["decode_steps"] * cfg.n_layers
+        cpu_stats = srv.serve(cpu_params, c, prompts, slots=3, gen=12,
+                              gens=gens, cache_kind="dense")
+        assert stats["finished"] == cpu_stats["finished"]
