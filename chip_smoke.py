@@ -14,20 +14,26 @@ Phases, each fatal on failure:
      gamma 4 and 8 verify over both) and at edge cases (length 0, 1 or
      gamma, tile boundaries, window, padding mask, an idle slot, a dense
      cache no tile divides, block 0 filled with 127 and then -77); every
-     verify row bit for bit the decode kernel at its effective length, the
-     composed decodes bit for bit the fused ones, and the dense decode bit
-     for bit the paged one on the same K/V; the int8 GEMM bit for bit at
-     the reference's shapes, a ragged one and TinyLlama's widths; times of
-     the kernel, the plain version, the bound and yardsticks
+     split-softmax kernel bit for bit its plain version's ``exact=True``
+     (the kernels' exact integer sums) and within ``tolerance`` of the
+     default plain version; every verify row bit for bit the decode kernel
+     at its effective length, the composed decodes bit for bit the fused
+     ones, and the dense decode bit for bit the paged one on the same K/V;
+     the int8 GEMM bit for bit at the reference's shapes, a ragged one and
+     TinyLlama's widths; the plain version's time and the kernel's
+     host-inclusive time (back-to-back Python calls) and bound;
+  4. device times: each kernel at its main shape and its yardsticks
      (``F.scaled_dot_product_attention``, a float softmax and not this
-     function, which the port never calls; for verify also gamma decode
-     launches, what one verify replaces; ``torch._int_mm`` for the GEMM);
-  4. the port at the smoke size on the card against the port on the CPU
+     function, which the port never calls; for verify also the gamma decode
+     launches one verify replaces; ``torch._int_mm`` for the GEMM) captured
+     50 calls to a CUDA graph and replayed, 7 rounds interleaved, median
+     and min-max, beside the launch floor (a replayed one-element add_);
+  5. the port at the smoke size on the card against the port on the CPU
      (plain versions), on the same random weights: paged prefill + decode
      logits, a sliding-window ring-buffer config's logits, and dense
      serving tokens (fused and composed); then smoke-size f32 speculative
      serving on the card against plain serving, token for token;
-  5. the main paths at full TinyLlama-1.1B width (seeded random weights,
+  6. the main paths at full TinyLlama-1.1B width (seeded random weights,
      bf16 compute), each with the kernels' launch counts set to 0 just
      before it and read just after:
        a. churn serving through ``serve_paged``: 24 requests over 8 slots,
@@ -43,7 +49,7 @@ Phases, each fatal on failure:
           8 requests through the composed and the fused dense decode.
 
 Kernels 7 (dense verify) and 8 (int8 GEMM) have no caller in any model, as
-in the reference: they are checked and timed in phase 3 and stand in the
+in the reference: they are checked and timed in phases 3 and 4 and stand in the
 JSON line with ``"launches": 0`` and ``"path": null``.
 
 The line before the last is the card's name and power limit; before it, one
@@ -93,9 +99,18 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# Closures timed by graph replay after the kernel phases, by key: kernels,
+# their SDPA / torch._int_mm yardsticks, and the launch floor.
+GRAPHED = {}
+GRAPH_ITERS = 50
+GRAPH_ROUNDS = 7
+
+
 def time_ms(torch, fn, iters: int = 50, warm: int = 5) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls (CUDA
-    events; inputs stay L2-resident across calls)."""
+    """Host-inclusive time of ``fn``: CUDA events around ``iters``
+    back-to-back Python calls (inputs stay L2-resident across calls).  For a
+    kernel of a few microseconds this measures the wrapper's host cost, not
+    the device: see :func:`graph_rounds`."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -109,6 +124,38 @@ def time_ms(torch, fn, iters: int = 50, warm: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_rounds(torch, fns, iters: int = GRAPH_ITERS,
+                 rounds: int = GRAPH_ROUNDS):
+    """Device time per call of each closure in ``fns`` (name -> fn): its
+    ``iters`` calls captured once in a CUDA graph, the replay timed with
+    CUDA events, ``rounds`` rounds interleaved across all the closures.
+    Returns name -> (median, min, max) in ms per call."""
+    import statistics
+    graphs = {}
+    for name, fn in fns.items():
+        fn()                         # load, set attributes, warm caches
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(iters):
+                fn()
+        g.replay()
+        graphs[name] = g
+    torch.cuda.synchronize()
+    times = {name: [] for name in graphs}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(rounds):
+        for name, g in graphs.items():
+            start.record()
+            g.replay()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end) / iters)
+    return {name: (statistics.median(t), min(t), max(t))
+            for name, t in times.items()}
+
+
 def bound_ms(n_bytes: int, n_ops: int):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / INT8_OPS_PER_S * 1e3
@@ -116,8 +163,10 @@ def bound_ms(n_bytes: int, n_ops: int):
 
 
 def tolerance(s_v: float) -> float:
-    """f32 sums of e*v taken in another order: bound the difference at
-    2e-5 of the output's full scale 127 * s_v (~n * 2^-24 for n <= 300)."""
+    """The default plain version rounds its f32 sums of e*v and the kernels
+    sum them exactly (each equals the plain version's ``exact=True`` bit for
+    bit): bound the difference at 2e-5 of the output's full scale 127 * s_v
+    (~n * 2^-24 for n <= 300)."""
     return 2e-5 * 127 * s_v
 
 
@@ -155,7 +204,8 @@ def pool_scales(torch, dev):
 
 def sdpa_decode_yardstick(torch, F, gen, dev, b, hq, d, q_lens):
     """bf16 SDPA over dense K/V of the same lengths, GQA expanded: ``q_lens
-    (b, T)`` is each query's visible length.  Returns its time in ms."""
+    (b, T)`` is each query's visible length.  Returns the call, for
+    :func:`graph_rounds`."""
     t = len(q_lens[0])
     smax = max(max(row) for row in q_lens)
     qb = torch.randn((b, hq, t, d), generator=gen, device=dev,
@@ -166,8 +216,7 @@ def sdpa_decode_yardstick(torch, F, gen, dev, b, hq, d, q_lens):
                      dtype=torch.bfloat16)
     mask = (torch.arange(smax, device=dev)[None, None, :]
             < torch.tensor(q_lens, device=dev)[:, :, None])[:, None]
-    return time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qb, kd, vd, attn_mask=mask))
+    return lambda: F.scaled_dot_product_attention(qb, kd, vd, attn_mask=mask)
 
 
 # ---------------------------------------------------------------- prefill --
@@ -195,10 +244,14 @@ def prefill_phase(torch, F, dev):
         kw = dict(cfg=cfg, causal=causal, window=window, kv_valid_len=kv_valid)
         ker = K.splitmax_attention_cuda(*args, **kw)
         plain = K.splitmax_attention_plain(*args, **kw)
+        exact = K.splitmax_attention_plain(*args, exact=True, **kw)
         torch.cuda.synchronize()
         err = float((ker - plain).abs().max()) if ker.numel() else 0.0
         tol = tolerance(float(s_v))
         check(bool(torch.isfinite(ker).all()), f"prefill {sq}x{sk}: non-finite")
+        check(torch.equal(ker, exact), f"prefill b{b} hq{hq} hkv{hkv} {sq}x{sk} "
+              f"d{d} causal={causal} window={window} kv_valid={kv_valid}: "
+              f"kernel != the exact=True plain version")
         check(err <= tol, f"prefill b{b} hq{hq} hkv{hkv} {sq}x{sk} d{d} "
               f"causal={causal} window={window} kv_valid={kv_valid}: "
               f"max|kernel-plain| {err:.3g} > {tol:.3g}")
@@ -214,7 +267,8 @@ def prefill_phase(torch, F, dev):
     ]
     for e in edges:
         _, _, err, tol, _ = case(**e)
-        print(f"[prefill] edge {e}: max_abs_err {err:.3g} (tol {tol:.3g})")
+        print(f"[prefill] edge {e}: == exact oracle, max_abs_err {err:.3g} "
+              f"(tol {tol:.3g})")
 
     def prefill_bound(b, hq, hkv, s, d):
         pairs = b * hq * s * (s + 1) // 2                # causal live (q, k)
@@ -225,48 +279,52 @@ def prefill_phase(torch, F, dev):
         # 2D for q.k; 4D for e.V with e (<= 2^15) split into two int8 halves
         return bound_ms(n_bytes, pairs * 6 * d)
 
-    def sdpa_ms(q, k, v):
+    def sdpa_fn(q, k, v):
         g = q.shape[1] // k.shape[1]
         kb, vb = (x.to(torch.bfloat16).repeat_interleave(g, dim=1)
                   for x in (k, v))
         qb = q.to(torch.bfloat16)
-        return time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qb, kb, vb, is_causal=True))
+        return lambda: F.scaled_dot_product_attention(qb, kb, vb,
+                                                      is_causal=True)
 
     p = PREFILL
     args, kw, err, tol, (q, k, v) = case(p["b"], p["hq"], p["hkv"], p["s"],
                                          p["s"], p["d"])
-    ms = time_ms(torch, lambda: K.splitmax_attention_cuda(*args, **kw))
+    GRAPHED["prefill"] = lambda: K.splitmax_attention_cuda(*args, **kw)
+    GRAPHED["prefill sdpa"] = sdpa_fn(q, k, v)
+    ms = time_ms(torch, GRAPHED["prefill"])
     plain_ms = time_ms(torch, lambda: K.splitmax_attention_plain(*args, **kw),
                        iters=10)
-    library_ms = sdpa_ms(q, k, v)
     bms, by = prefill_bound(p["b"], p["hq"], p["hkv"], p["s"], p["d"])
-    print(f"[prefill] main {p}: max_abs_err {err:.3g} (tol {tol:.3g}), "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.5f} ms "
-          f"({by}), sdpa bf16 yardstick {library_ms:.4f} ms")
+    print(f"[prefill] main {p}: == exact oracle, max_abs_err {err:.3g} (tol "
+          f"{tol:.3g}), kernel host-inclusive {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bms:.5f} ms ({by})")
 
     # the dense path's re-prefill: every slot at once, one per-tensor scale
     r = REPREFILL
     rargs, rkw, rerr, rtol, (rq, rk, rv) = case(r["b"], r["hq"], r["hkv"],
                                                 r["s"], r["s"], r["d"])
-    r_ms = time_ms(torch, lambda: K.splitmax_attention_cuda(*rargs, **rkw))
+    GRAPHED["re-prefill"] = lambda: K.splitmax_attention_cuda(*rargs, **rkw)
+    GRAPHED["re-prefill sdpa"] = sdpa_fn(rq, rk, rv)
+    r_ms = time_ms(torch, GRAPHED["re-prefill"])
     r_plain_ms = time_ms(torch, lambda: K.splitmax_attention_plain(
         *rargs, **rkw), iters=10)
-    r_library_ms = sdpa_ms(rq, rk, rv)
     r_bms, r_by = prefill_bound(r["b"], r["hq"], r["hkv"], r["s"], r["d"])
-    print(f"[prefill] re-prefill {r}: max_abs_err {rerr:.3g} (tol "
-          f"{rtol:.3g}), kernel {r_ms:.4f} ms, plain {r_plain_ms:.4f} ms, "
-          f"bound {r_bms:.5f} ms ({r_by}), sdpa bf16 yardstick "
-          f"{r_library_ms:.4f} ms")
+    print(f"[prefill] re-prefill {r}: == exact oracle, max_abs_err "
+          f"{rerr:.3g} (tol {rtol:.3g}), kernel host-inclusive {r_ms:.4f} ms, "
+          f"plain {r_plain_ms:.4f} ms, bound {r_bms:.5f} ms ({r_by})")
     return {"name": "splitmax_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/splitmax_attn.cu",
             "replaces": "src/repro/kernels/splitmax_attn.py:181",
             "path": "paged admissions, dense re-prefills",
-            "max_abs_err": max(err, rerr), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
-            "reprefill": {"shape": r, "ms": r_ms, "plain_ms": r_plain_ms,
-                          "bound_ms": r_bms, "bound_by": r_by,
-                          "library_ms": r_library_ms}}
+            "max_abs_err": max(err, rerr), "exact_equal": True,
+            "graph": "prefill", "library_graph": "prefill sdpa",
+            "host_ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by,
+            "reprefill": {"shape": r, "graph": "re-prefill",
+                          "library_graph": "re-prefill sdpa",
+                          "host_ms": r_ms, "plain_ms": r_plain_ms,
+                          "bound_ms": r_bms, "bound_by": r_by}}
 
 
 # ----------------------------------------------------------------- decode --
@@ -297,6 +355,10 @@ def decode_phase(torch, F, dev):
         ker = K.splitmax_decode_fused_paged_cuda(*args, cfg=cfg, window=window)
         plain = K.splitmax_decode_fused_paged_plain(*args, cfg=cfg,
                                                     window=window)
+        exact = K.splitmax_decode_fused_paged_plain(*args, cfg=cfg,
+                                                    window=window, exact=True)
+        check(torch.equal(ker, exact), f"decode {what}: kernel != the "
+              f"exact=True plain version")
         # the trash block must never be read: re-poison it and re-run
         args[1][paged_kv.TRASH_BLOCK] = -77
         args[2][paged_kv.TRASH_BLOCK] = -77
@@ -315,14 +377,16 @@ def decode_phase(torch, F, dev):
     edge_lens = [1, bk, bk + 1, 2 * bk, 250, 282, 1, 5]
     err, tol = compare(make(edge_lens, hq, hkv, d, bk, idle=(6,)),
                        "edges (len 1, block boundaries, idle slot)")
-    print(f"[decode] edges lens {edge_lens} (slot 6 idle): max_abs_err "
-          f"{err:.3g} (tol {tol:.3g})")
+    print(f"[decode] edges lens {edge_lens} (slot 6 idle): == exact oracle, "
+          f"max_abs_err {err:.3g} (tol {tol:.3g})")
     err, tol = compare(make([40, 77, 96], 8, 2, 16, 8), "smoke shape d16",
                        window=None)
-    print(f"[decode] smoke shape: max_abs_err {err:.3g} (tol {tol:.3g})")
+    print(f"[decode] smoke shape: == exact oracle, max_abs_err {err:.3g} "
+          f"(tol {tol:.3g})")
     err, tol = compare(make([100, 64, 33], hq, hkv, d, bk), "window 48",
                        window=48)
-    print(f"[decode] window 48: max_abs_err {err:.3g} (tol {tol:.3g})")
+    print(f"[decode] window 48: == exact oracle, max_abs_err {err:.3g} (tol "
+          f"{tol:.3g})")
 
     lens = torch.randint(p["prompt"] + 1, p["prompt"] + p["gen"] + 1,
                          (p["b"],), generator=gen, device=dev).tolist()
@@ -330,13 +394,14 @@ def decode_phase(torch, F, dev):
     err, tol = compare(args, f"main lens {lens}")
     args[1][paged_kv.TRASH_BLOCK] = 127
     args[2][paged_kv.TRASH_BLOCK] = 127
-    ms = time_ms(torch, lambda: K.splitmax_decode_fused_paged_cuda(*args,
-                                                                     cfg=cfg))
+    GRAPHED["decode"] = lambda: K.splitmax_decode_fused_paged_cuda(*args,
+                                                                    cfg=cfg)
+    ms = time_ms(torch, GRAPHED["decode"])
     plain_ms = time_ms(torch, lambda: K.splitmax_decode_fused_paged_plain(
         *args, cfg=cfg), iters=10)
     b = p["b"]
-    library_ms = sdpa_decode_yardstick(torch, F, gen, dev, b, hq, d,
-                                       [[n] for n in lens])
+    GRAPHED["decode sdpa"] = sdpa_decode_yardstick(torch, F, gen, dev, b, hq,
+                                                   d, [[n] for n in lens])
     total = sum(lens)
     tiles = sum(paged_kv.blocks_per_seq(n, bk) for n in lens)
     n_bytes = (4 * b * hq * d                    # f32 q
@@ -345,20 +410,21 @@ def decode_phase(torch, F, dev):
                + 4 * b * hq * d                  # f32 out
                + 4 * (256 + cfg.recip_table_size))
     bms, by = bound_ms(n_bytes, total * hq * 6 * d)
-    print(f"[decode] main lens {lens}: max_abs_err {err:.3g} (tol {tol:.3g}), "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.5f} ms "
-          f"({by}), sdpa bf16 yardstick {library_ms:.4f} ms")
+    print(f"[decode] main lens {lens}: == exact oracle, max_abs_err "
+          f"{err:.3g} (tol {tol:.3g}), kernel host-inclusive {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {bms:.5f} ms ({by})")
     return {"name": "splitmax_decode_fused_paged", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/splitmax_decode.cu",
             "replaces": "src/repro/kernels/splitmax_decode.py:747",
             "path": "paged decode steps, draft steps",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": library_ms}, args
+            "max_abs_err": err, "exact_equal": True, "graph": "decode",
+            "library_graph": "decode sdpa", "host_ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by}, args
 
 
 # ----------------------------------------------------------------- verify --
 
-def verify_phase(torch, F, dev, decode_ms):
+def verify_phase(torch, F, dev):
     from repro_torch.core import paged_kv
     from repro_torch.core import quantization as qlib
     from repro_torch.core.attention import luts_for
@@ -384,6 +450,10 @@ def verify_phase(torch, F, dev, decode_ms):
                                                         window=window)
         plain = K.splitmax_decode_fused_verify_paged_plain(*args, cfg=cfg,
                                                            window=window)
+        exact = K.splitmax_decode_fused_verify_paged_plain(
+            *args, cfg=cfg, window=window, exact=True)
+        check(torch.equal(ker, exact), f"verify {what}: kernel != the "
+              f"exact=True plain version")
         # each row is the decode kernel at its effective length, bit for bit
         rows = [[q[:, :, t].contiguous(), kp, vp, table,
                  m_z[:, t].contiguous(), s_q[:, t].contiguous(), args[6],
@@ -409,7 +479,8 @@ def verify_phase(torch, F, dev, decode_ms):
         for i in idle:
             check(not ker[i].any(), f"verify {what}: idle slot {i} not zero")
         print(f"[verify] {what}: lens {lens}, gamma {gamma}, window {window}: "
-              f"max_abs_err {err:.3g} (tol {tol:.3g}), rows == decode kernel")
+              f"== exact oracle, max_abs_err {err:.3g} (tol {tol:.3g}), rows "
+              f"== decode kernel")
         return args, rows, err, tol
 
     for gamma in p["gammas"]:
@@ -427,20 +498,22 @@ def verify_phase(torch, F, dev, decode_ms):
         args, rows, err, tol = case(lens, gamma, "main")
         args[1][paged_kv.TRASH_BLOCK] = 127
         args[2][paged_kv.TRASH_BLOCK] = 127
-        ms = time_ms(torch, lambda: K.splitmax_decode_fused_verify_paged_cuda(
-            *args, cfg=cfg))
+        key = f"verify g{gamma}"
+        GRAPHED[key] = (lambda a=args: K.splitmax_decode_fused_verify_paged_cuda(
+            *a, cfg=cfg))
+        ms = time_ms(torch, GRAPHED[key])
         plain_ms = time_ms(torch, lambda: K.splitmax_decode_fused_verify_paged_plain(
             *args, cfg=cfg), iters=10)
 
-        def decodes():
+        def decodes(rows=rows):
             for row in rows:
                 K.splitmax_decode_fused_paged_cuda(*row, cfg=cfg)
 
-        decodes_ms = time_ms(torch, decodes)
+        GRAPHED[f"{key} decodes"] = decodes
         b = p["b"]
         q_lens = [[n - (gamma - 1 - t) for t in range(gamma)] for n in lens]
-        library_ms = sdpa_decode_yardstick(torch, F, gen, dev, b, hq, d,
-                                           q_lens)
+        GRAPHED[f"{key} sdpa"] = sdpa_decode_yardstick(torch, F, gen, dev, b,
+                                                       hq, d, q_lens)
         tiles = sum(paged_kv.blocks_per_seq(n, bk) for n in lens)
         pairs = hq * sum(sum(row) for row in q_lens)    # live (query, key)
         n_bytes = (4 * b * hq * gamma * d           # f32 q
@@ -450,26 +523,24 @@ def verify_phase(torch, F, dev, decode_ms):
                    + 4 * b * hq * gamma * d         # f32 out
                    + 4 * (256 + cfg.recip_table_size))
         bms, by = bound_ms(n_bytes, pairs * 6 * d)
-        print(f"[verify] main gamma {gamma}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {bms:.5f} ms ({by}), {gamma} decode "
-              f"launches {decodes_ms:.4f} ms (decode phase: {gamma} x "
-              f"{decode_ms:.4f} = {gamma * decode_ms:.4f} ms), sdpa bf16 "
-              f"{gamma}-query masked yardstick {library_ms:.4f} ms")
+        print(f"[verify] main gamma {gamma}: kernel host-inclusive {ms:.4f} "
+              f"ms, plain {plain_ms:.4f} ms, bound {bms:.5f} ms ({by})")
         results.append({
             "name": "splitmax_decode_fused_verify_paged", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/splitmax_verify.cu",
             "replaces": "src/repro/kernels/splitmax_decode.py:820",
             "path": "paged speculative verify", "gamma": gamma,
-            "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": library_ms, "decodes_ms": decodes_ms})
+            "max_abs_err": err, "exact_equal": True, "graph": key,
+            "library_graph": f"{key} sdpa", "decodes_graph": f"{key} decodes",
+            "host_ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by})
     # the serving path runs gamma = SPEC["gamma"]: its row goes in the line
     return next(r for r in results if r["gamma"] == SPEC["gamma"])
 
 
 # --------------------------------------------------------------- composed --
 
-def composed_phase(torch, F, dev, decode_args):
+def composed_phase(torch, dev, decode_args):
     """Kernel 5 on the decode phase's main inputs: int8 q from
     quantize(q, s_q) on the card, then the composed kernel, which must
     equal the fused kernel bit for bit and the plain version within
@@ -480,7 +551,6 @@ def composed_phase(torch, F, dev, decode_args):
     from repro_torch.kernels import splitmax_decode as K
 
     cfg = LUTConfig(scale_z=8.0 / 127)
-    gen = torch.Generator(device=dev).manual_seed(5)
     q, kp, vp, table, m_z, s_q, s_v, lens_t, exp_lut, recip_lut = decode_args
     q_q = qlib.quantize(q, s_q[:, None, None])
     args = [q_q, kp, vp, table, m_z, s_v, lens_t, exp_lut, recip_lut]
@@ -490,6 +560,8 @@ def composed_phase(torch, F, dev, decode_args):
         fused = K.splitmax_decode_fused_paged_cuda(*decode_args, cfg=cfg,
                                                    window=window)
         plain = K.splitmax_decode_paged_plain(*args, cfg=cfg, window=window)
+        exact = K.splitmax_decode_paged_plain(*args, cfg=cfg, window=window,
+                                              exact=True)
         kp[paged_kv.TRASH_BLOCK] = -77
         vp[paged_kv.TRASH_BLOCK] = -77
         ker2 = K.splitmax_decode_paged_cuda(*args, cfg=cfg, window=window)
@@ -502,19 +574,21 @@ def composed_phase(torch, F, dev, decode_args):
               f"{err:.3g} > {tol:.3g}")
         check(torch.equal(ker, fused), f"composed window {window}: differs "
               f"from the fused kernel on quantize(q, s_q)")
+        check(torch.equal(ker, exact), f"composed window {window}: kernel != "
+              f"the exact=True plain version")
         check(torch.equal(ker, ker2), f"composed window {window}: output "
               f"depends on the trash block")
         errs.append(err)
-        print(f"[composed] window {window}: max_abs_err {err:.3g} (tol "
-              f"{tol:.3g}), == fused kernel bit for bit")
-    ms = time_ms(torch, lambda: K.splitmax_decode_paged_cuda(*args, cfg=cfg))
+        print(f"[composed] window {window}: == exact oracle, max_abs_err "
+              f"{err:.3g} (tol {tol:.3g}), == fused kernel bit for bit")
+    GRAPHED["composed"] = lambda: K.splitmax_decode_paged_cuda(*args,
+                                                                cfg=cfg)
+    ms = time_ms(torch, GRAPHED["composed"])
     plain_ms = time_ms(torch, lambda: K.splitmax_decode_paged_plain(
         *args, cfg=cfg), iters=10)
     b, hq, d = q.shape
     hkv, bk = kp.shape[1], kp.shape[2]
     lens = lens_t.tolist()
-    library_ms = sdpa_decode_yardstick(torch, F, gen, dev, b, hq, d,
-                                       [[n] for n in lens])
     tiles = sum(paged_kv.blocks_per_seq(n, bk) for n in lens)
     n_bytes = (b * hq * d                       # int8 q
                + 2 * hkv * d * sum(lens)        # int8 k, v at live positions
@@ -522,15 +596,16 @@ def composed_phase(torch, F, dev, decode_args):
                + 4 * b * hq * d                 # f32 out
                + 4 * (256 + cfg.recip_table_size))
     bms, by = bound_ms(n_bytes, sum(lens) * hq * 6 * d)
-    print(f"[composed] main lens {lens}: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {bms:.5f} ms ({by}), sdpa bf16 "
-          f"yardstick {library_ms:.4f} ms")
+    print(f"[composed] main lens {lens}: kernel host-inclusive {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {bms:.5f} ms ({by})")
     return {"name": "splitmax_decode_paged", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/splitmax_decode.cu",
             "replaces": "src/repro/kernels/splitmax_decode.py:709",
             "path": "paged decode steps, --fused off",
-            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": library_ms}
+            "max_abs_err": max(errs), "exact_equal": True,
+            "graph": "composed", "library_graph": "decode sdpa",
+            "host_ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by}
 
 
 # ------------------------------------------------------------ dense decode --
@@ -608,6 +683,10 @@ def dense_decode_phase(torch, F, dev):
         cargs = composed_args(args)
         comp = K.splitmax_decode_cuda(*cargs, cfg=cfg, window=window)
         comp_plain = K.splitmax_decode_plain(*cargs, cfg=cfg, window=window)
+        exact = K.splitmax_decode_fused_plain(*args, cfg=cfg, window=window,
+                                              exact=True)
+        comp_exact = K.splitmax_decode_plain(*cargs, cfg=cfg, window=window,
+                                             exact=True)
         q, k, v, m_z, s_q, s_v, lens_t, el, rl = args
         kp, vp, table = dense_to_pool(torch, gen, k, v, bk)
         paged = K.splitmax_decode_fused_paged_cuda(
@@ -624,14 +703,16 @@ def dense_decode_phase(torch, F, dev):
               f"{cerr:.3g} > {tol:.3g}")
         check(torch.equal(comp, fused), f"dense {what}: composed differs "
               f"from fused on quantize(q, s_q)")
+        check(torch.equal(fused, exact) and torch.equal(comp, comp_exact),
+              f"dense {what}: a kernel != its exact=True plain version")
         check(torch.equal(fused, paged), f"dense {what}: differs from the "
               f"paged kernel on the same K/V at block_k {bk}")
         for i in idle:
             check(not fused[i].any(), f"dense {what}: idle slot {i} not zero")
         print(f"[dense] {what}: lens {args[6].tolist()}, S_max "
-              f"{args[1].shape[2]}, window {window}: max_abs_err fused "
-              f"{err:.3g} composed {cerr:.3g} (tol {tol:.3g}), composed == "
-              f"fused == paged bit for bit")
+              f"{args[1].shape[2]}, window {window}: == exact oracles, "
+              f"max_abs_err fused {err:.3g} composed {cerr:.3g} (tol "
+              f"{tol:.3g}), composed == fused == paged bit for bit")
         return max(err, cerr)
 
     def make(lens, s, heads=(hq, hkv, d)):
@@ -651,8 +732,8 @@ def dense_decode_phase(torch, F, dev):
     errs = [compare(args, "main"), compare(args, "main window 48", window=48)]
     cargs = composed_args(args)
     b = p["b"]
-    library_ms = sdpa_decode_yardstick(torch, F, gen, dev, b, hq, d,
-                                       [[n] for n in lens])
+    GRAPHED["dense sdpa"] = sdpa_decode_yardstick(torch, F, gen, dev, b, hq,
+                                                  d, [[n] for n in lens])
     rows = []
     for name, line, fn, plain_fn, a, q_bytes, path in (
             ("splitmax_decode_fused", 672, K.splitmax_decode_fused_cuda,
@@ -660,22 +741,24 @@ def dense_decode_phase(torch, F, dev):
             ("splitmax_decode", 642, K.splitmax_decode_cuda,
              K.splitmax_decode_plain, cargs, 1,
              "dense decode steps, --fused off")):
-        ms = time_ms(torch, lambda: fn(*a, cfg=cfg))
+        GRAPHED[name] = lambda fn=fn, a=a: fn(*a, cfg=cfg)
+        ms = time_ms(torch, GRAPHED[name])
         plain_ms = time_ms(torch, lambda: plain_fn(*a, cfg=cfg), iters=10)
         bms, by = bound_ms(dense_decode_bytes(b, hq, hkv, d, lens, q_bytes,
                                               cfg),
                            sum(lens) * hq * 6 * d)
-        print(f"[dense] {name} main lens {lens}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {bms:.5f} ms ({by}), sdpa bf16 "
-              f"yardstick {library_ms:.4f} ms")
+        print(f"[dense] {name} main lens {lens}: kernel host-inclusive "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.5f} ms "
+              f"({by})")
         rows.append({"name": name, "route": "cuda",
                      "source": ("src/repro_torch/kernels/csrc/"
                                 "splitmax_decode.cu"),
                      "replaces": ("src/repro/kernels/splitmax_decode.py:"
                                   f"{line}"),
-                     "path": path, "max_abs_err": max(errs), "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-                     "library_ms": library_ms})
+                     "path": path, "max_abs_err": max(errs),
+                     "exact_equal": True, "graph": name,
+                     "library_graph": "dense sdpa", "host_ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by})
     return rows
 
 
@@ -701,6 +784,10 @@ def dense_verify_phase(torch, F, dev):
                                                   window=window)
         plain = K.splitmax_decode_fused_verify_plain(*args, cfg=cfg,
                                                      window=window)
+        exact = K.splitmax_decode_fused_verify_plain(*args, cfg=cfg,
+                                                     window=window, exact=True)
+        check(torch.equal(ker, exact), f"dense verify {what}: kernel != the "
+              f"exact=True plain version")
         rows = [[q[:, :, t].contiguous(), k, v, m_z[:, t].contiguous(),
                  s_q[:, t].contiguous(), s_v, lens_t - (gamma - 1 - t), el,
                  rl] for t in range(gamma)]
@@ -716,8 +803,8 @@ def dense_verify_phase(torch, F, dev):
         check(err <= tol, f"dense verify {what}: max|kernel-plain| {err:.3g} "
               f"> {tol:.3g}")
         print(f"[dense-verify] {what}: lens {lens}, gamma {gamma}, window "
-              f"{window}: max_abs_err {err:.3g} (tol {tol:.3g}), rows == "
-              f"kernel 4")
+              f"{window}: == exact oracle, max_abs_err {err:.3g} (tol "
+              f"{tol:.3g}), rows == kernel 4")
         return args, rows, err
 
     for gamma in p["gammas"]:
@@ -730,20 +817,22 @@ def dense_verify_phase(torch, F, dev):
         lens = torch.randint(p["lens"][0], p["lens"][1] + 1, (p["b"],),
                              generator=gen, device=dev).tolist()
         args, rows, err = case(lens, gamma, "main")
-        ms = time_ms(torch, lambda: K.splitmax_decode_fused_verify_cuda(
-            *args, cfg=cfg))
+        key = f"dense verify g{gamma}"
+        GRAPHED[key] = (lambda a=args: K.splitmax_decode_fused_verify_cuda(
+            *a, cfg=cfg))
+        ms = time_ms(torch, GRAPHED[key])
         plain_ms = time_ms(torch, lambda: K.splitmax_decode_fused_verify_plain(
             *args, cfg=cfg), iters=10)
 
-        def decodes():
+        def decodes(rows=rows):
             for row in rows:
                 K.splitmax_decode_fused_cuda(*row, cfg=cfg)
 
-        decodes_ms = time_ms(torch, decodes)
+        GRAPHED[f"{key} decodes"] = decodes
         b = p["b"]
         q_lens = [[n - (gamma - 1 - t) for t in range(gamma)] for n in lens]
-        library_ms = sdpa_decode_yardstick(torch, F, gen, dev, b, hq, d,
-                                           q_lens)
+        GRAPHED[f"{key} sdpa"] = sdpa_decode_yardstick(torch, F, gen, dev, b,
+                                                       hq, d, q_lens)
         pairs = hq * sum(sum(row) for row in q_lens)
         n_bytes = (4 * b * hq * gamma * d           # f32 q
                    + 2 * hkv * d * sum(lens)        # int8 k, v, read once
@@ -751,17 +840,18 @@ def dense_verify_phase(torch, F, dev):
                    + 4 * b * hq * gamma * d         # f32 out
                    + 4 * (256 + cfg.recip_table_size))
         bms, by = bound_ms(n_bytes, pairs * 6 * d)
-        print(f"[dense-verify] main gamma {gamma}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {bms:.5f} ms ({by}), {gamma} "
-              f"kernel-4 launches {decodes_ms:.4f} ms, sdpa bf16 {gamma}-query masked "
-              f"yardstick {library_ms:.4f} ms")
+        print(f"[dense-verify] main gamma {gamma}: kernel host-inclusive "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.5f} ms "
+              f"({by})")
         results.append({
             "name": "splitmax_decode_fused_verify", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/splitmax_verify.cu",
             "replaces": "src/repro/kernels/splitmax_decode.py:780",
-            "path": None, "gamma": gamma, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": library_ms, "decodes_ms": decodes_ms})
+            "path": None, "gamma": gamma, "max_abs_err": err,
+            "exact_equal": True, "graph": key,
+            "library_graph": f"{key} sdpa", "decodes_graph": f"{key} decodes",
+            "host_ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by})
     return next(r for r in results if r["gamma"] == SPEC["gamma"])
 
 
@@ -795,29 +885,68 @@ def int8_gemm_phase(torch, dev):
               f"for bit (max |acc| {acc_max})")
         if (m, k, n) != GEMMS[-1]:
             continue
-        ms = time_ms(torch, lambda: K.int8_matmul_cuda(x, w), iters=20)
-        rq_ms = time_ms(torch, lambda: K.int8_matmul_cuda(x, w, mult),
-                        iters=20)
+        GRAPHED["int8 gemm"] = lambda: K.int8_matmul_cuda(x, w)
+        GRAPHED["int8 gemm requant"] = lambda: K.int8_matmul_cuda(x, w, mult)
+        GRAPHED["int8 gemm _int_mm"] = lambda: torch._int_mm(x, w)
+        ms = time_ms(torch, GRAPHED["int8 gemm"], iters=20)
         plain_ms = time_ms(torch, lambda: K.int8_matmul_plain(x, w), iters=5,
                            warm=1)
-        library_ms = time_ms(torch, lambda: torch._int_mm(x, w), iters=20)
         check(torch.equal(torch._int_mm(x, w), K.int8_matmul_cuda(x, w)),
               "int8 GEMM: torch._int_mm disagrees with the kernel")
         bms, by = bound_ms(m * k + k * n + 4 * m * n, 2 * m * k * n)
         rq_bms, rq_by = bound_ms(m * k + k * n + m * n + 4, 2 * m * k * n)
-        tops = 2 * m * k * n / (ms * 1e-3) / 1e12
-        print(f"[int8-gemm] {m}x{k}x{n}: kernel {ms:.4f} ms ({tops:.1f} "
-              f"TOPS), requant {rq_ms:.4f} ms (bound {rq_bms:.5f} ms, "
-              f"{rq_by}), plain f64 {plain_ms:.4f} ms, bound {bms:.5f} ms "
-              f"({by}), torch._int_mm {library_ms:.4f} ms")
+        print(f"[int8-gemm] {m}x{k}x{n}: kernel host-inclusive {ms:.4f} ms, "
+              f"requant bound {rq_bms:.5f} ms ({rq_by}), plain f64 "
+              f"{plain_ms:.4f} ms, bound {bms:.5f} ms ({by})")
         out = {"name": "int8_matmul", "route": "cuda",
                "source": "src/repro_torch/kernels/csrc/int8_matmul.cu",
                "replaces": "src/repro/kernels/int8_matmul.py:54",
                "path": None, "shape": [m, k, n], "max_abs_err": 0.0,
-               "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-               "bound_by": by, "library_ms": library_ms,
-               "requant_ms": rq_ms, "requant_bound_ms": rq_bms}
+               "exact_equal": True, "graph": "int8 gemm",
+               "library_graph": "int8 gemm _int_mm",
+               "requant_graph": "int8 gemm requant", "host_ms": ms,
+               "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+               "requant_bound_ms": rq_bms}
     return out
+
+
+# ------------------------------------------------------ graph-replay times --
+
+def graph_phase(torch, dev, kernels):
+    """Every closure in GRAPHED timed by graph replay, 7 rounds interleaved,
+    beside the launch floor (a replayed one-element ``add_``); each kernel
+    entry's ``*_graph`` keys become its times: ``ms`` (median) and
+    ``ms_range`` (min, max), ``library_ms``, ``decodes_ms``, ``requant_ms``."""
+    one = torch.zeros(1, device=dev)
+    fns = dict(GRAPHED, **{"launch floor": lambda: one.add_(1)})
+    times = graph_rounds(torch, fns)
+    GRAPHED.clear()
+    floor = times["launch floor"][0]
+    print(f"[graph] device time per call, CUDA-graph replay of "
+          f"{GRAPH_ITERS} calls, median (min-max) of {GRAPH_ROUNDS} rounds "
+          f"interleaved:")
+    for name, (med, lo, hi) in times.items():
+        print(f"[graph]   {name:28s} {med:.5f} ms ({lo:.5f}-{hi:.5f})")
+
+    def fill(entry):
+        for key in [k for k in entry if k.endswith("graph")]:
+            med, lo, hi = times[entry.pop(key)]
+            field = "ms" if key == "graph" else key[:-len("graph")] + "ms"
+            entry[field] = med
+            entry[field + "_range"] = [lo, hi]
+        entry["launch_floor_ms"] = floor
+        print(f"[graph] {entry.get('name', 're-prefill')}: kernel "
+              f"{entry['ms']:.5f} ms ({entry['ms_range'][0]:.5f}-"
+              f"{entry['ms_range'][1]:.5f}), host-inclusive "
+              f"{entry['host_ms']:.5f} ms, bound {entry['bound_ms']:.5f} ms "
+              f"({entry['bound_by']}), launch floor {floor:.5f} ms, "
+              f"yardstick {entry['library_ms']:.5f} ms")
+
+    for k in kernels:
+        fill(k)
+        if "reprefill" in k:
+            fill(k["reprefill"])
+    return floor
 
 
 # ------------------------------------------------------- model reference --
@@ -1226,6 +1355,17 @@ def profile_serving(torch, srv, params, cfg, prompts, gen: int = 8):
     for key, count, ms in rows[:10]:
         print(f"[profile]   {ms:9.3f} ms {100 * ms / busy_ms:5.1f}%  "
               f"x{count:<5d} {key[:90]}")
+    mine = {}
+    for what, tag in (("prefill", "splitmax_attn_kernel"),
+                      ("decode", "decode_kernel<")):
+        hit = [(c, ms) for key, c, ms in rows if tag in key]
+        mine[what] = (sum(c for c, _ in hit), sum(ms for _, ms in hit))
+    both = mine["prefill"][1] + mine["decode"][1]
+    print(f"[profile] split-softmax kernels: prefill {mine['prefill'][1]:.3f} "
+          f"ms over {mine['prefill'][0]} launches, decode "
+          f"{mine['decode'][1]:.3f} ms over {mine['decode'][0]} launches, "
+          f"together {both:.3f} ms ({100 * both / busy_ms:.1f}% of device "
+          f"busy)")
 
 
 def main() -> int:
@@ -1259,10 +1399,11 @@ def main() -> int:
 
     decode, decode_args = decode_phase(torch, F, dev)
     kernels = [prefill_phase(torch, F, dev), decode,
-               verify_phase(torch, F, dev, decode["ms"]),
-               composed_phase(torch, F, dev, decode_args),
+               verify_phase(torch, F, dev),
+               composed_phase(torch, dev, decode_args),
                *dense_decode_phase(torch, F, dev),
                dense_verify_phase(torch, F, dev), int8_gemm_phase(torch, dev)]
+    graph_phase(torch, dev, kernels)
     smoke_reference_phase(torch, dev)
 
     from repro_torch.configs import get_arch

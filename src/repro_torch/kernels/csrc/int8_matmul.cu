@@ -13,7 +13,8 @@
 // ~59 MB, ~18 us at 3.35 TB/s: operations bound it, so the tensor cores
 // must do the multiplies.
 //
-// Design, simple and right first:
+// Design (the first, simple one; no model calls this kernel, so it has
+// not been redesigned for the card):
 //  * one 256-thread block per 128 x 128 output tile; 8 warps in a 4 x 2
 //    grid, each warp 32 x 64 outputs in int32 registers (2 x 8 fragments of
 //    mma.sync.m16n8k32 s8 x s8 -> s32), exact integer accumulation;
@@ -28,8 +29,8 @@
 //  * the requant epilogue is the reference's jnp.round(f32(acc) * m):
 //    __int2float_rn (|acc| passes 2^24 for K >= 1024), __fmul_rn (no FMA
 //    contraction), rintf (half to even), then the int8 clamp.
-// No pipelining of loads against the tensor cores yet (cp.async / TMA and
-// wgmma come in later work).
+// No pipelining of loads against the tensor cores (cp.async / TMA) and no
+// wgmma.
 #include <cuda_runtime.h>
 #include <stdint.h>
 

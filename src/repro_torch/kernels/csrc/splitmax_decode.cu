@@ -18,158 +18,271 @@
 // What bounds it on an H100: every decode step reads each live slot's int8
 // K and V once (2 * Hkv * len * D bytes per slot per layer, ~1.1 MB for 8
 // slots at ~270 tokens) and does ~6 int8-equivalent operations per byte:
-// bytes bound it (~0.3 us at 3.35 TB/s), far below launch cost at this size.
+// bytes bound it (~0.3 us at 3.35 TB/s), far below launch cost.  At 8 slots
+// x 4 KV heads there are only 32 (slot, head) pairs for 132 SMs, so what
+// sets the pace is the latency of one pair's walk over its ~9 tiles.
 //
-// Design, simple and right first:
-//  * one block of 128 threads per (slot, KV head) with its GQA group of
-//    Hq / Hkv query rows; the fused entry quantizes its rows in-kernel with
-//    the slot's own s_q (round half to even of an IEEE division, then clip),
-//    which is bit for bit what the composed entry's caller does with
-//    torch.round(q / s_q), so both entries give equal outputs;
-//  * each block loads its own cache length and table row (no scalar
-//    prefetch) and loops over only the ceil(len / block_k) live table
-//    entries: no tile past the length is touched;
-//  * the trash block (id 0) is never read: a table entry equal to it marks a
-//    dead tile.  A live slot never has one inside its length; only an idle
-//    slot (length 0, row all trash) does, and its output row is 0;
-//  * QK^T with __dp4a, e * V and the denominator on CUDA cores in f32, in a
-//    fixed order; LUTs in shared memory, read by index;
-//  * the 16-byte-aligned (block_k, D) pool tile of one (block, head) pair is
-//    contiguous, so the gather through the table is one coalesced load;
+// Design: cluster split-K.
+//  * a thread-block cluster of kRanks = 8 blocks per (slot, KV head), fixed
+//    by __cluster_dims__ (grid x = Hkv * 8): 256 blocks at 8 slots x 4 heads.
+//    Rank r takes the live tiles t_first + r, t_first + r + 8, ...; each
+//    block holds the GQA group's Hq / Hkv query rows; the fused entry
+//    quantizes them in-kernel with the slot's own s_q (round half to even of
+//    an IEEE division, then clip), bit for bit what the composed entry's
+//    caller does with torch.round(q / s_q);
+//  * a block issues the cp.async copies of all its tiles (up to a stage of
+//    kMaxStage that fits the shared-memory budget) at once and waits once:
+//    at the churn shape a rank has 1 or 2 tiles, so one round;
+//  * each block loads its own cache length and table entries (no scalar
+//    prefetch) and touches only live tiles: past the length, window-dead
+//    and trash-block (id 0) tiles are never read.  A live slot never has a
+//    trash entry inside its length; only an idle slot (length 0) does, and
+//    its output row is 0;
+//  * QK^T with __dp4a (K rows padded by one word, so the 32 keys of a warp
+//    read different banks); e as an integer; e * V on CUDA cores, one
+//    packed V word (4 outputs) per thread and key, in int32 over at most
+//    kIntChunk keys and int64 across chunks; s the same way.  The per-tile
+//    math is small at group 8 (8 x 32 scores), so the tensor cores are not
+//    used here;
+//  * exact partials: each block leaves its int64 (acc, s) partials in its
+//    shared memory; after cluster.sync() rank r adds all eight blocks'
+//    partials for its eighth of the outputs through distributed shared
+//    memory and writes them.  No atomics, no second launch, and since the
+//    sums are exact integers the bits do not depend on the partition, on
+//    the batch or on the table width (splitmax_common.cuh's contract);
 //  * dense: the tile at k0 is the contiguous rows k0 .. k0 + block_k - 1 of
 //    the slot's (S_max, D) head slab.  S_max need not be a multiple of
 //    block_k (the TPU kernel asserts it): the last tile is zero-filled past
-//    S_max and its lanes there are dead.  The tiles run in the paged
-//    kernel's order with the same per-tile sums and the same e * V helper,
-//    so a dense slot equals a paged slot holding the same K/V bit for bit
-//    when block_k equals the pool's.
-// A split-K pass over long caches (fixed partition, fixed-order combine)
-// comes in later work.
+//    S_max by the copy and its lanes there are dead.  A dense slot equals a
+//    paged slot holding the same K/V bit for bit, at any block_k.
+#include <cooperative_groups.h>
+
 #include "splitmax_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 using namespace splitmax;
 
+constexpr int kRanks = 8;                 // blocks per cluster = split of the keys
+constexpr int kMaxStage = 4;              // tiles a block holds in flight
+constexpr int kMaxWords = kMaxOut / 4;    // packed V words (4 outputs) per thread
+constexpr size_t kSmemBudget = 48 * 1024; // a stage larger than 1 tile stays under it
+
+struct Smem {
+  size_t exp, recip, q, part_acc, part_s, tile_off, tile_in, e, k, v, total;
+  size_t e_tile, k_tile, v_tile;           // bytes per tile of each staged region
+};
+
+__host__ __device__ inline Smem smem_layout(int group, int d, int block_k, int recip_bits,
+                                            int stage) {
+  Smem m;
+  m.e_tile = static_cast<size_t>(group) * (block_k + 1) * 4;
+  m.k_tile = static_cast<size_t>(block_k) * (d / 4 + 1) * 4;
+  m.v_tile = static_cast<size_t>(block_k) * d;
+  size_t off = 0;
+  m.exp = off;       off += align16(256 * 4);
+  m.recip = off;     off += align16((1u << recip_bits) * 4);
+  m.q = off;         off += align16(static_cast<size_t>(group) * d);
+  m.part_acc = off;  off += align16(static_cast<size_t>(group) * d * 8);
+  m.part_s = off;    off += align16(static_cast<size_t>(group) * 8);
+  m.tile_off = off;  off += align16(kMaxStage * 8);
+  m.tile_in = off;   off += align16(kMaxStage * 4);
+  m.e = off;         off += align16(stage * m.e_tile);
+  m.k = off;         off += align16(stage * m.k_tile);
+  m.v = off;         off += stage * align16(m.v_tile);
+  m.total = off;
+  return m;
+}
+
 // ``extent`` is the table width (paged) or S_max (dense); ``table`` is
 // unused when dense.
 template <bool kQuantizeQ, bool kDense>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads)
 decode_kernel(const void* __restrict__ q_in, const int8_t* __restrict__ k_cache,
               const int8_t* __restrict__ v_cache, const int* __restrict__ table,
               const float* __restrict__ m_z, const float* __restrict__ s_q,
               const float* __restrict__ s_v_ptr, const int* __restrict__ cache_len,
               const int* __restrict__ exp_lut, const int* __restrict__ recip_lut_g,
               float* __restrict__ out, int hq, int hkv, int d, int block_k, int extent,
-              int window, int recip_bits, int recip_frac_bits) {
+              int window, int recip_bits, int recip_frac_bits, int stage) {
   extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
   const int group = hq / hkv;
-  const int n_recip = 1 << recip_bits;
   const int dw = d / 4;
+  const int n_words = group * dw;
+  const int n_out = group * d;
   const int e_stride = block_k + 1;
-  size_t off = 0;
-  int* exp_s = reinterpret_cast<int*>(smem + off);    off += align16(256 * 4);
-  int* recip_s = reinterpret_cast<int*>(smem + off);  off += align16(n_recip * 4);
-  float* e_s = reinterpret_cast<float*>(smem + off);  off += align16(group * e_stride * 4);
-  float* s_s = reinterpret_cast<float*>(smem + off);  off += align16(group * 4);
-  int8_t* q_s = reinterpret_cast<int8_t*>(smem + off); off += align16(group * d);
-  int* k_s = reinterpret_cast<int*>(smem + off);      off += align16(block_k * (dw + 1) * 4);
-  int8_t* v_s = reinterpret_cast<int8_t*>(smem + off);
+  const Smem L = smem_layout(group, d, block_k, recip_bits, stage);
+  int* exp_s = reinterpret_cast<int*>(smem + L.exp);
+  int* recip_s = reinterpret_cast<int*>(smem + L.recip);
+  int8_t* q_s = reinterpret_cast<int8_t*>(smem + L.q);
+  long long* part_acc = reinterpret_cast<long long*>(smem + L.part_acc);
+  long long* part_s = reinterpret_cast<long long*>(smem + L.part_s);
+  long long* tile_off_s = reinterpret_cast<long long*>(smem + L.tile_off);
+  int* tile_in_s = reinterpret_cast<int*>(smem + L.tile_in);
+  int* e_s = reinterpret_cast<int*>(smem + L.e);
+  int* k_s = reinterpret_cast<int*>(smem + L.k);
+  int8_t* v_s = reinterpret_cast<int8_t*>(smem + L.v);
+  const int k_tile_words = static_cast<int>(L.k_tile / 4);
+  const int e_tile_ints = static_cast<int>(L.e_tile / 4);
+  const size_t v_tile_bytes = align16(L.v_tile);
 
   const int tid = threadIdx.x;
-  const int hk = blockIdx.x;
+  const int hk = blockIdx.x / kRanks;
   const int b = blockIdx.y;
   const int len = cache_len[b];
   const float mz = m_z[b];
   const float s_v = *s_v_ptr;
+  const int n_recip = 1 << recip_bits;
 
   for (int i = tid; i < 256; i += kThreads) exp_s[i] = exp_lut[i];
   for (int i = tid; i < n_recip; i += kThreads) recip_s[i] = recip_lut_g[i];
-  for (int i = tid; i < group; i += kThreads) s_s[i] = 0.f;
   const size_t q0 = (static_cast<size_t>(b) * hq + hk * group) * d;
   if constexpr (kQuantizeQ) {
     // stage 0 of the fused datapath: this slot's f32 query rows -> int8 grid
     const float* qg = static_cast<const float*>(q_in) + q0;
     const float sq = s_q[b];
-    for (int i = tid; i < group * d; i += kThreads) q_s[i] = quantize_i8(qg[i], sq);
+    for (int i = tid; i < n_out; i += kThreads) q_s[i] = quantize_i8(qg[i], sq);
   } else {
     const int8_t* qg = static_cast<const int8_t*>(q_in) + q0;
-    for (int i = tid; i < group * d; i += kThreads) q_s[i] = qg[i];
+    for (int i = tid; i < n_out; i += kThreads) q_s[i] = qg[i];
   }
 
-  const int n_out = group * d;
-  float acc[kMaxOut];
+  long long acc[kMaxWords][4], s_acc[kMaxWords];
 #pragma unroll
-  for (int u = 0; u < kMaxOut; ++u) acc[u] = 0.f;
+  for (int u = 0; u < kMaxWords; ++u) {
+    s_acc[u] = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[u][i] = 0;
+  }
 
   const int n_tiles = kDense ? (min(len, extent) + block_k - 1) / block_k
                              : min((len + block_k - 1) / block_k, extent);
+  // the first tile not window-dead: tile t is dead when its last key
+  // t * block_k + block_k - 1 < len - window
+  const int t_first = (window > 0 && len > window) ? (len - window) / block_k : 0;
   const int* row_ids = kDense ? nullptr : table + static_cast<size_t>(b) * extent;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * block_k;
-    if (window > 0 && k0 + block_k - 1 < len - window) continue;  // window-dead
-    size_t tile;
-    int in_cache = block_k;  // positions of this tile that exist in the cache
-    if constexpr (kDense) {
-      tile = ((static_cast<size_t>(b) * hkv + hk) * extent + k0) * d;
-      in_cache = min(block_k, extent - k0);
-    } else {
-      const int blk = row_ids[t];
-      if (blk == kTrashBlock) continue;
-      tile = (static_cast<size_t>(blk) * hkv + hk) * block_k * d;
-    }
-    __syncthreads();  // the previous tile's readers are done
-    const int* kg = reinterpret_cast<const int*>(k_cache + tile);
-    const int* vg = reinterpret_cast<const int*>(v_cache + tile);
-    for (int c = tid; c < block_k * dw; c += kThreads) {
-      const bool in = c < in_cache * dw;
-      k_s[(c / dw) * (dw + 1) + c % dw] = in ? kg[c] : 0;
-      reinterpret_cast<int*>(v_s)[c] = in ? vg[c] : 0;
+  for (int base = t_first + rank; base < n_tiles; base += kRanks * stage) {
+    const int n_here = min(stage, (n_tiles - base + kRanks - 1) / kRanks);
+    __syncthreads();  // the previous round's readers are done
+    if (tid < n_here) {
+      const int t = base + tid * kRanks;
+      long long off;
+      int in_cache = block_k;  // positions of this tile that exist in the cache
+      if constexpr (kDense) {
+        off = ((static_cast<long long>(b) * hkv + hk) * extent + t * block_k) * d;
+        in_cache = min(block_k, extent - t * block_k);
+      } else {
+        const int blk = row_ids[t];
+        off = blk == kTrashBlock
+                  ? -1
+                  : (static_cast<long long>(blk) * hkv + hk) * block_k * d;
+      }
+      tile_off_s[tid] = off;
+      tile_in_s[tid] = in_cache;
     }
     __syncthreads();
 
-    for (int i = tid; i < group * block_k; i += kThreads) {
-      const int g = i / block_k, j = i % block_k;
-      const int col = k0 + j;
-      bool live = col < len && j < in_cache;
+    // every copy of the round in flight at once, then one wait
+    const int kw = block_k * dw;
+    for (int c = tid; c < n_here * kw; c += kThreads) {
+      const int s = c / kw, w = c % kw, row = w / dw;
+      const long long off = tile_off_s[s];
+      if (off < 0) continue;
+      const bool in = row < tile_in_s[s];
+      cp_async4(k_s + s * k_tile_words + row * (dw + 1) + w % dw,
+                k_cache + off + (in ? w * 4 : 0), in ? 4 : 0);
+    }
+    const int vc = block_k * d / 16;
+    for (int c = tid; c < n_here * vc; c += kThreads) {
+      const int s = c / vc, w = c % vc;
+      const long long off = tile_off_s[s];
+      if (off < 0) continue;
+      const bool in = w * 16 / d < tile_in_s[s];
+      cp_async16(v_s + s * v_tile_bytes + w * 16, v_cache + off + (in ? w * 16 : 0),
+                 in ? 16 : 0);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+
+    const int per_tile = group * block_k;
+    for (int i = tid; i < n_here * per_tile; i += kThreads) {
+      const int s = i / per_tile, r = i % per_tile;
+      const int g = r / block_k, j = r % block_k;
+      const int col = (base + s * kRanks) * block_k + j;
+      bool live = tile_off_s[s] >= 0 && col < len && j < tile_in_s[s];
       if (window > 0) live = live && col > len - 1 - window;
-      const int z = dot_i8(reinterpret_cast<const int*>(q_s + g * d),
-                           k_s + j * (dw + 1), dw);
-      e_s[g * e_stride + j] = live ? requant_exp(z, mz, exp_s) : 0.f;
+      int e = 0;
+      if (live)
+        e = requant_exp(dot_i8(reinterpret_cast<const int*>(q_s + g * d),
+                               k_s + s * k_tile_words + j * (dw + 1), dw),
+                        mz, exp_s);
+      e_s[s * e_tile_ints + g * e_stride + j] = e;
     }
     __syncthreads();
 
-    for (int g = tid; g < group; g += kThreads) {
-      int tsum = 0;
-      for (int j = 0; j < block_k; ++j) tsum += static_cast<int>(e_s[g * e_stride + j]);
-      s_s[g] += static_cast<float>(tsum);
-    }
 #pragma unroll
-    for (int u = 0; u < kMaxOut; ++u) {
-      const int o = tid + u * kThreads;
-      if (o < n_out) {
-        const int g = o / d, c = o % d;
-        acc[u] = accumulate_ev(acc[u], e_s + g * e_stride, v_s + c, d, block_k);
+    for (int u = 0; u < kMaxWords; ++u) {
+      const int wi = tid + u * kThreads;
+      if (wi < n_words) {
+        const int g = wi / dw, c4 = wi % dw;
+        for (int s = 0; s < n_here; ++s) {
+          if (tile_off_s[s] < 0) continue;
+          const int* e = e_s + s * e_tile_ints + g * e_stride;
+          const int* vw = reinterpret_cast<const int*>(v_s + s * v_tile_bytes) + c4;
+          for (int j0 = 0; j0 < block_k; j0 += kIntChunk) {
+            const int jn = min(block_k, j0 + kIntChunk);
+            int a0 = 0, a1 = 0, a2 = 0, a3 = 0, es = 0;
+            for (int j = j0; j < jn; ++j) {
+              const int ej = e[j], w = vw[j * dw];
+              a0 += ej * sbyte(w, 0);
+              a1 += ej * sbyte(w, 1);
+              a2 += ej * sbyte(w, 2);
+              a3 += ej * sbyte(w, 3);
+              es += ej;
+            }
+            acc[u][0] += a0;
+            acc[u][1] += a1;
+            acc[u][2] += a2;
+            acc[u][3] += a3;
+            s_acc[u] += es;
+          }
+        }
       }
     }
   }
-  __syncthreads();
 
-  float* og = out + q0;
+  // this block's exact partials -> its shared memory
 #pragma unroll
-  for (int u = 0; u < kMaxOut; ++u) {
-    const int o = tid + u * kThreads;
-    if (o < n_out) {
-      const float s = fmaxf(s_s[o / d], 1.f);
-      og[o] = acc[u] * recip_lut(s, recip_s, recip_bits, recip_frac_bits) * s_v;
+  for (int u = 0; u < kMaxWords; ++u) {
+    const int wi = tid + u * kThreads;
+    if (wi < n_words) {
+      const int g = wi / dw, c4 = wi % dw;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) part_acc[g * d + c4 * 4 + i] = acc[u][i];
+      if (c4 == 0) part_s[g] = s_acc[u];
     }
   }
-}
+  cluster.sync();  // every rank's partials are written
 
-size_t smem_bytes(int group, int d, int block_k, int recip_bits) {
-  return align16(256 * 4) + align16((1 << recip_bits) * 4) +
-         align16(group * (block_k + 1) * 4) + align16(group * 4) + align16(group * d) +
-         align16(block_k * (d / 4 + 1) * 4) + block_k * d;
+  // rank r sums the eight blocks' partials of its share of the outputs
+  float* og = out + q0;
+  const int per_rank = (n_out + kRanks - 1) / kRanks;
+  const int o_end = min(n_out, (rank + 1) * per_rank);
+  for (int o = rank * per_rank + tid; o < o_end; o += kThreads) {
+    long long a = 0, s = 0;
+#pragma unroll
+    for (int r = 0; r < kRanks; ++r) {
+      a += cluster.map_shared_rank(part_acc, r)[o];
+      s += cluster.map_shared_rank(part_s, r)[o / d];
+    }
+    og[o] = finalize(a, s, s_v, recip_s, recip_bits, recip_frac_bits);
+  }
+  cluster.sync();  // no block exits while another still reads its partials
 }
 
 template <bool kQuantizeQ, bool kDense>
@@ -178,14 +291,19 @@ int launch(const void* q, const void* k_cache, const void* v_cache, const void* 
            const void* exp_lut, const void* recip_lut, void* out, int b, int hq, int hkv,
            int d, int block_k, int extent, int window, int recip_bits,
            int recip_frac_bits, void* stream) {
-  const size_t smem = smem_bytes(hq / hkv, d, block_k, recip_bits);
+  const int group = hq / hkv;
+  const Smem one = smem_layout(group, d, block_k, recip_bits, 1);
+  const size_t per_tile = align16(one.e_tile) + align16(one.k_tile) + align16(one.v_tile);
+  int stage = 1;
+  while (stage < kMaxStage && one.total + stage * per_tile <= kSmemBudget) ++stage;
+  const size_t smem = smem_layout(group, d, block_k, recip_bits, stage).total;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         decode_kernel<kQuantizeQ, kDense>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const dim3 grid(hkv, b);
+  const dim3 grid(hkv * kRanks, b);
   decode_kernel<kQuantizeQ, kDense>
       <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
           q, static_cast<const int8_t*>(k_cache), static_cast<const int8_t*>(v_cache),
@@ -193,7 +311,7 @@ int launch(const void* q, const void* k_cache, const void* v_cache, const void* 
           static_cast<const float*>(s_q), static_cast<const float*>(s_v),
           static_cast<const int*>(cache_len), static_cast<const int*>(exp_lut),
           static_cast<const int*>(recip_lut), static_cast<float*>(out), hq, hkv, d,
-          block_k, extent, window, recip_bits, recip_frac_bits);
+          block_k, extent, window, recip_bits, recip_frac_bits, stage);
   return static_cast<int>(cudaGetLastError());
 }
 

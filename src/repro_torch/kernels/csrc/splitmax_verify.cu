@@ -17,10 +17,9 @@
 // m_z[b, t].  Each output row is bit for bit the decode kernel
 // (splitmax_decode.cu, fused entry, same layout) at length eff_t with scale
 // s_q[b, t]:
-// acc runs over tiles in table order and over j in order inside a tile with
-// the same accumulate_ev, and s adds exact integer tile sums in tile order.
-// A tile that is dead for row t but live for another row adds exact zeros
-// (a + 0 * v == a, s + 0 == s), so it changes nothing in row t.
+// acc and s are exact integer sums (splitmax_common.cuh's contract), so a
+// row is the decode kernel's result whatever the split of the keys; a tile
+// that is dead for row t but live for another row adds exact zeros.
 //
 // What bounds it on an H100: one verify reads each live slot's int8 K and V
 // once for all T queries (2 * Hkv * len * D bytes per slot per layer) and
@@ -30,11 +29,12 @@
 // all T queries is the point of the kernel: T decode launches read it T
 // times.
 //
-// Design, simple and right first:
+// Design (the first, simple structure; only the accumulation has moved to
+// the exact contract):
 //  * one block per (slot, KV head) holding all T x group query rows of that
 //    head, row r = head-in-group * T + t, so the block's q and out slabs are
 //    contiguous in the (B, Hq, T, D) layout;
-//  * accumulator room: T * group * D reaches 8 * 8 * 64 = 4096 f32 values,
+//  * accumulator room: T * group * D reaches 8 * 8 * 64 = 4096 values,
 //    twice what kMaxOut (16) x 128 threads hold, so this kernel runs 256
 //    threads a block with the same 16 accumulators a thread (more threads,
 //    rather than more registers a thread or acc in shared memory);
@@ -43,8 +43,9 @@
 //  * one loop over the ceil(cache_len / block_k) live table entries; each
 //    K/V tile is loaded once into shared memory for all rows; a tile dead
 //    for every row (window) and the trash block (id 0) are never read;
-//  * QK^T with __dp4a, e * V and the denominator on CUDA cores in f32, in a
-//    fixed order, no atomics; LUTs in shared memory, read by index.
+//  * QK^T with __dp4a; e * V and the denominator on CUDA cores, exact: an
+//    int32 sum per tile (at most kIntChunk keys) added into int64 per
+//    output; no atomics; LUTs in shared memory, read by index.
 // Not carried over from the TPU kernel: the token-major g_pad row padding
 // and its pad/unpad copies, the per-row concat of scalar-prefetch values,
 // the 128-lane replicated tables, and a grid that walks every table entry
@@ -60,7 +61,7 @@ constexpr int kVerifyThreads = 256;  // T * group * D <= kVerifyThreads * kMaxOu
 // ``extent`` is the table width (paged) or S_max (dense); ``table`` is
 // unused when dense.
 template <bool kDense>
-__global__ void __launch_bounds__(kVerifyThreads)
+__global__ void __launch_bounds__(kVerifyThreads, 2)
 verify_kernel(const float* __restrict__ q, const int8_t* __restrict__ k_cache,
               const int8_t* __restrict__ v_cache, const int* __restrict__ table,
               const float* __restrict__ m_z, const float* __restrict__ s_q,
@@ -77,8 +78,8 @@ verify_kernel(const float* __restrict__ q, const int8_t* __restrict__ k_cache,
   size_t off = 0;
   int* exp_s = reinterpret_cast<int*>(smem + off);    off += align16(256 * 4);
   int* recip_s = reinterpret_cast<int*>(smem + off);  off += align16(n_recip * 4);
-  float* e_s = reinterpret_cast<float*>(smem + off);  off += align16(rows * e_stride * 4);
-  float* s_s = reinterpret_cast<float*>(smem + off);  off += align16(rows * 4);
+  int* e_s = reinterpret_cast<int*>(smem + off);      off += align16(rows * e_stride * 4);
+  long long* s_s = reinterpret_cast<long long*>(smem + off); off += align16(rows * 8);
   float* mz_s = reinterpret_cast<float*>(smem + off); off += align16(rows * 4);
   int* eff_s = reinterpret_cast<int*>(smem + off);    off += align16(rows * 4);
   int8_t* q_s = reinterpret_cast<int8_t*>(smem + off); off += align16(rows * d);
@@ -97,7 +98,7 @@ verify_kernel(const float* __restrict__ q, const int8_t* __restrict__ k_cache,
   for (int i = tid; i < n_recip; i += kVerifyThreads) recip_s[i] = recip_lut_g[i];
   for (int r = tid; r < rows; r += kVerifyThreads) {
     const int t = r % n_tok;
-    s_s[r] = 0.f;
+    s_s[r] = 0;
     mz_s[r] = mz_b[t];
     eff_s[r] = len - (n_tok - 1 - t);
   }
@@ -109,9 +110,9 @@ verify_kernel(const float* __restrict__ q, const int8_t* __restrict__ k_cache,
     q_s[i] = quantize_i8(qg[i], sq_b[(i / d) % n_tok]);
 
   const int n_out = rows * d;
-  float acc[kMaxOut];
+  long long acc[kMaxOut];
 #pragma unroll
-  for (int u = 0; u < kMaxOut; ++u) acc[u] = 0.f;
+  for (int u = 0; u < kMaxOut; ++u) acc[u] = 0;
 
   const int n_tiles = kDense ? (min(len, extent) + block_k - 1) / block_k
                              : min((len + block_k - 1) / block_k, extent);
@@ -149,21 +150,23 @@ verify_kernel(const float* __restrict__ q, const int8_t* __restrict__ k_cache,
       if (window > 0) live = live && col > eff - 1 - window;
       const int z = dot_i8(reinterpret_cast<const int*>(q_s + r * d),
                            k_s + j * (dw + 1), dw);
-      e_s[r * e_stride + j] = live ? requant_exp(z, mz_s[r], exp_s) : 0.f;
+      e_s[r * e_stride + j] = live ? requant_exp(z, mz_s[r], exp_s) : 0;
     }
     __syncthreads();
 
     for (int r = tid; r < rows; r += kVerifyThreads) {
-      int tsum = 0;
-      for (int j = 0; j < block_k; ++j) tsum += static_cast<int>(e_s[r * e_stride + j]);
-      s_s[r] += static_cast<float>(tsum);
+      long long tsum = 0;
+      for (int j = 0; j < block_k; ++j) tsum += e_s[r * e_stride + j];
+      s_s[r] += tsum;
     }
 #pragma unroll
     for (int u = 0; u < kMaxOut; ++u) {
       const int o = tid + u * kVerifyThreads;
       if (o < n_out) {
         const int r = o / d, c = o % d;
-        acc[u] = accumulate_ev(acc[u], e_s + r * e_stride, v_s + c, d, block_k);
+        for (int j0 = 0; j0 < block_k; j0 += kIntChunk)
+          acc[u] += dot_ev(e_s + r * e_stride + j0, v_s + j0 * d + c, d,
+                           min(kIntChunk, block_k - j0));
       }
     }
   }
@@ -173,16 +176,15 @@ verify_kernel(const float* __restrict__ q, const int8_t* __restrict__ k_cache,
 #pragma unroll
   for (int u = 0; u < kMaxOut; ++u) {
     const int o = tid + u * kVerifyThreads;
-    if (o < n_out) {
-      const float s = fmaxf(s_s[o / d], 1.f);
-      og[o] = acc[u] * recip_lut(s, recip_s, recip_bits, recip_frac_bits) * s_v;
-    }
+    if (o < n_out)
+      og[o] = finalize(acc[u], s_s[o / d], s_v, recip_s, recip_bits, recip_frac_bits);
   }
 }
 
 size_t smem_bytes(int rows, int d, int block_k, int recip_bits) {
   return align16(256 * 4) + align16((1 << recip_bits) * 4) +
-         align16(rows * (block_k + 1) * 4) + 3 * align16(rows * 4) + align16(rows * d) +
+         align16(rows * (block_k + 1) * 4) + align16(rows * 8) + 2 * align16(rows * 4) +
+         align16(rows * d) +
          align16(block_k * (d / 4 + 1) * 4) + block_k * d;
 }
 

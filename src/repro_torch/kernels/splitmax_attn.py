@@ -9,6 +9,11 @@ accumulate in one pass, with one reciprocal-LUT multiply per row at the end.
 Layouts: q (B, Hq, Sq, D) int8; k, v (B, Hkv, Sk, D) int8 (GQA: query head
 h reads KV head ``h // (Hq // Hkv)``); output (B, Hq, Sq, D) f32.  ``Sq`` and
 ``Sk`` may be any length (the kernel masks the ragged edge).
+
+The CUDA kernel sums ``e * v`` and ``e`` exactly in integers and converts
+each to f32 once (``csrc/splitmax_common.cuh``).  The plain version's
+default takes the f32 matmul of the reference; ``exact=True`` takes both
+sums in f64, exact for these integers, and so gives the kernel's bits.
 """
 from __future__ import annotations
 
@@ -26,8 +31,11 @@ from repro_torch.kernels import cuda_build
 # calls never count).
 launches = 0
 
-THREADS = 128
-MAX_OUT_PER_THREAD = 16       # kMaxOut in csrc/splitmax_common.cuh
+# The kernel's byte split e = 256 * e_hi + e_lo keeps its two int32 sums
+# exact up to this many attended keys (65535 * 255 * 128 < 2^31) and needs
+# e <= 2^15 (kMaxExactKeys in csrc/splitmax_common.cuh).
+MAX_EXACT_KEYS = 65535
+MAX_EXP_FRAC_BITS = 15
 _LIB: Optional[ctypes.CDLL] = None
 
 
@@ -36,7 +44,7 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = cuda_build.load("splitmax_attn")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.splitmax_attention_launch.argtypes = [p] * 8 + [i] * 12 + [p]
+        lib.splitmax_attention_launch.argtypes = [p] * 8 + [i] * 11 + [p]
         lib.splitmax_attention_launch.restype = i
         lib.splitmax_attention_error_string.argtypes = [i]
         lib.splitmax_attention_error_string.restype = ctypes.c_char_p
@@ -61,9 +69,12 @@ def attn_mask(sq: int, sk: int, *, causal: bool, window: Optional[int],
 def splitmax_attention_plain(q_q, k_q, v_q, m_z, s_v, exp_lut, recip_lut, *,
                              cfg: LUTConfig, causal: bool = True,
                              window: Optional[int] = None,
-                             kv_valid_len: Optional[int] = None
-                             ) -> torch.Tensor:
-    """The kernel's function in plain PyTorch (materializes the scores)."""
+                             kv_valid_len: Optional[int] = None,
+                             exact: bool = False) -> torch.Tensor:
+    """The kernel's function in plain PyTorch (materializes the scores).
+    ``exact`` takes ``e @ v`` and ``e.sum`` in f64 (every partial sum is an
+    integer below 2^53) and rounds each to f32 once: the CUDA kernel's
+    accumulation contract, bit for bit."""
     b, hq, sq, d = q_q.shape
     _, hkv, sk, _ = k_q.shape
     g = hq // hkv
@@ -78,17 +89,13 @@ def splitmax_attention_plain(q_q, k_q, v_q, m_z, s_v, exp_lut, recip_lut, *,
     mask = attn_mask(sq, sk, causal=causal, window=window,
                      kv_valid_len=kv_valid, device=q_q.device)
     e = torch.where(mask, e, 0.0)
-    acc = e @ v_q.to(torch.float32)[:, :, None]               # (B,Hkv,G,Sq,D)
-    s = torch.clamp_min(e.sum(-1, keepdim=True), 1.0)         # exact integers
+    dt = torch.float64 if exact else torch.float32
+    e = e.to(dt)
+    acc = (e @ v_q.to(dt)[:, :, None]).to(torch.float32)      # (B,Hkv,G,Sq,D)
+    s = torch.clamp_min(e.sum(-1, keepdim=True).to(torch.float32), 1.0)
     r, ex = lut_lib.recip_lookup(s, recip_lut, cfg)
     out = acc * (r.to(torch.float32) * lut_lib.exp2_int(ex)) * s_v
     return out.reshape(b, hq, sq, d)
-
-
-def block_q_for(d: int) -> int:
-    """Query rows per block: the block's f32 accumulators (rows * D) fit the
-    128 threads' registers."""
-    return min(64, THREADS * MAX_OUT_PER_THREAD // d)
 
 
 def _check(q_q, k_q, v_q, m_z, s_v, exp_lut, recip_lut, cfg, kv_valid):
@@ -117,6 +124,13 @@ def _check(q_q, k_q, v_q, m_z, s_v, exp_lut, recip_lut, cfg, kv_valid):
         raise ValueError("LUT sizes do not match the LUTConfig")
     if kv_valid < 0:
         raise ValueError(f"kv_valid_len {kv_valid} < 0")
+    if min(kv_valid, k_q.shape[2]) > MAX_EXACT_KEYS:
+        raise ValueError(f"{min(kv_valid, k_q.shape[2])} attended keys: the "
+                         f"kernel's integer sums are exact up to "
+                         f"{MAX_EXACT_KEYS}")
+    if cfg.exp_frac_bits > MAX_EXP_FRAC_BITS:
+        raise ValueError(f"exp_frac_bits {cfg.exp_frac_bits}: the kernel's "
+                         f"byte split of e needs e <= 2^{MAX_EXP_FRAC_BITS}")
     for name, t in (("q_q", q_q), ("k_q", k_q), ("v_q", v_q)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} is not 16-byte aligned")
@@ -147,7 +161,7 @@ def splitmax_attention_cuda(q_q, k_q, v_q, m_z, s_v, exp_lut, recip_lut, *,
         err = lib.splitmax_attention_launch(
             q_q.data_ptr(), k_q.data_ptr(), v_q.data_ptr(), m_z.data_ptr(),
             s_v.data_ptr(), exp_lut.data_ptr(), recip_lut.data_ptr(),
-            out.data_ptr(), b, hq, hkv, sq, sk, d, block_q_for(d), kv_valid,
+            out.data_ptr(), b, hq, hkv, sq, sk, d, kv_valid,
             int(causal), window or 0, cfg.recip_index_bits,
             cfg.recip_frac_bits, stream)
     if err:

@@ -23,6 +23,12 @@ positions; ``S_max`` need not be a multiple of the tile.  Dense and paged
 give equal bits on the same logical K/V when the dense tile equals the
 pool's ``block_k``.
 
+The CUDA kernels sum ``e * v`` and ``e`` exactly in integers and convert
+each to f32 once (``csrc/splitmax_common.cuh``), so their bits do not depend
+on how the keys are split; every plain version takes ``exact=True`` for the
+same function (f64 sums of integers, rounded once), and by default the f32
+matmul of the reference.
+
 Tiles whose table entry is the trash block (id 0) are dead.  A live slot
 never has one inside its length (the allocator never hands out block 0), so
 this changes nothing for live slots; an idle slot (length 0, row all trash)
@@ -54,9 +60,10 @@ dense_verify_launches = 0
 
 DENSE_BLOCK_K = 32            # dense k-tile: the serving pool's block_k
 
-THREADS = 128
+THREADS = 128                 # kThreads in csrc/splitmax_common.cuh
 VERIFY_THREADS = 256          # kVerifyThreads in csrc/splitmax_verify.cu
 MAX_OUT_PER_THREAD = 16       # kMaxOut in csrc/splitmax_common.cuh
+MAX_EXP_FRAC_BITS = 15        # e <= 2^15 keeps the kernels' int32 chunks exact
 _LIBS = {}
 
 
@@ -107,21 +114,24 @@ def live_positions(block_table, cache_len, block_k: int,
 # ------------------------------------------------------------ plain versions --
 
 def _grouped_decode(q_q, k_c, v_c, live, m_z, s_v, exp_lut, recip_lut,
-                    cfg: LUTConfig) -> torch.Tensor:
+                    cfg: LUTConfig, exact: bool = False) -> torch.Tensor:
     """The grouped int8 split-softmax decode of ``q_q (B, Hq, D)`` over a
     contiguous int8 cache ``(B, Hkv, S, D)`` at the ``live (B, S)``
-    positions; ``m_z`` is per-slot ``(B,)``."""
+    positions; ``m_z`` is per-slot ``(B,)``.  ``exact`` takes ``e @ v`` and
+    ``e.sum`` in f64 (every partial sum is an integer below 2^53) and rounds
+    each to f32 once: the CUDA kernels' contract, bit for bit."""
     b, hq, d = q_q.shape
     hkv = k_c.shape[1]
     g = hq // hkv
-    k_c, v_c = k_c.to(torch.float32), v_c.to(torch.float32)
     # exact f32 integer dot products (|z32| <= D * 2^14 < 2^24)
-    z32 = q_q.reshape(b, hkv, g, d).to(torch.float32) @ k_c.transpose(-1, -2)
+    z32 = (q_q.reshape(b, hkv, g, d).to(torch.float32)
+           @ k_c.to(torch.float32).transpose(-1, -2))
     z_q = qlib.requantize_int32(z32, m_z[:, None, None, None])
     e = lut_lib.exp_lookup(z_q, exp_lut).to(torch.float32)   # (B,Hkv,G,S)
-    e = torch.where(live[:, None, None, :], e, 0.0)
-    acc = e @ v_c                                            # (B,Hkv,G,D)
-    s = torch.clamp_min(e.sum(-1, keepdim=True), 1.0)
+    dt = torch.float64 if exact else torch.float32
+    e = torch.where(live[:, None, None, :], e, 0.0).to(dt)
+    acc = (e @ v_c.to(dt)).to(torch.float32)                 # (B,Hkv,G,D)
+    s = torch.clamp_min(e.sum(-1, keepdim=True).to(torch.float32), 1.0)
     r, ex = lut_lib.recip_lookup(s, recip_lut, cfg)
     out = acc * (r.to(torch.float32) * lut_lib.exp2_int(ex)) * s_v
     return out.reshape(b, hq, d)
@@ -129,34 +139,36 @@ def _grouped_decode(q_q, k_c, v_c, live, m_z, s_v, exp_lut, recip_lut,
 
 def splitmax_decode_paged_plain(q_q, k_pages, v_pages, block_table, m_z, s_v,
                                 cache_len, exp_lut, recip_lut, *,
-                                cfg: LUTConfig,
-                                window: Optional[int] = None) -> torch.Tensor:
+                                cfg: LUTConfig, window: Optional[int] = None,
+                                exact: bool = False) -> torch.Tensor:
     """The composed kernel's function in plain PyTorch: gather the cache
     through the table, then the grouped int8 split-softmax decode of the
     int8 query ``q_q (B, Hq, D)``.  ``m_z`` is per-slot ``(B,)``."""
     live = live_positions(block_table, cache_len, k_pages.shape[2], window)
     return _grouped_decode(q_q, paged_kv.gather_kv(k_pages, block_table),
                            paged_kv.gather_kv(v_pages, block_table), live,
-                           m_z, s_v, exp_lut, recip_lut, cfg)
+                           m_z, s_v, exp_lut, recip_lut, cfg, exact)
 
 
 def splitmax_decode_fused_paged_plain(q, k_pages, v_pages, block_table, m_z,
                                       s_q, s_v, cache_len, exp_lut, recip_lut,
                                       *, cfg: LUTConfig,
-                                      window: Optional[int] = None
-                                      ) -> torch.Tensor:
+                                      window: Optional[int] = None,
+                                      exact: bool = False) -> torch.Tensor:
     """The fused kernel's function in plain PyTorch: quantize each slot's
     query with its own ``s_q (B,)``, then the composed decode."""
     return splitmax_decode_paged_plain(
         qlib.quantize(q, s_q[:, None, None]), k_pages, v_pages, block_table,
-        m_z, s_v, cache_len, exp_lut, recip_lut, cfg=cfg, window=window)
+        m_z, s_v, cache_len, exp_lut, recip_lut, cfg=cfg, window=window,
+        exact=exact)
 
 
 def splitmax_decode_fused_verify_paged_plain(q, k_pages, v_pages, block_table,
                                              m_z, s_q, s_v, cache_len,
                                              exp_lut, recip_lut, *,
                                              cfg: LUTConfig,
-                                             window: Optional[int] = None
+                                             window: Optional[int] = None,
+                                             exact: bool = False
                                              ) -> torch.Tensor:
     """The verify kernel's function in plain PyTorch, the reference's
     ``_verify_fallback``: token t is the fused decode at ``cache_len -
@@ -165,37 +177,38 @@ def splitmax_decode_fused_verify_paged_plain(q, k_pages, v_pages, block_table,
     outs = [splitmax_decode_fused_paged_plain(
         q[:, :, i].contiguous(), k_pages, v_pages, block_table,
         m_z[:, i].contiguous(), s_q[:, i].contiguous(), s_v,
-        cache_len - (t - 1 - i), exp_lut, recip_lut, cfg=cfg, window=window)
-        for i in range(t)]
+        cache_len - (t - 1 - i), exp_lut, recip_lut, cfg=cfg, window=window,
+        exact=exact) for i in range(t)]
     return torch.stack(outs, dim=2)
 
 
 def splitmax_decode_plain(q_q, k_cache, v_cache, m_z, s_v, cache_len,
                           exp_lut, recip_lut, *, cfg: LUTConfig,
-                          window: Optional[int] = None) -> torch.Tensor:
+                          window: Optional[int] = None,
+                          exact: bool = False) -> torch.Tensor:
     """The composed dense kernel's function in plain PyTorch: int8 ``q_q
     (B, Hq, D)`` against the dense cache ``(B, Hkv, S_max, D)``."""
     live = dense_live_positions(cache_len, k_cache.shape[2], window)
     return _grouped_decode(q_q, k_cache, v_cache, live, m_z, s_v, exp_lut,
-                           recip_lut, cfg)
+                           recip_lut, cfg, exact)
 
 
 def splitmax_decode_fused_plain(q, k_cache, v_cache, m_z, s_q, s_v,
                                 cache_len, exp_lut, recip_lut, *,
-                                cfg: LUTConfig,
-                                window: Optional[int] = None) -> torch.Tensor:
+                                cfg: LUTConfig, window: Optional[int] = None,
+                                exact: bool = False) -> torch.Tensor:
     """The fused dense kernel's function in plain PyTorch: quantize each
     slot's query with its own ``s_q (B,)``, then the composed decode."""
     return splitmax_decode_plain(
         qlib.quantize(q, s_q[:, None, None]), k_cache, v_cache, m_z, s_v,
-        cache_len, exp_lut, recip_lut, cfg=cfg, window=window)
+        cache_len, exp_lut, recip_lut, cfg=cfg, window=window, exact=exact)
 
 
 def splitmax_decode_fused_verify_plain(q, k_cache, v_cache, m_z, s_q, s_v,
                                        cache_len, exp_lut, recip_lut, *,
                                        cfg: LUTConfig,
-                                       window: Optional[int] = None
-                                       ) -> torch.Tensor:
+                                       window: Optional[int] = None,
+                                       exact: bool = False) -> torch.Tensor:
     """The dense verify kernel's function in plain PyTorch, the reference's
     ``_verify_fallback``: token t is the fused dense decode at ``cache_len
     - (T-1-t)``, stacked on axis 2."""
@@ -203,7 +216,7 @@ def splitmax_decode_fused_verify_plain(q, k_cache, v_cache, m_z, s_q, s_v,
     outs = [splitmax_decode_fused_plain(
         q[:, :, i].contiguous(), k_cache, v_cache, m_z[:, i].contiguous(),
         s_q[:, i].contiguous(), s_v, cache_len - (t - 1 - i), exp_lut,
-        recip_lut, cfg=cfg, window=window) for i in range(t)]
+        recip_lut, cfg=cfg, window=window, exact=exact) for i in range(t)]
     return torch.stack(outs, dim=2)
 
 
@@ -252,6 +265,9 @@ def _check(q, q_dtype, per_slot, k_pages, v_pages, block_table, s_v,
         raise ValueError("cache_len is per-slot (B,); s_v a scalar")
     if exp_lut.numel() != 256 or recip_lut.numel() != cfg.recip_table_size:
         raise ValueError("LUT sizes do not match the LUTConfig")
+    if cfg.exp_frac_bits > MAX_EXP_FRAC_BITS:
+        raise ValueError(f"exp_frac_bits {cfg.exp_frac_bits}: the kernels' "
+                         f"int32 partial sums need e <= 2^{MAX_EXP_FRAC_BITS}")
     for name, t in (("k_cache", k_pages), ("v_cache", v_pages)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} is not 16-byte aligned")

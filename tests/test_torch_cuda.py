@@ -10,9 +10,12 @@ file imports no JAX, so it runs on the machine with the card:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_cuda.py
 
-Tolerance: ``rtol = atol = 2e-5`` at ``s_v = 0.02`` (output scale up to
-127 * s_v = 2.54), because the kernel takes the e*V partial sums in another
-order than the plain version's matmul; integer stages are identical.
+Every split-softmax kernel sums e*V and e exactly in integers, so it
+equals its plain version's ``exact=True`` mode bit for bit (``torch.equal``)
+at every shape and edge here, and at D 16, 32, 64 and 128.  Against the
+default plain version the tolerance is ``rtol = atol = 2e-5`` at ``s_v =
+0.02`` (output scale up to 127 * s_v = 2.54): the default rounds its f32
+partial sums of e*V, the kernel does not; integer stages are identical.
 """
 import numpy as np
 import pytest
@@ -56,6 +59,10 @@ def _i8(rng, shape, dev):
     (1, 8, 8, 128, 256, 128),     # MHA, rectangular
     (1, 4, 1, 1, 1, 32),          # one token
     (2, 4, 2, 33, 33, 64),        # one past a 32-row tile
+    (8, 32, 4, 282, 282, 64),     # the dense path's re-prefill
+    (1, 4, 1, 70, 130, 32),       # MQA, rectangular, ragged tiles
+    (2, 4, 2, 65, 65, 80),        # one past a 64-row block, D 80
+    (1, 2, 1, 40, 40, 256),       # the widest head
 ])
 @pytest.mark.parametrize("mode", ["causal", "bidir", "window", "kv_valid"])
 def test_prefill_kernel_matches_plain(rng, cuda, shape, mode):
@@ -72,9 +79,11 @@ def test_prefill_kernel_matches_plain(rng, cuda, shape, mode):
     before = splitmax_attn.launches
     got = splitmax_attn.splitmax_attention_cuda(*args, **kw)
     want = splitmax_attn.splitmax_attention_plain(*args, **kw)
+    exact = splitmax_attn.splitmax_attention_plain(*args, exact=True, **kw)
     torch.cuda.synchronize()
     assert splitmax_attn.launches == before + 1
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+    assert torch.equal(got, exact)
 
 
 @pytest.mark.parametrize("shape", [
@@ -460,3 +469,132 @@ def test_smoke_dense_serving_runs_through_the_kernels(cuda):
         cpu_stats = srv.serve(cpu_params, c, prompts, slots=3, gen=12,
                               gens=gens, cache_kind="dense")
         assert stats["finished"] == cpu_stats["finished"]
+
+
+# ------------------------------------------------- the exact oracle, bitwise --
+
+def _decode_lens(bk, s_max):
+    """Lengths 0 (idle), 1, 4, a tile boundary, one past it, two tiles, the
+    serving length, and the end of the cache."""
+    return [0, 1, 4, bk, bk + 1, 2 * bk, min(250, s_max), s_max]
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("window", [None, 48])
+def test_paged_decode_kernels_equal_exact_oracle(rng, cuda, d, window):
+    hq, hkv, bk = (32, 4, 32) if d < 128 else (8, 1, 32)
+    lens = _decode_lens(bk, 282)
+    kp, vp, table, lens_t = _paged_case(rng, cuda, [max(n, 1) for n in lens],
+                                        hq, hkv, d, bk, idle=(0,))
+    lens_t[0] = 0
+    q = torch.from_numpy(rng.normal(size=(len(lens), hq, d)).astype(
+        np.float32)).to(cuda)
+    s_q = qlib.absmax_scale(q, axis=(1, 2)).reshape(-1)
+    m_z = ops.requant_multiplier(s_q, torch.tensor(SCALES[1], device=cuda), d,
+                                 CFG)
+    s_v = torch.tensor(SCALES[2], device=cuda)
+    args = [q, kp, vp, table, m_z, s_q, s_v, lens_t, *_luts(cuda)]
+    fused = splitmax_decode.splitmax_decode_fused_paged_cuda(
+        *args, cfg=CFG, window=window)
+    want = splitmax_decode.splitmax_decode_fused_paged_plain(
+        *args, cfg=CFG, window=window, exact=True)
+    q_q = qlib.quantize(q, s_q[:, None, None])
+    cargs = [q_q, kp, vp, table, m_z, s_v, lens_t, *_luts(cuda)]
+    comp = splitmax_decode.splitmax_decode_paged_cuda(*cargs, cfg=CFG,
+                                                      window=window)
+    comp_want = splitmax_decode.splitmax_decode_paged_plain(
+        *cargs, cfg=CFG, window=window, exact=True)
+    torch.cuda.synchronize()
+    assert torch.equal(fused, want)
+    assert torch.equal(comp, comp_want)
+    assert torch.equal(comp, fused)
+    assert not fused[0].any()
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("window", [None, 48])
+def test_dense_decode_kernels_equal_exact_oracle(rng, cuda, d, window):
+    hq, hkv, s_max = (32, 4, 290) if d < 128 else (8, 1, 290)
+    lens = _decode_lens(splitmax_decode.DENSE_BLOCK_K, s_max)
+    q, k, v, m_z, s_q, s_v, lens_t = _dense_case(rng, cuda, lens, hq, hkv,
+                                                 s_max, d)
+    luts = _luts(cuda)
+    fused = splitmax_decode.splitmax_decode_fused_cuda(
+        q, k, v, m_z, s_q, s_v, lens_t, *luts, cfg=CFG, window=window)
+    want = splitmax_decode.splitmax_decode_fused_plain(
+        q, k, v, m_z, s_q, s_v, lens_t, *luts, cfg=CFG, window=window,
+        exact=True)
+    q_q = qlib.quantize(q, s_q[:, None, None])
+    comp = splitmax_decode.splitmax_decode_cuda(
+        q_q, k, v, m_z, s_v, lens_t, *luts, cfg=CFG, window=window)
+    comp_want = splitmax_decode.splitmax_decode_plain(
+        q_q, k, v, m_z, s_v, lens_t, *luts, cfg=CFG, window=window,
+        exact=True)
+    torch.cuda.synchronize()
+    assert torch.equal(fused, want)
+    assert torch.equal(comp, comp_want)
+    assert not fused[0].any()
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("gamma", [4, 8])
+@pytest.mark.parametrize("layout", ["paged", "dense"])
+def test_verify_kernels_equal_exact_oracle(rng, cuda, d, gamma, layout):
+    hq, hkv, bk = (32, 4, 32) if d < 128 else (8, 1, 32)
+    if d == 128 and gamma == 8:
+        hq = 4                                    # rows * D <= 256 * 16
+    lens = [gamma, bk, bk + gamma // 2, 2 * bk + 1, 250, 282, 96, gamma + 1]
+    q = torch.from_numpy(rng.normal(size=(len(lens), hq, gamma, d)).astype(
+        np.float32)).to(cuda)
+    s_q = qlib.absmax_scale(q, axis=(1, 3))[:, 0, :, 0].contiguous()
+    m_z = ops.requant_multiplier(s_q, torch.tensor(SCALES[1], device=cuda),
+                                 d, CFG)
+    s_v = torch.tensor(SCALES[2], device=cuda)
+    luts = _luts(cuda)
+    if layout == "paged":
+        kp, vp, table, lens_t = _paged_case(rng, cuda, lens, hq, hkv, d, bk)
+        args = [q, kp, vp, table, m_z, s_q, s_v, lens_t, *luts]
+        kern = splitmax_decode.splitmax_decode_fused_verify_paged_cuda
+        plain = splitmax_decode.splitmax_decode_fused_verify_paged_plain
+    else:
+        s_max = 290
+        k, v = (_i8(rng, (len(lens), hkv, s_max, d), cuda) for _ in range(2))
+        lens_t = torch.tensor(lens, dtype=torch.int32, device=cuda)
+        args = [q, k, v, m_z, s_q, s_v, lens_t, *luts]
+        kern = splitmax_decode.splitmax_decode_fused_verify_cuda
+        plain = splitmax_decode.splitmax_decode_fused_verify_plain
+    for window in (None, 48):
+        got = kern(*args, cfg=CFG, window=window)
+        want = plain(*args, cfg=CFG, window=window, exact=True)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), window
+
+
+def test_decode_bits_do_not_depend_on_the_batch_or_the_table(rng, cuda):
+    """Slot 3 of an 8-slot batch with a 10-entry table row, alone with a
+    20-entry row and again at slot 0 of a 2-slot batch: the same bits."""
+    b, hq, hkv, d, bk = 8, 32, 4, 64, 32
+    lens = [int(n) for n in rng.integers(251, 283, b)]
+    kp, vp, table, lens_t = _paged_case(rng, cuda, lens, hq, hkv, d, bk)
+    q = torch.from_numpy(rng.normal(size=(b, hq, d)).astype(np.float32)
+                         ).to(cuda)
+    s_q = qlib.absmax_scale(q, axis=(1, 2)).reshape(-1)
+    m_z = ops.requant_multiplier(s_q, torch.tensor(SCALES[1], device=cuda), d,
+                                 CFG)
+    s_v = torch.tensor(SCALES[2], device=cuda)
+    luts = _luts(cuda)
+    full = splitmax_decode.splitmax_decode_fused_paged_cuda(
+        q, kp, vp, table, m_z, s_q, s_v, lens_t, *luts, cfg=CFG)
+    wide = torch.zeros((1, 20), dtype=torch.int32, device=cuda)
+    wide[0, :table.shape[1]] = table[3]
+    alone = splitmax_decode.splitmax_decode_fused_paged_cuda(
+        q[3:4].contiguous(), kp, vp, wide, m_z[3:4].contiguous(),
+        s_q[3:4].contiguous(), s_v, lens_t[3:4].contiguous(), *luts, cfg=CFG)
+    pair = splitmax_decode.splitmax_decode_fused_paged_cuda(
+        q[[3, 5]].contiguous(), kp, vp, table[[3, 5]].contiguous(),
+        m_z[[3, 5]].contiguous(), s_q[[3, 5]].contiguous(), s_v,
+        lens_t[[3, 5]].contiguous(), *luts, cfg=CFG)
+    torch.cuda.synchronize()
+    assert torch.equal(full[3], alone[0])
+    assert torch.equal(full[3], pair[0])
+    assert torch.equal(full[5], pair[1])
