@@ -11,7 +11,8 @@ Phases, each fatal on failure:
      serving shapes of TinyLlama-1.1B (Hq 32, Hkv 4, D 64, block_k 32,
      250-token prefill and the dense path's 8 x 282 re-prefill, 8-slot
      ragged decode over the pool and over a 290-position dense cache,
-     gamma 4 and 8 verify over both) and at edge cases (length 0, 1 or
+     gamma 4 and 8 verify over both, and the verify at group 8 with gamma
+     16 at D 64 and gamma 8 at D 128) and at edge cases (length 0, 1 or
      gamma, tile boundaries, window, padding mask, an idle slot, a dense
      cache no tile divides, block 0 filled with 127 and then -77); every
      split-softmax kernel bit for bit its plain version's ``exact=True``
@@ -80,6 +81,9 @@ REPREFILL = dict(b=8, hq=32, hkv=4, s=282, d=64)
 GEMMS = [(256, 512, 256), (128, 128, 128), (512, 256, 384), (300, 1000, 130),
          (2048, 2048, 5632)]
 SPEC = dict(gamma=4, prefix_layers=4)
+# verify shapes past the first verify kernel's cap of group x T x D <= 4096
+# (group 8): (T, D)
+FULL_GROUP = ((16, 64), (8, 128))
 COMPOSED_REQUESTS = 8
 
 
@@ -437,7 +441,8 @@ def verify_phase(torch, F, dev):
     hq, hkv, d, bk = p["hq"], p["hkv"], p["d"], p["block_k"]
     gen = torch.Generator(device=dev).manual_seed(4)
 
-    def case(lens, gamma, what, *, window=None, idle=()):
+    def case(lens, gamma, what, *, window=None, idle=(), heads=(hq, hkv, d)):
+        hq, hkv, d = heads
         b = len(lens)
         kp, vp, table, lens_t = paged_case(torch, gen, dev, lens, hkv, d, bk,
                                            idle=idle)
@@ -457,8 +462,8 @@ def verify_phase(torch, F, dev):
         # each row is the decode kernel at its effective length, bit for bit
         rows = [[q[:, :, t].contiguous(), kp, vp, table,
                  m_z[:, t].contiguous(), s_q[:, t].contiguous(), args[6],
-                 lens_t - (gamma - 1 - t), exp_lut, recip_lut]
-                for t in range(gamma)]
+                 torch.clamp_min(lens_t - (gamma - 1 - t), 0), exp_lut,
+                 recip_lut] for t in range(gamma)]
         for t, row in enumerate(rows):
             dec = K.splitmax_decode_fused_paged_cuda(*row, cfg=cfg,
                                                      window=window)
@@ -478,9 +483,9 @@ def verify_phase(torch, F, dev):
               f"trash block")
         for i in idle:
             check(not ker[i].any(), f"verify {what}: idle slot {i} not zero")
-        print(f"[verify] {what}: lens {lens}, gamma {gamma}, window {window}: "
-              f"== exact oracle, max_abs_err {err:.3g} (tol {tol:.3g}), rows "
-              f"== decode kernel")
+        print(f"[verify] {what}: lens {lens}, gamma {gamma}, heads {heads}, "
+              f"window {window}: == exact oracle, max_abs_err {err:.3g} (tol "
+              f"{tol:.3g}), rows == decode kernel")
         return args, rows, err, tol
 
     for gamma in p["gammas"]:
@@ -534,6 +539,19 @@ def verify_phase(torch, F, dev):
             "library_graph": f"{key} sdpa", "decodes_graph": f"{key} decodes",
             "host_ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
             "bound_by": by})
+    for gamma, wide in FULL_GROUP:
+        # group 8 x T x D past the first kernel's thread cap
+        edges = [gamma, bk, 2 * bk + gamma // 2, 250, gamma, 282, 96, 33]
+        for window in (None, 48):
+            case(edges, gamma, f"full group d {wide}", window=window,
+                 idle=(4,), heads=(hq, hkv, wide))
+        lens = torch.randint(p["lens"][0], p["lens"][1] + 1, (p["b"],),
+                             generator=gen, device=dev).tolist()
+        args = case(lens, gamma, f"full group d {wide} main",
+                    heads=(hq, hkv, wide))[0]
+        GRAPHED[f"verify g{gamma} d{wide}"] = (
+            lambda a=args: K.splitmax_decode_fused_verify_paged_cuda(*a,
+                                                                     cfg=cfg))
     # the serving path runs gamma = SPEC["gamma"]: its row goes in the line
     return next(r for r in results if r["gamma"] == SPEC["gamma"])
 
@@ -776,7 +794,7 @@ def dense_verify_phase(torch, F, dev):
     bk = K.DENSE_BLOCK_K
     gen = torch.Generator(device=dev).manual_seed(8)
 
-    def case(lens, gamma, what, window=None):
+    def case(lens, gamma, what, window=None, d=d):
         args = dense_case(torch, gen, dev, cfg, exp_lut, recip_lut, lens, hq,
                           hkv, s_max, d, gamma)
         q, k, v, m_z, s_q, s_v, lens_t, el, rl = args
@@ -789,8 +807,9 @@ def dense_verify_phase(torch, F, dev):
         check(torch.equal(ker, exact), f"dense verify {what}: kernel != the "
               f"exact=True plain version")
         rows = [[q[:, :, t].contiguous(), k, v, m_z[:, t].contiguous(),
-                 s_q[:, t].contiguous(), s_v, lens_t - (gamma - 1 - t), el,
-                 rl] for t in range(gamma)]
+                 s_q[:, t].contiguous(), s_v,
+                 torch.clamp_min(lens_t - (gamma - 1 - t), 0), el, rl]
+                for t in range(gamma)]
         for t, row in enumerate(rows):
             dec = K.splitmax_decode_fused_cuda(*row, cfg=cfg, window=window)
             check(torch.equal(ker[:, :, t], dec), f"dense verify {what}: "
@@ -802,8 +821,11 @@ def dense_verify_phase(torch, F, dev):
               f"non-finite")
         check(err <= tol, f"dense verify {what}: max|kernel-plain| {err:.3g} "
               f"> {tol:.3g}")
-        print(f"[dense-verify] {what}: lens {lens}, gamma {gamma}, window "
-              f"{window}: == exact oracle, max_abs_err {err:.3g} (tol "
+        for i, n in enumerate(lens):
+            check(n > 0 or not ker[i].any(), f"dense verify {what}: idle slot "
+                  f"{i} not zero")
+        print(f"[dense-verify] {what}: lens {lens}, gamma {gamma}, d {d}, "
+              f"window {window}: == exact oracle, max_abs_err {err:.3g} (tol "
               f"{tol:.3g}), rows == kernel 4")
         return args, rows, err
 
@@ -852,6 +874,16 @@ def dense_verify_phase(torch, F, dev):
             "library_graph": f"{key} sdpa", "decodes_graph": f"{key} decodes",
             "host_ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
             "bound_by": by})
+    for gamma, wide in FULL_GROUP:
+        # group 8 x T x D past the first kernel's thread cap; slot 4 idle
+        edges = [gamma, bk + gamma // 2, s_max, 250, 0, 2 * bk, 96, 33]
+        for window in (None, 48):
+            case(edges, gamma, f"full group d {wide}", window=window, d=wide)
+        lens = torch.randint(p["lens"][0], p["lens"][1] + 1, (p["b"],),
+                             generator=gen, device=dev).tolist()
+        args = case(lens, gamma, f"full group d {wide} main", d=wide)[0]
+        GRAPHED[f"dense verify g{gamma} d{wide}"] = (
+            lambda a=args: K.splitmax_decode_fused_verify_cuda(*a, cfg=cfg))
     return next(r for r in results if r["gamma"] == SPEC["gamma"])
 
 
@@ -1393,9 +1425,15 @@ def main() -> int:
     print(f"[build] {sorted(cuda_build.KERNELS)} in "
           f"{time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+        entry, spills = "?", ""
+        for line in log.splitlines():        # ptxas -v, one block per kernel
+            if "Function properties for" in line:
+                entry = line.split("for", 1)[1].strip()
+            elif "spill" in line:
+                spills = line.strip()
+            elif "registers" in line:
+                print(f"[build] {name} {entry}: {line.split(':', 1)[1].strip()}; "
+                      f"{spills}")
 
     decode, decode_args = decode_phase(torch, F, dev)
     kernels = [prefill_phase(torch, F, dev), decode,

@@ -32,7 +32,8 @@
 //    order inside the k32 contraction is free, so V^T is written to shared
 //    memory in the order each thread already holds its scores in (keys
 //    {2t, 2t+1, 8+2t, 9+2t} at A positions 4t..4t+3), with a __byte_perm
-//    4x4 transpose; no shuffle and no shared round trip of the scores;
+//    4x4 transpose (splitmax_mma.cuh, shared with the verify); no shuffle
+//    and no shared round trip of the scores;
 //  * K/V tiles of 64 keys double-buffered with cp.async: the next tile's
 //    copy is in flight during the current tile's math; causally, window-
 //    and padding-dead tiles are never loaded; ragged Sq / Sk are masked
@@ -40,6 +41,7 @@
 //  * shared rows are padded by 16 bytes, which makes every fragment read
 //    free of bank conflicts.
 #include "splitmax_common.cuh"
+#include "splitmax_mma.cuh"
 
 namespace {
 
@@ -49,28 +51,6 @@ constexpr int kBlockK = 64;            // keys per tile
 constexpr int kScoreTiles = kBlockK / 8;
 constexpr int kDChunk = 64;            // output columns per warp
 constexpr int kOutTiles = kDChunk / 8;
-
-__device__ __forceinline__ void mma_s8s8(int (&c)[4], const int (&a)[4], int b0, int b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_u8s8(int (&c)[4], const unsigned (&a)[4], int b0,
-                                         int b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ unsigned pack4(int x0, int x1, int x2, int x3) {
-  return static_cast<unsigned>(x0) | (static_cast<unsigned>(x1) << 8) |
-         (static_cast<unsigned>(x2) << 16) | (static_cast<unsigned>(x3) << 24);
-}
 
 template <int kKSteps>
 struct Shape {
@@ -215,18 +195,8 @@ splitmax_attn_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ k,
       const int dq = c % (d / 4), rest = c / (d / 4);
       const int tq = rest % 4, half = rest / 4;      // half: 16-key group
       const int key0 = half * 16 + 2 * tq;           // keys key0, +1, +8, +9
-      const int8_t* src = v_s0 + buf * v_stride + key0 * d + dq * 4;
-      const unsigned x0 = *reinterpret_cast<const unsigned*>(src);
-      const unsigned x1 = *reinterpret_cast<const unsigned*>(src + d);
-      const unsigned x2 = *reinterpret_cast<const unsigned*>(src + 8 * d);
-      const unsigned x3 = *reinterpret_cast<const unsigned*>(src + 9 * d);
-      const unsigned lo01 = __byte_perm(x0, x1, 0x5140), hi01 = __byte_perm(x0, x1, 0x7362);
-      const unsigned lo23 = __byte_perm(x2, x3, 0x5140), hi23 = __byte_perm(x2, x3, 0x7362);
-      int8_t* dst = vt_s + (dq * 4) * kVtP + half * 16 + tq * 4;
-      *reinterpret_cast<unsigned*>(dst) = __byte_perm(lo01, lo23, 0x5410);
-      *reinterpret_cast<unsigned*>(dst + kVtP) = __byte_perm(lo01, lo23, 0x7632);
-      *reinterpret_cast<unsigned*>(dst + 2 * kVtP) = __byte_perm(hi01, hi23, 0x5410);
-      *reinterpret_cast<unsigned*>(dst + 3 * kVtP) = __byte_perm(hi01, hi23, 0x7632);
+      transpose_v_quad(v_s0 + buf * v_stride + key0 * d + dq * 4, d,
+                       vt_s + (dq * 4) * kVtP + half * 16 + tq * 4, kVtP);
     }
 
     // a warp whose rows are all past the block's end or all before the
@@ -262,20 +232,9 @@ splitmax_attn_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ k,
     if (warp_live) {
 #pragma unroll
       for (int ks = 0; ks < kBlockK / 32; ++ks) {
-        const int* c0 = sc[4 * ks];
-        const int* c1 = sc[4 * ks + 1];
-        const int* c2 = sc[4 * ks + 2];
-        const int* c3 = sc[4 * ks + 3];
-        const unsigned a_lo[4] = {
-            pack4(c0[0] & 255, c0[1] & 255, c1[0] & 255, c1[1] & 255),
-            pack4(c0[2] & 255, c0[3] & 255, c1[2] & 255, c1[3] & 255),
-            pack4(c2[0] & 255, c2[1] & 255, c3[0] & 255, c3[1] & 255),
-            pack4(c2[2] & 255, c2[3] & 255, c3[2] & 255, c3[3] & 255)};
-        const unsigned a_hi[4] = {
-            pack4(c0[0] >> 8, c0[1] >> 8, c1[0] >> 8, c1[1] >> 8),
-            pack4(c0[2] >> 8, c0[3] >> 8, c1[2] >> 8, c1[3] >> 8),
-            pack4(c2[0] >> 8, c2[1] >> 8, c3[0] >> 8, c3[1] >> 8),
-            pack4(c2[2] >> 8, c2[3] >> 8, c3[2] >> 8, c3[3] >> 8)};
+        unsigned a_lo[4], a_hi[4];
+        pack_e_frags(sc[4 * ks], sc[4 * ks + 1], sc[4 * ks + 2], sc[4 * ks + 3], a_lo,
+                     a_hi);
 #pragma unroll
         for (int dn = 0; dn < kOutTiles; ++dn) {
           if (dbase + dn * 8 < d) {

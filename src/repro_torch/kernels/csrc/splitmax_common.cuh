@@ -41,7 +41,7 @@
 namespace splitmax {
 
 constexpr int kThreads = 128;          // threads per block (decode)
-constexpr int kMaxOut = 16;            // outputs per thread (verify, decode)
+constexpr int kMaxOut = 16;            // outputs per thread (decode)
 constexpr int kTrashBlock = 0;         // paged pool: block 0 is never live data
 constexpr int kIntChunk = 256;         // keys per exact int32 partial sum
 constexpr int kMaxExactKeys = 65535;   // the prefill's byte-split range

@@ -47,7 +47,8 @@
 //  * exact partials: each block leaves its int64 (acc, s) partials in its
 //    shared memory; after cluster.sync() rank r adds all eight blocks'
 //    partials for its eighth of the outputs through distributed shared
-//    memory and writes them.  No atomics, no second launch, and since the
+//    memory and writes them (splitmax_cluster.cuh, shared with the
+//    verify).  No atomics, no second launch, and since the
 //    sums are exact integers the bits do not depend on the partition, on
 //    the batch or on the table width (splitmax_common.cuh's contract);
 //  * dense: the tile at k0 is the contiguous rows k0 .. k0 + block_k - 1 of
@@ -57,6 +58,7 @@
 //    paged slot holding the same K/V bit for bit, at any block_k.
 #include <cooperative_groups.h>
 
+#include "splitmax_cluster.cuh"
 #include "splitmax_common.cuh"
 
 namespace cg = cooperative_groups;
@@ -65,7 +67,6 @@ namespace {
 
 using namespace splitmax;
 
-constexpr int kRanks = 8;                 // blocks per cluster = split of the keys
 constexpr int kMaxStage = 4;              // tiles a block holds in flight
 constexpr int kMaxWords = kMaxOut / 4;    // packed V words (4 outputs) per thread
 constexpr size_t kSmemBudget = 48 * 1024; // a stage larger than 1 tile stays under it
@@ -161,9 +162,7 @@ decode_kernel(const void* __restrict__ q_in, const int8_t* __restrict__ k_cache,
 
   const int n_tiles = kDense ? (min(len, extent) + block_k - 1) / block_k
                              : min((len + block_k - 1) / block_k, extent);
-  // the first tile not window-dead: tile t is dead when its last key
-  // t * block_k + block_k - 1 < len - window
-  const int t_first = (window > 0 && len > window) ? (len - window) / block_k : 0;
+  const int t_first = first_live_tile(len, window, block_k);
   const int* row_ids = kDense ? nullptr : table + static_cast<size_t>(b) * extent;
   for (int base = t_first + rank; base < n_tiles; base += kRanks * stage) {
     const int n_here = min(stage, (n_tiles - base + kRanks - 1) / kRanks);
@@ -274,13 +273,8 @@ decode_kernel(const void* __restrict__ q_in, const int8_t* __restrict__ k_cache,
   const int per_rank = (n_out + kRanks - 1) / kRanks;
   const int o_end = min(n_out, (rank + 1) * per_rank);
   for (int o = rank * per_rank + tid; o < o_end; o += kThreads) {
-    long long a = 0, s = 0;
-#pragma unroll
-    for (int r = 0; r < kRanks; ++r) {
-      a += cluster.map_shared_rank(part_acc, r)[o];
-      s += cluster.map_shared_rank(part_s, r)[o / d];
-    }
-    og[o] = finalize(a, s, s_v, recip_s, recip_bits, recip_frac_bits);
+    og[o] = finalize(cluster_sum(cluster, part_acc, o), cluster_sum(cluster, part_s, o / d),
+                     s_v, recip_s, recip_bits, recip_frac_bits);
   }
   cluster.sync();  // no block exits while another still reads its partials
 }

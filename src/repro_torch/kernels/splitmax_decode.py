@@ -61,8 +61,9 @@ dense_verify_launches = 0
 DENSE_BLOCK_K = 32            # dense k-tile: the serving pool's block_k
 
 THREADS = 128                 # kThreads in csrc/splitmax_common.cuh
-VERIFY_THREADS = 256          # kVerifyThreads in csrc/splitmax_verify.cu
 MAX_OUT_PER_THREAD = 16       # kMaxOut in csrc/splitmax_common.cuh
+VERIFY_MAX_ROWS_D = 16384     # kMaxRowsD in csrc/splitmax_verify.cu
+MAX_HEAD_DIM = 256            # kMaxD in csrc/splitmax_verify.cu
 MAX_EXP_FRAC_BITS = 15        # e <= 2^15 keeps the kernels' int32 chunks exact
 _LIBS = {}
 
@@ -224,11 +225,14 @@ def splitmax_decode_fused_verify_plain(q, k_cache, v_cache, m_z, s_q, s_v,
 
 def _check(q, q_dtype, per_slot, k_pages, v_pages, block_table, s_v,
            cache_len, exp_lut, recip_lut, cfg, window, *, tokens: int,
-           threads: int):
+           threads: Optional[int]):
     """Raise ValueError unless the inputs are what the kernels take.
-    ``per_slot`` names the per-slot scale tensors, each ``(B,)`` or, with
-    ``tokens > 1``, ``(B, T)``.  ``block_table`` None means a dense cache
-    ``(B, Hkv, S_max, D)`` in ``k_pages``/``v_pages``."""
+    ``per_slot`` names the per-slot scale tensors, each ``(B,)`` or, for a
+    verify's ``q (B, Hq, T, D)``, ``(B, T)``.  ``block_table`` None means a
+    dense cache ``(B, Hkv, S_max, D)`` in ``k_pages``/``v_pages``.
+    ``threads`` is the decode kernel's block, whose registers hold group x D
+    outputs; None for the verify kernels, whose shared memory holds the
+    int64 partials of group x T x D outputs (``VERIFY_MAX_ROWS_D``)."""
     dev = q.device
     named = [("q", q, q_dtype), ("k_cache", k_pages, torch.int8),
              ("v_cache", v_pages, torch.int8),
@@ -250,10 +254,17 @@ def _check(q, q_dtype, per_slot, k_pages, v_pages, block_table, s_v,
         raise ValueError(f"q {tuple(q.shape)} does not match the cache "
                          f"{tuple(k_pages.shape)}")
     rows = (hq // hkv) * tokens
-    if d % 16 or rows * d > threads * MAX_OUT_PER_THREAD:
+    if threads is not None:
+        if d % 16 or rows * d > threads * MAX_OUT_PER_THREAD:
+            raise ValueError(f"head_dim {d} x group {hq // hkv} x {tokens} "
+                             f"tokens: the kernel takes D a multiple of 16 "
+                             f"with rows * D <= {threads * MAX_OUT_PER_THREAD}")
+    elif d % 16 or d > MAX_HEAD_DIM or rows * d > VERIFY_MAX_ROWS_D:
         raise ValueError(f"head_dim {d} x group {hq // hkv} x {tokens} tokens: "
-                         f"the kernel takes D a multiple of 16 with rows * D "
-                         f"<= {threads * MAX_OUT_PER_THREAD}")
+                         f"the verify kernels take D a multiple of 16 up to "
+                         f"{MAX_HEAD_DIM} with group * T * D <= "
+                         f"{VERIFY_MAX_ROWS_D} (their int64 partials in "
+                         f"shared memory)")
     if block_table is not None and (block_table.dim() != 2
                                     or block_table.shape[0] != b):
         raise ValueError(f"block_table {tuple(block_table.shape)} for {b} slots")
@@ -363,7 +374,7 @@ def splitmax_decode_fused_verify_paged_cuda(q, k_pages, v_pages, block_table,
     b, hq, t, d = q.shape
     _check(q, torch.float32, {"m_z": m_z, "s_q": s_q}, k_pages, v_pages,
            block_table, s_v, cache_len, exp_lut, recip_lut, cfg, window,
-           tokens=t, threads=VERIFY_THREADS)
+           tokens=t, threads=None)
     _, hkv, bk, _ = k_pages.shape
     out = torch.empty((b, hq, t, d), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
@@ -444,7 +455,7 @@ def splitmax_decode_fused_verify_cuda(q, k_cache, v_cache, m_z, s_q, s_v,
     b, hq, t, d = q.shape
     _check(q, torch.float32, {"m_z": m_z, "s_q": s_q}, k_cache, v_cache, None,
            s_v, cache_len, exp_lut, recip_lut, cfg, window, tokens=t,
-           threads=VERIFY_THREADS)
+           threads=None)
     _, hkv, s_max, _ = k_cache.shape
     out = torch.empty((b, hq, t, d), dtype=torch.float32, device=q.device)
     if out.numel() == 0:

@@ -536,38 +536,86 @@ def test_dense_decode_kernels_equal_exact_oracle(rng, cuda, d, window):
     assert not fused[0].any()
 
 
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
-@pytest.mark.parametrize("gamma", [4, 8])
-@pytest.mark.parametrize("layout", ["paged", "dense"])
-def test_verify_kernels_equal_exact_oracle(rng, cuda, d, gamma, layout):
-    hq, hkv, bk = (32, 4, 32) if d < 128 else (8, 1, 32)
-    if d == 128 and gamma == 8:
-        hq = 4                                    # rows * D <= 256 * 16
-    lens = [gamma, bk, bk + gamma // 2, 2 * bk + 1, 250, 282, 96, gamma + 1]
+VERIFY_SHAPES = [
+    # d, gamma, hq, hkv
+    (16, 4, 32, 4), (32, 4, 32, 4), (64, 4, 32, 4), (128, 4, 8, 1),
+    (16, 8, 32, 4), (32, 8, 32, 4), (64, 8, 32, 4),
+    (128, 8, 4, 1),               # group 4: under the first kernel's cap
+    (128, 8, 32, 4),              # group 8 x T 8 x D 128: past that cap
+    (64, 16, 32, 4),              # group 8 x T 16 x D 64: past that cap
+]
+
+
+def _verify_gates(rng, dev, layout, lens, d, gamma, hq, hkv, window):
+    """Run the paged or dense verify kernel on slots of ``lens``: equal to
+    the ``exact=True`` plain version, every token's row equal to the decode
+    kernel at its effective length, a paged result unchanged when the trash
+    block is re-poisoned, and idle slots (length 0) all zero."""
+    bk = 32
     q = torch.from_numpy(rng.normal(size=(len(lens), hq, gamma, d)).astype(
-        np.float32)).to(cuda)
+        np.float32)).to(dev)
     s_q = qlib.absmax_scale(q, axis=(1, 3))[:, 0, :, 0].contiguous()
-    m_z = ops.requant_multiplier(s_q, torch.tensor(SCALES[1], device=cuda),
+    m_z = ops.requant_multiplier(s_q, torch.tensor(SCALES[1], device=dev),
                                  d, CFG)
-    s_v = torch.tensor(SCALES[2], device=cuda)
-    luts = _luts(cuda)
+    s_v = torch.tensor(SCALES[2], device=dev)
+    luts = _luts(dev)
+    idle = tuple(i for i, n in enumerate(lens) if n == 0)
     if layout == "paged":
-        kp, vp, table, lens_t = _paged_case(rng, cuda, lens, hq, hkv, d, bk)
-        args = [q, kp, vp, table, m_z, s_q, s_v, lens_t, *luts]
+        kp, vp, table, lens_t = _paged_case(
+            rng, dev, [max(n, 1) for n in lens], hq, hkv, d, bk, idle=idle)
+        lens_t[list(idle)] = 0
+        cache = [kp, vp, table]
         kern = splitmax_decode.splitmax_decode_fused_verify_paged_cuda
         plain = splitmax_decode.splitmax_decode_fused_verify_paged_plain
+        decode = splitmax_decode.splitmax_decode_fused_paged_cuda
     else:
-        s_max = 290
-        k, v = (_i8(rng, (len(lens), hkv, s_max, d), cuda) for _ in range(2))
-        lens_t = torch.tensor(lens, dtype=torch.int32, device=cuda)
-        args = [q, k, v, m_z, s_q, s_v, lens_t, *luts]
+        s_max = max(290, max(lens))
+        cache = [_i8(rng, (len(lens), hkv, s_max, d), dev) for _ in range(2)]
+        lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
         kern = splitmax_decode.splitmax_decode_fused_verify_cuda
         plain = splitmax_decode.splitmax_decode_fused_verify_plain
+        decode = splitmax_decode.splitmax_decode_fused_cuda
+    args = [q, *cache, m_z, s_q, s_v, lens_t, *luts]
+    got = kern(*args, cfg=CFG, window=window)
+    want = plain(*args, cfg=CFG, window=window, exact=True)
+    for t in range(gamma):
+        row = decode(q[:, :, t].contiguous(), *cache, m_z[:, t].contiguous(),
+                     s_q[:, t].contiguous(), s_v,
+                     torch.clamp_min(lens_t - (gamma - 1 - t), 0), *luts,
+                     cfg=CFG, window=window)
+        assert torch.equal(got[:, :, t], row), t
+    if layout == "paged":
+        cache[0][paged_kv.TRASH_BLOCK] = -77
+        cache[1][paged_kv.TRASH_BLOCK] = -77
+        assert torch.equal(kern(*args, cfg=CFG, window=window), got)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    for i in idle:
+        assert not got[i].any(), i
+
+
+@pytest.mark.parametrize("d,gamma,hq,hkv", VERIFY_SHAPES)
+@pytest.mark.parametrize("layout", ["paged", "dense"])
+def test_verify_kernels_equal_exact_oracle(rng, cuda, d, gamma, hq, hkv,
+                                           layout):
+    bk = 32
+    lens = [gamma, bk, bk + gamma // 2, 2 * bk + 1, 250, 282, 96, gamma + 1]
     for window in (None, 48):
-        got = kern(*args, cfg=CFG, window=window)
-        want = plain(*args, cfg=CFG, window=window, exact=True)
-        torch.cuda.synchronize()
-        assert torch.equal(got, want), window
+        _verify_gates(rng, cuda, layout, lens, d, gamma, hq, hkv, window)
+
+
+@pytest.mark.parametrize("case", ["one live rank", "window kills ranks"])
+@pytest.mark.parametrize("layout", ["paged", "dense"])
+def test_verify_kernels_with_ranks_that_hold_no_tile(rng, cuda, case,
+                                                     layout):
+    """The cluster's ranks split the 32-key tiles: with every slot within
+    one tile only rank 0 holds one; with a window over long slots the
+    ranks of the dead tiles hold none, and the live ones start late."""
+    if case == "one live rank":
+        lens, window = [4, 1, 17, 32, 0, 31, 9, 4], None
+    else:
+        lens, window = [600, 700, 451, 480, 0, 390, 640, 513], 40
+    _verify_gates(rng, cuda, layout, lens, 64, 4, 32, 4, window)
 
 
 def test_decode_bits_do_not_depend_on_the_batch_or_the_table(rng, cuda):

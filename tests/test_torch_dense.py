@@ -157,6 +157,34 @@ def test_dense_verify_plain_matches_xla_and_per_token_decode(gamma, window):
         assert torch.equal(got[:, :, t], row)
 
 
+@pytest.mark.parametrize("window", [None, 48])
+@pytest.mark.parametrize("gamma,d", [(16, 64), (8, 128)])
+def test_dense_verify_plain_matches_xla_at_a_full_group(gamma, d, window):
+    """Group 8 x T x D past the first verify kernel's cap of 4096 outputs,
+    which refused both shapes."""
+    rng = np.random.default_rng(gamma * 1000 + d)
+    b, hq, hkv, s = 2, 8, 1, 290
+    k, v = _cache(rng, b, hkv, s, d)
+    q = rng.normal(0, 0.5, (b, hq, gamma, d)).astype(np.float32)
+    s_q = rng.uniform(0.008, 0.02, (b, gamma)).astype(np.float32)
+    lens = np.array([gamma + 1, s], np.int32)
+    tail = (SCALES[1], SCALES[2], lens, EXP, RECIP)
+    want = jops.splitmax_decode_fused_verify(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(s_q),
+        *tail, cfg=JCFG, window=window, impl="xla")
+    got = tops.splitmax_decode_fused_verify(
+        _t(q), _t(k), _t(v), _t(s_q), *(_t(x) for x in tail), cfg=TCFG,
+        window=window)
+    assert got.shape == (b, hq, gamma, d)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    for t in range(gamma):
+        row = tops.splitmax_decode_fused(
+            _t(q[:, :, t]), _t(k), _t(v), _t(s_q[:, t]), _t(SCALES[1]),
+            _t(SCALES[2]), _t(lens - (gamma - 1 - t)), _t(EXP), _t(RECIP),
+            cfg=TCFG, window=window)
+        assert torch.equal(got[:, :, t], row)
+
+
 def test_dense_cuda_wrappers_refuse_cpu_tensors(rng):
     from repro_torch.kernels import splitmax_decode as K
     k, v = _cache(rng, 1, 1, 32, 16)

@@ -295,6 +295,58 @@ def test_verify_exact_rows_equal_the_exact_decode(rng, gamma, layout):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+def _verify_oracle(q, s_q, m_z, k_c, v_c, lens, live_extra, window):
+    """Token t of every slot as the int64 decode oracle at ``lens - (T-1-t)``
+    with its own s_q[:, t] and m_z[:, t]; ``live_extra (B, S)`` masks
+    positions that hold no data (the paged pool's trash block)."""
+    gamma = q.shape[2]
+    outs = []
+    for t in range(gamma):
+        q_q = np.clip(np.rint(q[:, :, t] / s_q[:, t, None, None]), -128,
+                      127).astype(np.int8)
+        live = _live_np(lens - (gamma - 1 - t), k_c.shape[2],
+                        window) & live_extra
+        outs.append(_decode_oracle(q_q, k_c, v_c, m_z[:, t], live))
+    return np.stack(outs, axis=2)
+
+
+@pytest.mark.parametrize("window", [None, 20])
+@pytest.mark.parametrize("gamma,d", [(16, 64), (8, 128)])
+@pytest.mark.parametrize("layout", ["paged", "dense"])
+def test_verify_exact_equals_int64_oracle_at_a_full_group(rng, gamma, d,
+                                                          window, layout):
+    """Group 8 x T x D past the first verify kernel's cap of 4096 outputs:
+    the exact plain versions, which the card holds the kernels to, equal
+    the int64 oracle bit for bit (an idle slot included)."""
+    b, hq, hkv, bk, mb = 3, 8, 1, 32, 5
+    kp = rng.integers(-128, 128, (1 + b * mb, hkv, bk, d)).astype(np.int8)
+    vp = rng.integers(-128, 128, (1 + b * mb, hkv, bk, d)).astype(np.int8)
+    lens = np.asarray([gamma + 1, mb * bk, 0], np.int32)
+    table = rng.permutation(np.arange(1, 1 + b * mb)).reshape(b, mb).astype(
+        np.int32)
+    table[2] = tpaged.TRASH_BLOCK
+    q = rng.normal(size=(b, hq, gamma, d)).astype(np.float32)
+    s_q = tq.absmax_scale(_t(q), axis=(1, 3))[:, 0, :, 0].contiguous()
+    m_z = tops.requant_multiplier(s_q, torch.tensor(SCALES[1]), d, TCFG)
+    k_c = np.swapaxes(kp[table], 1, 2).reshape(b, hkv, -1, d)
+    v_c = np.swapaxes(vp[table], 1, 2).reshape(k_c.shape)
+    tail = (torch.tensor(SCALES[2]), _t(lens), _t(EXP), _t(RECIP))
+    if layout == "paged":
+        got = splitmax_decode.splitmax_decode_fused_verify_paged_plain(
+            _t(q), _t(kp), _t(vp), _t(table), m_z, s_q, *tail, cfg=TCFG,
+            window=window, exact=True)
+    else:
+        got = splitmax_decode.splitmax_decode_fused_verify_plain(
+            _t(q), _t(k_c), _t(v_c), m_z, s_q, *tail, cfg=TCFG,
+            window=window, exact=True)
+    live_extra = np.repeat(table != tpaged.TRASH_BLOCK, bk, axis=1)
+    want = _verify_oracle(q, s_q.numpy(), m_z.numpy(), k_c, v_c, lens,
+                          live_extra, window)
+    assert got.shape == (b, hq, gamma, d)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert not got[2].any()                         # the idle slot
+
+
 @pytest.mark.parametrize("window", [None, 20])
 def test_exact_bits_do_not_depend_on_the_tiling(rng, window):
     """The same K/V dense and in pools of block_k 8 and 32: the exact plain
@@ -404,3 +456,47 @@ def test_wrappers_refuse_what_the_integers_cannot_hold():
     with pytest.raises(ValueError, match="exp_frac_bits"):
         splitmax_decode._check(*dec, wide, None, tokens=1,
                                threads=splitmax_decode.THREADS)
+
+
+def test_verify_shape_check_states_its_limit():
+    """The verify kernels' limit is their shared memory (group x T x D <=
+    VERIFY_MAX_ROWS_D, D a multiple of 16 up to MAX_HEAD_DIM), not a thread
+    count: the shapes the first kernel refused pass, the limit itself
+    passes, one token past it raises with the limit in the message; the
+    decode's limit is unchanged."""
+    limit = splitmax_decode.VERIFY_MAX_ROWS_D
+    assert limit == 16384 and splitmax_decode.MAX_HEAD_DIM == 256
+    s = torch.tensor(0.01)
+    luts = (_t(EXP), _t(RECIP))
+
+    def check(hq, hkv, gamma, d):
+        q = torch.zeros((2, hq, gamma, d))
+        pages = torch.zeros((3, hkv, 32, d), dtype=torch.int8)
+        per = torch.full((2, gamma), 0.01)
+        splitmax_decode._check(
+            q, torch.float32, {"m_z": per, "s_q": per}, pages, pages,
+            torch.ones((2, 2), dtype=torch.int32), s,
+            torch.ones(2, dtype=torch.int32), *luts, TCFG, None,
+            tokens=gamma, threads=None)
+
+    check(32, 4, 16, 64)                 # T 16 at group 8, D 64
+    check(32, 4, 8, 128)                 # T 8 at group 8, D 128
+    check(8, 1, 32, 64)                  # group 8 x 32 x 64 = the limit
+    check(2, 1, 1, 256)                  # the widest head
+    for shape in ((8, 1, 33, 64), (8, 1, 17, 128), (2, 1, 1, 272),
+                  (8, 1, 4, 24)):
+        with pytest.raises(ValueError, match=str(limit)):
+            check(*shape)
+    pages = torch.zeros((3, 1, 8, 256), dtype=torch.int8)
+    for hq in (8, 16):                    # group x D: 2048 passes, 4096 not
+        dec = (torch.zeros(1, hq, 256), torch.float32,
+               {"m_z": s.reshape(1), "s_q": s.reshape(1)}, pages, pages,
+               torch.ones(1, 2, dtype=torch.int32), s,
+               torch.ones(1, dtype=torch.int32), *luts, TCFG, None)
+        if hq == 8:
+            splitmax_decode._check(*dec, tokens=1,
+                                   threads=splitmax_decode.THREADS)
+        else:
+            with pytest.raises(ValueError, match="2048"):
+                splitmax_decode._check(*dec, tokens=1,
+                                       threads=splitmax_decode.THREADS)

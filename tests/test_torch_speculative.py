@@ -108,6 +108,28 @@ def test_verify_plain_matches_xla_and_per_token_decode(gamma, d, window):
         assert torch.equal(got[:, :, t], row)
 
 
+# group 8 x T x D past the first verify kernel's cap of 4096 (256 threads x
+# 16 outputs), which refused both: T 16 at D 64, and T 8 at D 128
+FULL_GROUP = [(16, 64), (8, 128)]
+
+
+@pytest.mark.parametrize("window", [None, 96])
+@pytest.mark.parametrize("gamma,d", FULL_GROUP)
+def test_verify_plain_matches_xla_at_a_full_group(gamma, d, window):
+    q, kp, vp, table, s_q, lens = _verify_inputs(gamma * 10 + d, gamma, d,
+                                                 hq=8, hkv=1)
+    got, want = _verify_both(q, kp, vp, table, s_q, lens, window=window,
+                             impl="xla")
+    assert got.shape == (2, 8, gamma, d)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    for t in range(gamma):
+        row = tops.splitmax_decode_fused_paged(
+            _t(q[:, :, t]), _t(kp), _t(vp), _t(table), _t(s_q[:, t]),
+            _t(S_K), _t(S_V), _t(lens - (gamma - 1 - t)), _t(EXP), _t(RECIP),
+            cfg=TCFG, window=window)
+        assert torch.equal(got[:, :, t], row)
+
+
 @pytest.mark.parametrize("window", [None, 24])
 def test_verify_plain_matches_interpret(window):
     """The Pallas verify kernel body itself (interpret mode)."""
