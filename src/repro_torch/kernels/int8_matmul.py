@@ -7,6 +7,13 @@ CUDA kernel's wrapper and its plain PyTorch version (port of
 the 32b -> 8b quantization unit applied before the result leaves the
 kernel.  Any M, N, K: the kernel masks ragged edges.
 
+On the card it is two launches: a pre-pass that writes ``w_q`` K-major as
+``(N, Kp)``, Kp = K rounded up to 16 (``pack_k_major_cuda``; 8-bit
+``wgmma`` takes both operands K-major), then the TMA-fed int8 ``wgmma``
+body (``int8_matmul_packed_cuda``).  The body raises its dynamic shared
+memory limit at its first launch, so call it once before capturing it in
+a CUDA graph.
+
 As in the reference, no model calls it: the port's linear layers compute
 in the model's float dtype (``models/layers.py``).
 """
@@ -20,8 +27,8 @@ import torch
 from repro_torch.core import quantization as qlib
 from repro_torch.kernels import cuda_build
 
-# Launches of the CUDA kernel since the last reset (plain versions and CPU
-# calls never count).
+# Calls of int8_matmul_cuda since the last reset, each one launch of the
+# pre-pass and one of the body (plain versions and CPU calls never count).
 launches = 0
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -32,12 +39,25 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = cuda_build.load("int8_matmul")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.int8_matmul_launch.argtypes = [p] * 4 + [i] * 4 + [p]
-        lib.int8_matmul_launch.restype = i
+        lib.int8_pack_k_major_launch.argtypes = [p, p] + [i] * 4 + [p]
+        lib.int8_pack_k_major_launch.restype = i
+        lib.int8_matmul_kmajor_launch.argtypes = [p] * 4 + [i] * 3 + [p]
+        lib.int8_matmul_kmajor_launch.restype = i
         lib.int8_matmul_error_string.argtypes = [i]
         lib.int8_matmul_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+def _check(lib, err: int, what: str) -> None:
+    if err:
+        raise RuntimeError(f"{what} failed: "
+                           + lib.int8_matmul_error_string(err).decode())
+
+
+def padded_k(k: int) -> int:
+    """K rounded up to 16: a K-major row pitch that TMA takes."""
+    return -(-k // 16) * 16
 
 
 def int8_matmul_plain(x_q: torch.Tensor, w_q: torch.Tensor,
@@ -52,44 +72,101 @@ def int8_matmul_plain(x_q: torch.Tensor, w_q: torch.Tensor,
     return qlib.requantize_int32(acc, multiplier.to(torch.float32))
 
 
-def int8_matmul_cuda(x_q: torch.Tensor, w_q: torch.Tensor,
-                     multiplier: Optional[torch.Tensor] = None
-                     ) -> torch.Tensor:
-    """Launch the int8 GEMM kernel; raises on bad input or a refused
-    launch."""
-    global launches
-    if not x_q.is_cuda:
-        raise ValueError("int8_matmul_cuda takes CUDA tensors")
-    for name, t in (("x_q", x_q), ("w_q", w_q)):
-        if (t.device != x_q.device or t.dtype != torch.int8 or t.dim() != 2
-                or not t.is_contiguous()):
-            raise ValueError(f"{name}: need a contiguous 2-D int8 tensor on "
-                             f"{x_q.device}, got {tuple(t.shape)} {t.dtype} "
-                             f"on {t.device}")
-    m, k = x_q.shape
-    k2, n = w_q.shape
-    if k != k2:
-        raise ValueError(f"x_q {tuple(x_q.shape)} @ w_q {tuple(w_q.shape)}")
+def pack_k_major_plain(w_q: torch.Tensor) -> torch.Tensor:
+    """The pre-pass in plain PyTorch: ``w_q`` (K, N) -> ``w_t`` (N, Kp),
+    K-major, zeros in columns K..Kp."""
+    k, n = w_q.shape
+    w_t = torch.zeros((n, padded_k(k)), dtype=w_q.dtype, device=w_q.device)
+    w_t[:, :k] = w_q.t()
+    return w_t
+
+
+def _check_int8(name: str, t: torch.Tensor, device) -> None:
+    if (t.device != device or t.dtype != torch.int8 or t.dim() != 2
+            or not t.is_contiguous()):
+        raise ValueError(f"{name}: need a contiguous 2-D int8 tensor on "
+                         f"{device}, got {tuple(t.shape)} {t.dtype} on "
+                         f"{t.device}")
+
+
+def pack_k_major_cuda(w_q: torch.Tensor) -> torch.Tensor:
+    """Launch the pre-pass: ``w_q`` (K, N) on the card -> ``w_t`` (N, Kp)."""
+    if not w_q.is_cuda:
+        raise ValueError("pack_k_major_cuda takes a CUDA tensor")
+    _check_int8("w_q", w_q, w_q.device)
+    k, n = w_q.shape
+    w_t = torch.empty((n, padded_k(k)), dtype=torch.int8, device=w_q.device)
+    if w_t.numel() == 0:
+        return w_t
+    vec_ok = int(n % 4 == 0 and w_q.data_ptr() % 4 == 0)
+    lib = _lib()
+    with torch.cuda.device(w_q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.int8_pack_k_major_launch(w_q.data_ptr(), w_t.data_ptr(), k,
+                                           n, w_t.shape[1], vec_ok, stream)
+    _check(lib, err, "int8_pack_k_major_launch")
+    return w_t
+
+
+def int8_matmul_packed_cuda(x_p: torch.Tensor, w_t: torch.Tensor,
+                            multiplier: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """Launch the GEMM body on K-major operands: ``x_p`` (M, Kp) @
+    ``w_t`` (N, Kp)^T, Kp a multiple of 16, both bases 16-byte aligned, any
+    pad columns zero (``pack_k_major_cuda``'s output)."""
+    if not x_p.is_cuda:
+        raise ValueError("int8_matmul_packed_cuda takes CUDA tensors")
+    for name, t in (("x_p", x_p), ("w_t", w_t)):
+        _check_int8(name, t, x_p.device)
+        if t.shape[1] % 16 or t.data_ptr() % 16:
+            raise ValueError(f"{name}: need Kp % 16 == 0 and a 16-byte "
+                             f"aligned base, got {tuple(t.shape)}")
+    m, kp = x_p.shape
+    n = w_t.shape[0]
+    if w_t.shape[1] != kp:
+        raise ValueError(f"x_p {tuple(x_p.shape)} @ w_t {tuple(w_t.shape)}^T")
     if multiplier is not None:
-        if (multiplier.device != x_q.device or multiplier.numel() != 1
+        if (multiplier.device != x_p.device or multiplier.numel() != 1
                 or multiplier.dtype != torch.float32):
             raise ValueError("multiplier: need one f32 value on the card")
         multiplier = multiplier.contiguous()
-    out = torch.empty((m, n), device=x_q.device,
+    out = torch.empty((m, n), device=x_p.device,
                       dtype=torch.int32 if multiplier is None else torch.int8)
     if out.numel() == 0:
         return out
-    vec_ok = int(k % 16 == 0 and n % 4 == 0 and x_q.data_ptr() % 16 == 0
-                 and w_q.data_ptr() % 16 == 0)
+    if kp == 0:
+        return out.zero_()
     lib = _lib()
-    with torch.cuda.device(x_q.device):
+    with torch.cuda.device(x_p.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.int8_matmul_launch(
-            x_q.data_ptr(), w_q.data_ptr(),
+        err = lib.int8_matmul_kmajor_launch(
+            x_p.data_ptr(), w_t.data_ptr(),
             None if multiplier is None else multiplier.data_ptr(),
-            out.data_ptr(), m, n, k, vec_ok, stream)
-    if err:
-        raise RuntimeError("int8_matmul_launch failed: "
-                           + lib.int8_matmul_error_string(err).decode())
+            out.data_ptr(), m, n, kp, stream)
+    _check(lib, err, "int8_matmul_kmajor_launch")
+    return out
+
+
+def int8_matmul_cuda(x_q: torch.Tensor, w_q: torch.Tensor,
+                     multiplier: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """The GEMM on the card: the K-major pre-pass of ``w_q``, then the
+    TMA/wgmma body (two launches, counted as one); raises on bad input or a
+    refused launch."""
+    global launches
+    if not x_q.is_cuda:
+        raise ValueError("int8_matmul_cuda takes CUDA tensors")
+    _check_int8("x_q", x_q, x_q.device)
+    _check_int8("w_q", w_q, x_q.device)
+    m, k = x_q.shape
+    if k != w_q.shape[0]:
+        raise ValueError(f"x_q {tuple(x_q.shape)} @ w_q {tuple(w_q.shape)}")
+    if k % 16 or x_q.data_ptr() % 16:
+        x_p = torch.zeros((m, padded_k(k)), dtype=torch.int8,
+                          device=x_q.device)
+        x_p[:, :k] = x_q
+    else:
+        x_p = x_q
+    out = int8_matmul_packed_cuda(x_p, pack_k_major_cuda(w_q), multiplier)
     launches += 1
     return out

@@ -366,11 +366,20 @@ def test_dense_verify_kernel_matches_plain_and_decode_rows(rng, cuda, gamma,
     (256, 512, 256), (128, 128, 128), (512, 256, 384),   # the reference's
     (37, 100, 70),                                       # ragged edges
     (300, 2048, 260),                                    # |acc| past 2^24
+    (1, 16, 5),                                          # M 1, N < 8
+    (64, 48, 256),                                       # K below one tile
+    (129, 272, 264),                                     # ragged every edge
+    (256, 4096, 512),                                    # |acc| up to 2^26
 ])
 @pytest.mark.parametrize("requant", [False, True])
 def test_int8_matmul_kernel_equals_plain(rng, cuda, m, k, n, requant):
     x, w = _i8(rng, (m, k), cuda), _i8(rng, (k, n), cuda)
     x[0], w[:, 0] = -128, -128
+    _int8_matmul_case(cuda, x, w, requant)
+
+
+def _int8_matmul_case(cuda, x, w, requant):
+    k = x.shape[1]
     mult = torch.tensor(3.7e-6 if k >= 2048 else 3.7e-4, device=cuda)
     mult = mult if requant else None
     before = int8_matmul.launches
@@ -380,6 +389,22 @@ def test_int8_matmul_kernel_equals_plain(rng, cuda, m, k, n, requant):
     assert int8_matmul.launches == before + 1
     assert got.dtype == (torch.int8 if requant else torch.int32)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m,k,n", [(70, 100, 96), (33, 128, 40)])
+@pytest.mark.parametrize("requant", [False, True])
+def test_int8_matmul_kernel_unaligned_x(rng, cuda, m, k, n, requant):
+    """An x_q whose base is not 16-byte aligned goes through the zero-padded
+    copy, with K % 16 != 0 (a row view) and with K % 16 == 0 (a flat
+    view one byte in)."""
+    if k % 16:
+        x = _i8(rng, (m + 1, k), cuda)[1:]
+    else:
+        x = _i8(rng, (m * k + 1,), cuda)[1:].view(m, k)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    w = _i8(rng, (k, n), cuda)
+    x[0], w[:, 0] = -128, -128
+    _int8_matmul_case(cuda, x, w, requant)
 
 
 def _tree_to(tree, device):

@@ -5,6 +5,12 @@ bit for bit, on the reference's shapes (``tests/test_kernels.py``), a
 ragged one, and K = 2048, where |acc| passes 2^24 and the int32 -> f32
 conversion of the requant epilogue rounds.  The CUDA kernel is held against
 this plain version in ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+
+The card runs it as a K-major pre-pass (``w_q`` (K, N) -> ``w_t`` (N, Kp),
+Kp = K rounded up to 16, pad columns zero) and a body that multiplies
+K-major operands; ``pack_k_major_plain`` pins that layout and its padding
+here: the zero-padded x times the packed w, summed in int64, equals the
+reference bit for bit.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -74,3 +80,32 @@ def test_int8_matmul_cuda_refuses_cpu_tensors():
     x = torch.zeros((4, 4), dtype=torch.int8)
     with pytest.raises(ValueError, match="CUDA"):
         K.int8_matmul_cuda(x, x)
+
+
+def _kmajor_product(x, w):
+    x, w = torch.from_numpy(x), torch.from_numpy(w)
+    w_t = K.pack_k_major_plain(w)
+    x_pad = torch.zeros((x.shape[0], w_t.shape[1]), dtype=torch.int8)
+    x_pad[:, :x.shape[1]] = x
+    return (x_pad.to(torch.int64) @ w_t.to(torch.int64).T).numpy()
+
+
+@pytest.mark.parametrize("m,k,n", SHAPES + [(33, k, 40) for k in
+                                            (1, 15, 16, 100, 129)])
+def test_int8_matmul_kmajor_layout_equals_reference(m, k, n):
+    x, w = _operands(m + 2 * k + n, m, k, n)
+    x[0], w[:, 0] = -128, -128
+    want = np.asarray(jops.int8_matmul(x, w, impl="ref"))
+    np.testing.assert_array_equal(_kmajor_product(x, w), want)
+
+
+@pytest.mark.parametrize("k", [1, 15, 16, 100, 129])
+def test_pack_k_major_plain_layout(k):
+    n = 21
+    _, w = _operands(k, 1, k, n)
+    w_t = K.pack_k_major_plain(torch.from_numpy(w))
+    kp = -(-k // 16) * 16
+    assert w_t.dtype == torch.int8 and w_t.shape == (n, kp) == (n, K.padded_k(k))
+    assert w_t.is_contiguous() and w_t.stride(0) % 16 == 0
+    np.testing.assert_array_equal(w_t[:, :k].numpy(), w.T)
+    assert not w_t[:, k:].any()
