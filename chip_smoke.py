@@ -78,8 +78,9 @@ SERVE = dict(requests=24, slots=8, prompt_len=250, gen=32, block_k=32, seed=0)
 DENSE = dict(b=8, hq=32, hkv=4, d=64, s_max=290, lens=(251, 282),
              gammas=(4, 8))
 REPREFILL = dict(b=8, hq=32, hkv=4, s=282, d=64)
+# (m, k, n); the last is the timed TinyLlama width
 GEMMS = [(256, 512, 256), (128, 128, 128), (512, 256, 384), (300, 1000, 130),
-         (2048, 2048, 5632)]
+         (1, 16, 5), (129, 272, 264), (2048, 2048, 5632)]
 SPEC = dict(gamma=4, prefix_layers=4)
 # verify shapes past the first verify kernel's cap of group x T x D <= 4096
 # (group 8): (T, D)
@@ -891,8 +892,10 @@ def dense_verify_phase(torch, F, dev):
 
 def int8_gemm_phase(torch, dev):
     """Kernel 8 bit for bit against its plain version, with and without the
-    requant epilogue; timed at TinyLlama's widths beside torch._int_mm
-    (cuBLASLt, the same int32 function; a yardstick the port never calls)."""
+    requant epilogue; timed at TinyLlama's widths whole, and as its two
+    launches (the K-major pre-pass alone, the body alone on a prepared
+    ``w_t``), beside torch._int_mm (cuBLASLt, the same int32 function; a
+    yardstick the port never calls) with w as given (N-major) and K-major."""
     from repro_torch.kernels import int8_matmul as K
 
     gen = torch.Generator(device=dev).manual_seed(9)
@@ -920,25 +923,42 @@ def int8_gemm_phase(torch, dev):
         GRAPHED["int8 gemm"] = lambda: K.int8_matmul_cuda(x, w)
         GRAPHED["int8 gemm requant"] = lambda: K.int8_matmul_cuda(x, w, mult)
         GRAPHED["int8 gemm _int_mm"] = lambda: torch._int_mm(x, w)
+        w_t = K.pack_k_major_cuda(w)
+        w_kmajor = w.t().contiguous().t()
+        GRAPHED["int8 gemm pre-pass"] = lambda: K.pack_k_major_cuda(w)
+        GRAPHED["int8 gemm body"] = lambda: K.int8_matmul_packed_cuda(x, w_t)
+        GRAPHED["int8 gemm _int_mm kmajor"] = (
+            lambda: torch._int_mm(x, w_kmajor))
         ms = time_ms(torch, GRAPHED["int8 gemm"], iters=20)
         plain_ms = time_ms(torch, lambda: K.int8_matmul_plain(x, w), iters=5,
                            warm=1)
-        check(torch.equal(torch._int_mm(x, w), K.int8_matmul_cuda(x, w)),
+        got = K.int8_matmul_cuda(x, w)
+        check(torch.equal(torch._int_mm(x, w), got)
+              and torch.equal(torch._int_mm(x, w_kmajor), got),
               "int8 GEMM: torch._int_mm disagrees with the kernel")
+        check(torch.equal(K.int8_matmul_packed_cuda(x, w_t), got)
+              and torch.equal(w_t, K.pack_k_major_plain(w)),
+              "int8 GEMM: the pre-pass or the body alone disagrees")
         bms, by = bound_ms(m * k + k * n + 4 * m * n, 2 * m * k * n)
         rq_bms, rq_by = bound_ms(m * k + k * n + m * n + 4, 2 * m * k * n)
+        pre_bms, _ = bound_ms(k * n + n * w_t.shape[1], 0)
         print(f"[int8-gemm] {m}x{k}x{n}: kernel host-inclusive {ms:.4f} ms, "
               f"requant bound {rq_bms:.5f} ms ({rq_by}), plain f64 "
-              f"{plain_ms:.4f} ms, bound {bms:.5f} ms ({by})")
+              f"{plain_ms:.4f} ms, bound {bms:.5f} ms ({by}), pre-pass "
+              f"bound {pre_bms:.5f} ms (bytes)")
         out = {"name": "int8_matmul", "route": "cuda",
                "source": "src/repro_torch/kernels/csrc/int8_matmul.cu",
                "replaces": "src/repro/kernels/int8_matmul.py:54",
                "path": None, "shape": [m, k, n], "max_abs_err": 0.0,
                "exact_equal": True, "graph": "int8 gemm",
                "library_graph": "int8 gemm _int_mm",
-               "requant_graph": "int8 gemm requant", "host_ms": ms,
-               "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-               "requant_bound_ms": rq_bms}
+               "requant_graph": "int8 gemm requant",
+               "transpose_graph": "int8 gemm pre-pass",
+               "body_graph": "int8 gemm body",
+               "library_kmajor_graph": "int8 gemm _int_mm kmajor",
+               "host_ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+               "bound_by": by, "requant_bound_ms": rq_bms,
+               "transpose_bound_ms": pre_bms}
     return out
 
 
@@ -948,7 +968,8 @@ def graph_phase(torch, dev, kernels):
     """Every closure in GRAPHED timed by graph replay, 7 rounds interleaved,
     beside the launch floor (a replayed one-element ``add_``); each kernel
     entry's ``*_graph`` keys become its times: ``ms`` (median) and
-    ``ms_range`` (min, max), ``library_ms``, ``decodes_ms``, ``requant_ms``."""
+    ``ms_range`` (min, max), ``library_ms``, ``decodes_ms``, ``requant_ms``,
+    ``transpose_ms``, ``body_ms``, ``library_kmajor_ms``."""
     one = torch.zeros(1, device=dev)
     fns = dict(GRAPHED, **{"launch floor": lambda: one.add_(1)})
     times = graph_rounds(torch, fns)
