@@ -42,7 +42,8 @@
 //    (|acc| passes 2^24 for K >= 1024), __fmul_rn (no FMA contraction),
 //    rintf (half to even), then the int8 clamp.
 // The tensor maps are encoded on the host with cuTensorMapEncodeTiled,
-// reached through cudaGetDriverEntryPoint, so the library needs no -lcuda.
+// reached through cudaGetDriverEntryPointByVersion (CUDA 12.5+), so the
+// library needs no -lcuda.
 // Left for later: persistent tiles (352 blocks at the width above run in
 // 2.7 waves of 132), a TMA-store epilogue, clusters with multicast.
 #include <cuda.h>
@@ -322,13 +323,8 @@ EncodeTiled encode_tiled() {
   if (fn == nullptr) {
     void* p = nullptr;
     cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
     const cudaError_t err = cudaGetDriverEntryPointByVersion(
         "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
     if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
       fn = reinterpret_cast<EncodeTiled>(p);
   }
