@@ -29,6 +29,8 @@ Phases, each fatal on failure:
      launches one verify replaces; ``torch._int_mm`` for the GEMM) captured
      50 calls to a CUDA graph and replayed, 7 rounds interleaved, median
      and min-max, beside the launch floor (a replayed one-element add_);
+     the GEMM and its yardsticks also L2-cold, each captured call on its
+     own copy of the operands;
   5. the port at the smoke size on the card against the port on the CPU
      (plain versions), on the same random weights: paged prefill + decode
      logits, a sliding-window ring-buffer config's logits, and dense
@@ -51,7 +53,8 @@ Phases, each fatal on failure:
 
 Kernels 7 (dense verify) and 8 (int8 GEMM) have no caller in any model, as
 in the reference: they are checked and timed in phases 3 and 4 and stand in the
-JSON line with ``"launches": 0`` and ``"path": null``.
+JSON line with ``"launches": 0`` (kernel 8 also ``"pre_pass_launches": 0``)
+and ``"path": null``.
 
 The line before the last is the card's name and power limit; before it, one
 JSON object with each kernel's numbers.  The last line is
@@ -60,6 +63,7 @@ without a CUDA device or without the repository beside this script.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import subprocess
 import sys
@@ -81,6 +85,9 @@ REPREFILL = dict(b=8, hq=32, hkv=4, s=282, d=64)
 # (m, k, n); the last is the timed TinyLlama width
 GEMMS = [(256, 512, 256), (128, 128, 128), (512, 256, 384), (300, 1000, 130),
          (1, 16, 5), (129, 272, 264), (2048, 2048, 5632)]
+# operand copies the L2-cold GEMM timings rotate through: 8 x 15.5 MB of x
+# and w at the timed width, past the H100's 50 MB L2
+COLD_COPIES = 8
 SPEC = dict(gamma=4, prefix_layers=4)
 # verify shapes past the first verify kernel's cap of group x T x D <= 4096
 # (group 8): (T, D)
@@ -159,6 +166,13 @@ def graph_rounds(torch, fns, iters: int = GRAPH_ITERS,
             times[name].append(start.elapsed_time(end) / iters)
     return {name: (statistics.median(t), min(t), max(t))
             for name, t in times.items()}
+
+
+def rotating(fn, args):
+    """``fn`` on each tuple of ``args`` in turn, one a call: captured in a
+    CUDA graph, successive calls read different operands."""
+    turn = itertools.count()
+    return lambda: fn(*args[next(turn) % len(args)])
 
 
 def bound_ms(n_bytes: int, n_ops: int):
@@ -895,7 +909,9 @@ def int8_gemm_phase(torch, dev):
     requant epilogue; timed at TinyLlama's widths whole, and as its two
     launches (the K-major pre-pass alone, the body alone on a prepared
     ``w_t``), beside torch._int_mm (cuBLASLt, the same int32 function; a
-    yardstick the port never calls) with w as given (N-major) and K-major."""
+    yardstick the port never calls) with w as given (N-major) and K-major;
+    each of these also L2-cold.  Every call to the kernel adds one to the
+    body's count and one to the pre-pass's."""
     from repro_torch.kernels import int8_matmul as K
 
     gen = torch.Generator(device=dev).manual_seed(9)
@@ -908,9 +924,15 @@ def int8_gemm_phase(torch, dev):
         x[0], w[:, 0] = -128, -128              # |acc| up to K * 2^14
         mult = torch.tensor(0.05 / k, device=dev)
         for requant in (None, mult):
+            before = K.launches, K.pack_launches
             got = K.int8_matmul_cuda(x, w, requant)
             want = K.int8_matmul_plain(x, w, requant)
             torch.cuda.synchronize()
+            check((K.launches, K.pack_launches) == (before[0] + 1,
+                                                    before[1] + 1),
+                  f"int8 GEMM {m}x{k}x{n}: body and pre-pass counts moved "
+                  f"{K.launches - before[0]}, {K.pack_launches - before[1]}"
+                  f" for one call, not 1 and 1")
             check(torch.equal(got, want), f"int8 GEMM {m}x{k}x{n} requant="
                   f"{requant is not None}: differs from the plain version "
                   f"({int((got != want).sum())} entries)")
@@ -929,6 +951,23 @@ def int8_gemm_phase(torch, dev):
         GRAPHED["int8 gemm body"] = lambda: K.int8_matmul_packed_cuda(x, w_t)
         GRAPHED["int8 gemm _int_mm kmajor"] = (
             lambda: torch._int_mm(x, w_kmajor))
+        # L2-cold: the same calls, each on its own copy of the operands,
+        # COLD_COPIES of them, so a copy's bytes have left the 50 MB L2 by
+        # its next turn
+        xs = [x.clone() for _ in range(COLD_COPIES)]
+        ws = [w.clone() for _ in range(COLD_COPIES)]
+        GRAPHED["int8 gemm cold"] = rotating(K.int8_matmul_cuda,
+                                             list(zip(xs, ws)))
+        GRAPHED["int8 gemm pre-pass cold"] = rotating(
+            K.pack_k_major_cuda, [(v,) for v in ws])
+        GRAPHED["int8 gemm body cold"] = rotating(
+            K.int8_matmul_packed_cuda,
+            [(u, K.pack_k_major_cuda(v)) for u, v in zip(xs, ws)])
+        GRAPHED["int8 gemm _int_mm cold"] = rotating(torch._int_mm,
+                                                     list(zip(xs, ws)))
+        GRAPHED["int8 gemm _int_mm kmajor cold"] = rotating(
+            torch._int_mm, [(u, v.t().contiguous().t())
+                            for u, v in zip(xs, ws)])
         ms = time_ms(torch, GRAPHED["int8 gemm"], iters=20)
         plain_ms = time_ms(torch, lambda: K.int8_matmul_plain(x, w), iters=5,
                            warm=1)
@@ -956,6 +995,11 @@ def int8_gemm_phase(torch, dev):
                "transpose_graph": "int8 gemm pre-pass",
                "body_graph": "int8 gemm body",
                "library_kmajor_graph": "int8 gemm _int_mm kmajor",
+               "cold_graph": "int8 gemm cold",
+               "transpose_cold_graph": "int8 gemm pre-pass cold",
+               "body_cold_graph": "int8 gemm body cold",
+               "library_cold_graph": "int8 gemm _int_mm cold",
+               "library_kmajor_cold_graph": "int8 gemm _int_mm kmajor cold",
                "host_ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
                "bound_by": by, "requant_bound_ms": rq_bms,
                "transpose_bound_ms": pre_bms}
@@ -969,7 +1013,8 @@ def graph_phase(torch, dev, kernels):
     beside the launch floor (a replayed one-element ``add_``); each kernel
     entry's ``*_graph`` keys become its times: ``ms`` (median) and
     ``ms_range`` (min, max), ``library_ms``, ``decodes_ms``, ``requant_ms``,
-    ``transpose_ms``, ``body_ms``, ``library_kmajor_ms``."""
+    ``transpose_ms``, ``body_ms``, ``library_kmajor_ms`` and the int8
+    GEMM's L2-cold ``*_cold_ms``."""
     one = torch.zeros(1, device=dev)
     fns = dict(GRAPHED, **{"launch floor": lambda: one.add_(1)})
     times = graph_rounds(torch, fns)
@@ -1475,6 +1520,7 @@ def main() -> int:
     # kernels 7 and 8 have no caller in any model: their counts stay 0 over
     # every main path below
     splitmax_decode.dense_verify_launches = int8_matmul.launches = 0
+    int8_matmul.pack_launches = 0
     plain, launches = serve_phase(torch, dev, params, cfg)
     launches["splitmax_decode_fused_verify_paged"] = spec_serve_phase(
         torch, dev, params, cfg, plain)
@@ -1487,15 +1533,20 @@ def main() -> int:
     launches.update(dense)
     launches["splitmax_decode_fused_verify"] = (
         splitmax_decode.dense_verify_launches)
+    # kernel 8's body and its K-major pre-pass, each counted at its launch
     launches["int8_matmul"] = int8_matmul.launches
+    launches["int8_matmul pre-pass"] = int8_matmul.pack_launches
     for k in kernels:
         k["launches"] = launches[k["name"]]
+    next(k for k in kernels if k["name"] == "int8_matmul")[
+        "pre_pass_launches"] = launches["int8_matmul pre-pass"]
     kernels[0]["launches_by_path"] = by_path
     for name in ("splitmax_attention", "splitmax_decode_fused_paged",
                  "splitmax_decode_fused_verify_paged", "splitmax_decode_paged",
                  "splitmax_decode_fused", "splitmax_decode"):
         check(launches[name] > 0, f"{name} never launched on the main path")
-    for name in ("splitmax_decode_fused_verify", "int8_matmul"):
+    for name in ("splitmax_decode_fused_verify", "int8_matmul",
+                 "int8_matmul pre-pass"):
         check(launches[name] == 0, f"{name} launched {launches[name]} times "
               f"on a main path, which no model of the reference does")
 

@@ -27,9 +27,12 @@ import torch
 from repro_torch.core import quantization as qlib
 from repro_torch.kernels import cuda_build
 
-# Calls of int8_matmul_cuda since the last reset, each one launch of the
-# pre-pass and one of the body (plain versions and CPU calls never count).
+# Kernel launches since the last reset, each counted where it is made:
+# the GEMM body's (``int8_matmul_packed_cuda``, also reached through
+# ``int8_matmul_cuda``) and the K-major pre-pass's (``pack_k_major_cuda``).
+# Plain versions, CPU calls and empty outputs launch nothing and never count.
 launches = 0
+pack_launches = 0
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -91,6 +94,7 @@ def _check_int8(name: str, t: torch.Tensor, device) -> None:
 
 def pack_k_major_cuda(w_q: torch.Tensor) -> torch.Tensor:
     """Launch the pre-pass: ``w_q`` (K, N) on the card -> ``w_t`` (N, Kp)."""
+    global pack_launches
     if not w_q.is_cuda:
         raise ValueError("pack_k_major_cuda takes a CUDA tensor")
     _check_int8("w_q", w_q, w_q.device)
@@ -105,6 +109,7 @@ def pack_k_major_cuda(w_q: torch.Tensor) -> torch.Tensor:
         err = lib.int8_pack_k_major_launch(w_q.data_ptr(), w_t.data_ptr(), k,
                                            n, w_t.shape[1], vec_ok, stream)
     _check(lib, err, "int8_pack_k_major_launch")
+    pack_launches += 1
     return w_t
 
 
@@ -114,6 +119,7 @@ def int8_matmul_packed_cuda(x_p: torch.Tensor, w_t: torch.Tensor,
     """Launch the GEMM body on K-major operands: ``x_p`` (M, Kp) @
     ``w_t`` (N, Kp)^T, Kp a multiple of 16, both bases 16-byte aligned, any
     pad columns zero (``pack_k_major_cuda``'s output)."""
+    global launches
     if not x_p.is_cuda:
         raise ValueError("int8_matmul_packed_cuda takes CUDA tensors")
     for name, t in (("x_p", x_p), ("w_t", w_t)):
@@ -144,6 +150,7 @@ def int8_matmul_packed_cuda(x_p: torch.Tensor, w_t: torch.Tensor,
             None if multiplier is None else multiplier.data_ptr(),
             out.data_ptr(), m, n, kp, stream)
     _check(lib, err, "int8_matmul_kmajor_launch")
+    launches += 1
     return out
 
 
@@ -151,9 +158,8 @@ def int8_matmul_cuda(x_q: torch.Tensor, w_q: torch.Tensor,
                      multiplier: Optional[torch.Tensor] = None
                      ) -> torch.Tensor:
     """The GEMM on the card: the K-major pre-pass of ``w_q``, then the
-    TMA/wgmma body (two launches, counted as one); raises on bad input or a
-    refused launch."""
-    global launches
+    TMA/wgmma body (each counted by its own wrapper; neither launches for
+    an empty output); raises on bad input or a refused launch."""
     if not x_q.is_cuda:
         raise ValueError("int8_matmul_cuda takes CUDA tensors")
     _check_int8("x_q", x_q, x_q.device)
@@ -167,6 +173,9 @@ def int8_matmul_cuda(x_q: torch.Tensor, w_q: torch.Tensor,
         x_p[:, :k] = x_q
     else:
         x_p = x_q
-    out = int8_matmul_packed_cuda(x_p, pack_k_major_cuda(w_q), multiplier)
-    launches += 1
-    return out
+    if m:
+        w_t = pack_k_major_cuda(w_q)
+    else:                           # an empty output: no pre-pass either
+        w_t = torch.empty((w_q.shape[1], padded_k(k)), dtype=torch.int8,
+                          device=x_q.device)
+    return int8_matmul_packed_cuda(x_p, w_t, multiplier)

@@ -382,13 +382,49 @@ def _int8_matmul_case(cuda, x, w, requant):
     k = x.shape[1]
     mult = torch.tensor(3.7e-6 if k >= 2048 else 3.7e-4, device=cuda)
     mult = mult if requant else None
-    before = int8_matmul.launches
+    before = (int8_matmul.launches, int8_matmul.pack_launches)
     got = int8_matmul.int8_matmul_cuda(x, w, mult)
     want = int8_matmul.int8_matmul_plain(x, w, mult)
     torch.cuda.synchronize()
-    assert int8_matmul.launches == before + 1
+    assert (int8_matmul.launches, int8_matmul.pack_launches) == (
+        before[0] + 1, before[1] + 1)
     assert got.dtype == (torch.int8 if requant else torch.int32)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m,k,n", [(0, 64, 32), (16, 64, 0), (16, 0, 32)])
+@pytest.mark.parametrize("requant", [False, True])
+def test_int8_matmul_kernel_empty_launches_nothing(rng, cuda, m, k, n,
+                                                   requant):
+    """An empty output, or K 0 (every sum zero), launches neither kernel and
+    counts nothing."""
+    x, w = _i8(rng, (m, k), cuda), _i8(rng, (k, n), cuda)
+    mult = torch.tensor(3.7e-4, device=cuda) if requant else None
+    before = (int8_matmul.launches, int8_matmul.pack_launches)
+    got = int8_matmul.int8_matmul_cuda(x, w, mult)
+    torch.cuda.synchronize()
+    assert (int8_matmul.launches, int8_matmul.pack_launches) == before
+    assert torch.equal(got, int8_matmul.int8_matmul_plain(x, w, mult))
+
+
+@pytest.mark.parametrize("m,k,n", [(37, 100, 70), (129, 272, 264)])
+def test_int8_matmul_launches_counted_by_each_wrapper(rng, cuda, m, k, n):
+    """The pre-pass and the body, called apart, each count their own launch
+    and no other, and each equals its plain version."""
+    x, w = _i8(rng, (m, k), cuda), _i8(rng, (k, n), cuda)
+    before = (int8_matmul.launches, int8_matmul.pack_launches)
+    w_t = int8_matmul.pack_k_major_cuda(w)
+    torch.cuda.synchronize()
+    assert (int8_matmul.launches, int8_matmul.pack_launches) == (
+        before[0], before[1] + 1)
+    assert torch.equal(w_t, int8_matmul.pack_k_major_plain(w))
+    x_p = torch.zeros((m, w_t.shape[1]), dtype=torch.int8, device=cuda)
+    x_p[:, :k] = x
+    got = int8_matmul.int8_matmul_packed_cuda(x_p, w_t)
+    torch.cuda.synchronize()
+    assert (int8_matmul.launches, int8_matmul.pack_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(got, int8_matmul.int8_matmul_plain(x, w))
 
 
 @pytest.mark.parametrize("m,k,n", [(70, 100, 96), (33, 128, 40)])
