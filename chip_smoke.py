@@ -49,7 +49,20 @@ Phases, each fatal on failure:
           (``attn_fused=False``) and the fused one;
        d. the same churn through ``serve_dense`` (``--cache dense``), in
           turns with ``serve_paged`` (dense, paged, dense), then its first
-          8 requests through the composed and the fused dense decode.
+          8 requests through the composed and the fused dense decode;
+       e. pressure: the churn over a pool of 5 sequences (51 blocks) under
+          both preemption policies, the plain churn's tokens bit for bit
+          through preemption, re-prefill and replay;
+       f. chaos: pool exhaustion, a 0.3 s scheduler delay and a NaN slot
+          with a step deadline and the metrics document, through
+          ``serve_paged`` and ``serve_speculative`` (self-drafted, and by
+          the first 4 layers on a second pool): every request accounted
+          for, the faulted run's finished tokens the plain churn's, no leak;
+       g. sampled: temperature 0.8, top_p 0.95, seed 3, twice with a full
+          pool and once under pressure (equal tokens), seed 4 (other
+          tokens), top_p 1e-9 (the greedy tokens).
+       Phase a runs with ``warmup=True`` and checks that ``repeats=2``
+       keeps the first run's tokens.
 
 Kernels 7 (dense verify) and 8 (int8 GEMM) have no caller in any model, as
 in the reference: they are checked and timed in phases 3 and 4 and stand in the
@@ -93,6 +106,12 @@ SPEC = dict(gamma=4, prefix_layers=4)
 # (group 8): (T, D)
 FULL_GROUP = ((16, 64), (8, 128))
 COMPOSED_REQUESTS = 8
+# the reference bench's pressure cell: a pool for 5 full sequences
+PRESSURE_POOL_SEQS = 5
+CHAOS = dict(exhaust_step=6, exhaust_hold=5, delay_step=14, delay_seconds=0.3,
+             nan_step=20, nan_slot=1)
+CHAOS_DEADLINE_STEPS = 300
+SAMPLED = dict(temperature=0.8, top_p=0.95, sample_seed=3)
 
 
 class SmokeFailure(RuntimeError):
@@ -335,7 +354,7 @@ def prefill_phase(torch, F, dev):
     return {"name": "splitmax_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/splitmax_attn.cu",
             "replaces": "src/repro/kernels/splitmax_attn.py:181",
-            "path": "paged admissions, dense re-prefills",
+            "path": "paged admissions and resumes, dense re-prefills",
             "max_abs_err": max(err, rerr), "exact_equal": True,
             "graph": "prefill", "library_graph": "prefill sdpa",
             "host_ms": ms, "plain_ms": plain_ms,
@@ -1196,35 +1215,244 @@ def serve_phase(torch, dev, params, cfg):
     from repro_torch.launch import serve as srv
 
     prompts, gens = churn(cfg)
-    # warm-up: cuBLAS handles and heuristics, allocator pools
-    srv.serve_paged(params, cfg, prompts[:2], slots=2, gen=4,
-                    block_k=SERVE["block_k"])
-    torch.cuda.synchronize()
-
+    kw = dict(slots=SERVE["slots"], gen=SERVE["gen"], gens=gens,
+              block_k=SERVE["block_k"])
+    # warm-up inside serve_paged, before its clock: one scratch-pool pass
+    # (calibrating and plain prefill, a decode step of all 8 slots)
     splitmax_attn.launches = 0
     splitmax_decode.launches = 0
-    stats = srv.serve_paged(params, cfg, prompts, slots=SERVE["slots"],
-                            gen=SERVE["gen"], gens=gens,
-                            block_k=SERVE["block_k"])
+    stats = srv.serve_paged(params, cfg, prompts, warmup=True, **kw)
     torch.cuda.synchronize()
     n_prefill, n_decode = splitmax_attn.launches, splitmax_decode.launches
 
     check_served(stats, gens, cfg.vocab_size, "plain churn")
-    check(n_prefill == stats["slot_prefills"] * cfg.n_layers,
-          f"prefill kernel launches {n_prefill} != {stats['slot_prefills']} "
-          f"admissions x {cfg.n_layers} layers")
-    check(n_decode == stats["decode_steps"] * cfg.n_layers,
-          f"decode kernel launches {n_decode} != {stats['decode_steps']} "
-          f"steps x {cfg.n_layers} layers")
+    n_warm = (stats["warmup_prefills"], stats["warmup_decode_steps"])
+    check(n_warm == (2, 1), f"warm-up ran {n_warm} prefills and decodes")
+    check(n_prefill == (stats["slot_prefills"] + n_warm[0]) * cfg.n_layers,
+          f"prefill kernel launches {n_prefill} != ({stats['slot_prefills']} "
+          f"admissions + {n_warm[0]} warm-up) x {cfg.n_layers} layers")
+    check(n_decode == (stats["decode_steps"] + n_warm[1]) * cfg.n_layers,
+          f"decode kernel launches {n_decode} != ({stats['decode_steps']} "
+          f"steps + {n_warm[1]} warm-up) x {cfg.n_layers} layers")
     print(f"[serve] churn {SERVE}: served {stats['served']}, "
           f"{stats['total_tokens']} tokens in {stats['wall_s']:.3f} s, "
           f"{stats['tok_s']:.1f} tok/s, {stats['decode_steps']} decode steps, "
           f"p50/p99 step {stats['p50_step_ms']:.2f}/"
           f"{stats['p99_step_ms']:.2f} ms, leaked {stats['leaked_blocks']}, "
-          f"launches prefill {n_prefill} decode {n_decode}")
+          f"launches prefill {n_prefill} decode {n_decode} (warm-up "
+          f"included: {n_warm[0]} prefills, {n_warm[1]} decode step)")
+    best = srv.serve_paged(params, cfg, prompts, repeats=2, **kw)
+    check(best["finished"] == stats["finished"],
+          "repeats=2: the kept run's tokens differ from the first run's")
+    print(f"[serve] churn, best of repeats=2: {best['tok_s']:.1f} tok/s, "
+          f"p50/p99 step {best['p50_step_ms']:.2f}/"
+          f"{best['p99_step_ms']:.2f} ms; tokens == the first run's")
     profile_serving(torch, srv, params, cfg, prompts[:SERVE["slots"]])
     return stats, {"splitmax_attention": n_prefill,
                    "splitmax_decode_fused_paged": n_decode}
+
+
+def pressure_phase(torch, dev, params, cfg, plain):
+    """The churn over a pool of ``PRESSURE_POOL_SEQS`` sequences under both
+    preemption policies: preemptions, every one resumed by a re-prefill
+    (kernel 1 at B 1) and a replay through the decode batch, the plain
+    churn's tokens bit for bit, no replay splice, no leak.  First, at full
+    width, the calibrating request's re-admission recomputes the pool's
+    scales bit for bit.  Returns kernel 1's launches over both runs."""
+    from repro_torch.core import paged_kv
+    from repro_torch.kernels import splitmax_attn, splitmax_decode
+    from repro_torch.launch import serve as srv
+
+    prompts, gens = churn(cfg)
+    max_len = SERVE["prompt_len"] + SERVE["gen"] + 8
+    engine = srv.make_engine(params, cfg, prompts, slots=2, max_len=max_len,
+                             block_k=SERVE["block_k"])
+    cache = engine.start_run()
+    engine.admit(cache, 0, 0)
+    scales = (cache["scale_k"].clone(), cache["scale_v"].clone())
+    engine.admit(cache, 1, 1)
+    cache = engine.release(cache, 0)
+    engine.admit(cache, 0, 0)
+    check(torch.equal(cache["scale_k"], scales[0])
+          and torch.equal(cache["scale_v"], scales[1]),
+          "pressure: the calibrating request's re-admission changed the "
+          "pool's scales")
+    del engine, cache
+    print("[pressure] full width: the calibrating request re-admitted "
+          "recomputes the pool's scales bit for bit")
+
+    pool = 1 + PRESSURE_POOL_SEQS * paged_kv.blocks_per_seq(
+        max_len, SERVE["block_k"])
+    n_total = 0
+    for policy in ("newest", "longest"):
+        what = f"pressure churn ({policy}, pool {pool})"
+        splitmax_attn.launches = splitmax_decode.launches = 0
+        stats = srv.serve_paged(params, cfg, prompts, slots=SERVE["slots"],
+                                gen=SERVE["gen"], gens=gens,
+                                block_k=SERVE["block_k"], pool_blocks=pool,
+                                preempt_policy=policy)
+        torch.cuda.synchronize()
+        n_pre, n_dec = splitmax_attn.launches, splitmax_decode.launches
+        c = stats["health"]["counters"]
+        check_served(stats, gens, cfg.vocab_size, what)
+        check(stats["preemptions"] >= 1
+              and stats["resumes"] == stats["preemptions"],
+              f"{what}: {stats['preemptions']} preemptions, "
+              f"{stats['resumes']} resumes")
+        check(stats["finished"] == plain["finished"],
+              f"{what}: tokens differ from the plain churn's")
+        check(c.get("replay_splices", 0) == 0,
+              f"{what}: {c.get('replay_splices')} replayed tokens re-derived "
+              f"differently")
+        check(stats["slot_prefills"] == SERVE["requests"] + stats["resumes"],
+              f"{what}: {stats['slot_prefills']} slot prefills")
+        check(n_pre == stats["slot_prefills"] * cfg.n_layers,
+              f"{what}: prefill launches {n_pre} != "
+              f"{stats['slot_prefills']} x {cfg.n_layers}")
+        check(n_dec == stats["decode_steps"] * cfg.n_layers,
+              f"{what}: decode launches {n_dec} != {stats['decode_steps']} "
+              f"x {cfg.n_layers}")
+        n_total += n_pre
+        print(f"[pressure] {what}: served {stats['served']}, "
+              f"{stats['total_tokens']} tokens in {stats['wall_s']:.3f} s, "
+              f"{stats['tok_s']:.1f} tok/s (plain {plain['tok_s']:.1f}), "
+              f"{stats['decode_steps']} decode steps (plain "
+              f"{plain['decode_steps']}), p50/p99 step "
+              f"{stats['p50_step_ms']:.2f}/{stats['p99_step_ms']:.2f} ms, "
+              f"{stats['preemptions']} preemptions, {stats['resumes']} "
+              f"resumes, {c['resumed_tokens_replayed']} tokens replayed, "
+              f"{c['admission_stalls']} admission stalls, "
+              f"{stats['slot_prefills']} slot prefills, high water "
+              f"{stats['health']['pools']['kv']['high_water']} of {pool - 1} "
+              f"blocks, leaked {stats['leaked_blocks']}, tokens == plain, "
+              f"launches prefill {n_pre} decode {n_dec}")
+    return n_total
+
+
+def chaos_phase(torch, dev, params, cfg, plain):
+    """``make chaos`` at full width: pool exhaustion, a scheduler delay and
+    a NaN slot with a step deadline and the metrics document, through
+    ``serve_paged`` and then ``serve_speculative`` (self-drafted, and by
+    the target's first layers on a second pool)."""
+    import tempfile
+    from repro_torch.kernels import splitmax_attn, splitmax_decode as K
+    from repro_torch.launch import faults
+    from repro_torch.launch import serve as srv
+
+    prompts, gens = churn(cfg)
+    plan = faults.FaultPlan(**CHAOS)
+    kw = dict(slots=SERVE["slots"], gen=SERVE["gen"], gens=gens,
+              block_k=SERVE["block_k"], deadline_steps=CHAOS_DEADLINE_STEPS,
+              fault_plan=plan)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "health.json"
+        splitmax_attn.launches = K.launches = 0
+        stats = srv.serve(params, cfg, prompts, metrics_json=str(path), **kw)
+        torch.cuda.synchronize()
+        n_pre, n_dec = splitmax_attn.launches, K.launches
+        doc = json.loads(path.read_text())
+    c = doc["counters"]
+    done = stats["served"] + len(stats["failed"]) + len(stats["expired"])
+    check(done == SERVE["requests"], f"chaos: {done} requests accounted for")
+    check(c["faults_injected"] >= 2 and c["nan_retired"] == 1,
+          f"chaos: counters {c}")
+    check(len(doc["stragglers"]) >= 1, "chaos: no straggler step flagged")
+    check(doc["pools"]["kv"]["live_at_end"] == 0
+          and stats["leaked_blocks"] == 0, "chaos: blocks leaked")
+    for rid, toks in stats["finished"].items():
+        check(toks == plain["finished"][rid],
+              f"chaos: request {rid}'s tokens differ from the plain churn's")
+    check(n_pre == stats["slot_prefills"] * cfg.n_layers
+          and n_dec == stats["decode_steps"] * cfg.n_layers,
+          f"chaos: launches prefill {n_pre} decode {n_dec} for "
+          f"{stats['slot_prefills']} prefills, {stats['decode_steps']} steps")
+    print(f"[chaos] plain, plan {CHAOS}, deadline_steps "
+          f"{CHAOS_DEADLINE_STEPS}: served {stats['served']}, failed "
+          f"{sorted(stats['failed'])}, expired {sorted(stats['expired'])}, "
+          f"{stats['tok_s']:.1f} tok/s, p50/p99 step "
+          f"{stats['p50_step_ms']:.2f}/{stats['p99_step_ms']:.2f} ms, "
+          f"counters {c}, stragglers "
+          f"{[(r['step'], round(r['ratio'], 1)) for r in doc['stragglers']]}"
+          f", finished tokens == plain, leaked {stats['leaked_blocks']}, "
+          f"launches prefill {n_pre} decode {n_dec}")
+
+    for name, draft in (("self", None), (f"self:{SPEC['prefix_layers']}",
+                                         srv.make_self_draft(
+                                             params, cfg,
+                                             SPEC["prefix_layers"]))):
+        K.verify_launches = 0
+        spec = srv.serve_speculative(params, cfg, prompts, gamma=SPEC["gamma"],
+                                     draft=draft, **kw)
+        torch.cuda.synchronize()
+        n_ver = K.verify_launches
+        pools = spec["health"]["pools"]
+        water = {k: (p["high_water"], p["live_at_end"])
+                 for k, p in pools.items()}
+        done = spec["served"] + len(spec["failed"]) + len(spec["expired"])
+        what = f"chaos speculative {name}"
+        check(done == SERVE["requests"], f"{what}: {done} accounted for")
+        check(spec["leaked_blocks"] == 0
+              and all(p["live_at_end"] == 0 for p in pools.values()),
+              f"{what}: leaked {spec['leaked_blocks']} ({pools})")
+        check(n_ver == spec["verify_steps"] * cfg.n_layers,
+              f"{what}: verify launches {n_ver} != {spec['verify_steps']} "
+              f"x {cfg.n_layers}")
+        print(f"[chaos] {what} gamma {SPEC['gamma']}: served "
+              f"{spec['served']}, failed {sorted(spec['failed'])}, expired "
+              f"{sorted(spec['expired'])}, {spec['verify_steps']} rounds, "
+              f"{spec['tok_s']:.1f} tok/s, counters "
+              f"{spec['health']['counters']}, pools {water} (high water, "
+              f"live at end), verify launches {n_ver}")
+
+
+def sampled_phase(torch, dev, params, cfg, plain):
+    """Sampled churn: the same seed gives the same tokens with a full pool
+    and under preemption, another seed others, and a nucleus of one token
+    the greedy tokens."""
+    from repro_torch.core import paged_kv
+    from repro_torch.kernels import splitmax_decode
+    from repro_torch.launch import serve as srv
+
+    prompts, gens = churn(cfg)
+    kw = dict(slots=SERVE["slots"], gen=SERVE["gen"], gens=gens,
+              block_k=SERVE["block_k"], **SAMPLED)
+    pool = 1 + PRESSURE_POOL_SEQS * paged_kv.blocks_per_seq(
+        SERVE["prompt_len"] + SERVE["gen"] + 8, SERVE["block_k"])
+    splitmax_decode.launches = 0
+    runs = [srv.serve_paged(params, cfg, prompts, **kw)]
+    torch.cuda.synchronize()
+    n_dec = splitmax_decode.launches
+    check(n_dec == runs[0]["decode_steps"] * cfg.n_layers,
+          f"sampled: decode launches {n_dec} != {runs[0]['decode_steps']} x "
+          f"{cfg.n_layers}")
+    runs.append(srv.serve_paged(params, cfg, prompts, **kw))
+    runs.append(srv.serve_paged(params, cfg, prompts, pool_blocks=pool, **kw))
+    other = srv.serve_paged(params, cfg, prompts,
+                            **dict(kw, sample_seed=SAMPLED["sample_seed"] + 1))
+    tiny = srv.serve_paged(params, cfg, prompts, **dict(kw, top_p=1e-9))
+    for i, run in enumerate(runs + [other, tiny]):
+        check_served(run, gens, cfg.vocab_size, f"sampled run {i}")
+    check(runs[1]["finished"] == runs[0]["finished"],
+          "sampled: the same seed gave other tokens")
+    check(runs[2]["preemptions"] >= 1
+          and runs[2]["finished"] == runs[0]["finished"],
+          f"sampled under pressure ({runs[2]['preemptions']} preemptions): "
+          f"tokens differ from the full pool's")
+    check(other["finished"] != runs[0]["finished"],
+          "sampled: another seed gave the same tokens")
+    check(tiny["finished"] == plain["finished"],
+          "sampled with top_p 1e-9: tokens differ from greedy")
+    same = sum(runs[0]["finished"][r] == plain["finished"][r]
+               for r in plain["finished"])
+    print(f"[sampled] {SAMPLED}: {runs[0]['tok_s']:.1f} and "
+          f"{runs[1]['tok_s']:.1f} tok/s with a full pool (plain greedy "
+          f"{plain['tok_s']:.1f}), p50/p99 step {runs[0]['p50_step_ms']:.2f}/"
+          f"{runs[0]['p99_step_ms']:.2f} ms; pool {pool}: "
+          f"{runs[2]['preemptions']} preemptions, {runs[2]['tok_s']:.1f} "
+          f"tok/s; the three runs' tokens equal, seed "
+          f"{SAMPLED['sample_seed'] + 1} differs, top_p 1e-9 == greedy; "
+          f"{same}/{len(plain['finished'])} sampled requests equal greedy; "
+          f"decode launches {n_dec}")
 
 
 def rows_agree(torch, dev, params, cfg, b: int, t: int) -> bool:
@@ -1527,8 +1755,12 @@ def main() -> int:
     launches["splitmax_decode_paged"] = composed_serve_phase(torch, dev,
                                                              params, cfg)
     dense = dense_serve_phase(torch, dev, params, cfg)
+    n_pressure = pressure_phase(torch, dev, params, cfg, plain)
+    chaos_phase(torch, dev, params, cfg, plain)
+    sampled_phase(torch, dev, params, cfg, plain)
     by_path = {"paged churn": launches["splitmax_attention"],
-               "dense churn": dense.pop("splitmax_attention")}
+               "dense churn": dense.pop("splitmax_attention"),
+               "pressure churn": n_pressure}
     launches["splitmax_attention"] = sum(by_path.values())
     launches.update(dense)
     launches["splitmax_decode_fused_verify"] = (

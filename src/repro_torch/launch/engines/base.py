@@ -11,7 +11,14 @@ The scheduler contract (see :func:`repro_torch.launch.scheduler.run_schedule`):
     cache = engine.grow_write(cache, slot, idx, blk)  # device table write
     logits, cache = engine.decode(tokens, cache)    # one token per slot
     cache = engine.release(cache, slot)  # free blocks + trash the slot
+    engine.finalize(health, inj)        # drain faults, record pool stats
     engine.leaked()                     # live blocks after the run (== 0)
+
+``engine.warmup()`` runs every step once on throwaway inputs before the
+clock starts (``warmup_prefills`` prefills and ``warmup_decodes`` decode
+steps) and returns ``(admit_logits, decode_logits)`` for the scheduler to
+warm its sampler on.  Preemption needs no hook of its own: the snapshot is
+the generated prefix on the host, and resume is an ordinary :meth:`admit`.
 """
 from __future__ import annotations
 
@@ -73,10 +80,17 @@ class CacheEngine:
     """Base class of the cache engines (contract in the module docstring)."""
 
     slots: int = 0
+    device = None                       # the torch.device the cache is on
+    pool_tag: str = "kv"
     alloc: Optional[paged_kv.BlockAllocator] = None
+    warmup_prefills: int = 0
+    warmup_decodes: int = 0
 
     def start_run(self):
         raise NotImplementedError
+
+    def warmup(self):
+        return None
 
     def admission_need(self, rid: int) -> int:
         raise NotImplementedError
@@ -99,5 +113,11 @@ class CacheEngine:
     def release(self, cache, slot: int):
         raise NotImplementedError
 
+    def finalize(self, health, inj) -> None:
+        pass
+
     def leaked(self) -> int:
         raise NotImplementedError
+
+    def kv_bytes_per_step(self, gens) -> int:
+        return 0

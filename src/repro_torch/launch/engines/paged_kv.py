@@ -20,6 +20,8 @@ from repro_torch.models import transformer as T
 
 
 class PagedKVEngine(base.CacheEngine):
+    warmup_prefills = 2
+    warmup_decodes = 1
 
     def __init__(self, params, cfg, prompts: List[np.ndarray], *,
                  slots: int, max_len: int, block_k: int = 32,
@@ -49,14 +51,40 @@ class PagedKVEngine(base.CacheEngine):
         self.slot_prefill = st.make_paged_prefill_step(cfg, calibrate=False)
         self.decode_step = st.make_decode_step(cfg)
 
-    def start_run(self):
-        self.alloc = paged_kv.BlockAllocator(self.pool_size)
-        self.pager = base.PoolManager(self.alloc, self.bps, self.block_k)
-        self.calib_rid = None
+    def make_cache(self):
         return T.make_paged_cache(self.cfg, self.slots, self.max_len,
                                   block_k=self.block_k,
                                   num_blocks=self.pool_size,
                                   device=self.device)
+
+    def start_run(self):
+        self.alloc = paged_kv.BlockAllocator(self.pool_size)
+        self.pager = base.PoolManager(self.alloc, self.bps, self.block_k)
+        self.calib_rid = None
+        return self.make_cache()
+
+    def warmup(self):
+        """One throwaway pass on a scratch pool of the same size: the
+        calibrating and the plain prefill of the first prompt, a table
+        write, a decode step of every slot and a release.  It builds the
+        kernels, raises their shared-memory limits and warms the GEMM
+        shapes before the clock starts."""
+        dev = self.device
+        cache = self.make_cache()
+        # every table entry a real block (the pool holds >= 1 + bps)
+        row = torch.arange(1, self.bps + 1, dtype=torch.int32,
+                           device=dev)[None]
+        prompt = torch.as_tensor(self.prompts[0], dtype=torch.int64,
+                                 device=dev)[None]
+        sid = torch.zeros((1,), dtype=torch.int32, device=dev)
+        self.calib_prefill(self.params, prompt, cache, sid, row)
+        last1, cache = self.slot_prefill(self.params, prompt, cache, sid, row)
+        cache = self.grow_write(cache, 0, 1, 2)
+        tokens = torch.zeros((self.slots,), dtype=torch.int64, device=dev)
+        out, cache = self.decode_step(self.params, tokens, cache)
+        paged_kv.release_slot(cache, 0)
+        out.cpu()
+        return last1, out
 
     def admission_need(self, rid: int) -> int:
         # the prompt plus this step's decode write
@@ -94,5 +122,18 @@ class PagedKVEngine(base.CacheEngine):
         paged_kv.release_slot(cache, slot)
         return cache
 
+    def finalize(self, health, inj) -> None:
+        inj.drain(self.alloc)
+        health.pool(self.pool_tag, self.alloc)
+
     def leaked(self) -> int:
         return self.alloc.live_count
+
+    def kv_bytes_per_step(self, gens) -> int:
+        """Analytic decode read traffic: int8 K and V at the mean live
+        block occupancy."""
+        mean_gen = sum(gens) // (2 * len(gens))
+        mean_blocks = paged_kv.blocks_per_seq(len(self.prompts[0]) + mean_gen,
+                                              self.block_k)
+        return (2 * self.cfg.n_layers * self.slots * self.cfg.n_kv_heads
+                * mean_blocks * self.block_k * self.cfg.hd)

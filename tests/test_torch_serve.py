@@ -15,7 +15,6 @@ from repro.launch import serve as jserve
 from repro.launch import steps as jsteps
 from repro_torch import bridge
 from repro_torch.configs import get_arch as tget_arch
-from repro_torch.core import paged_kv
 from repro_torch.launch import serve as tserve
 from repro_torch.models import transformer as TT
 
@@ -61,12 +60,18 @@ def test_churn_greedy_tokens_equal_reference(smoke, seed, slots, prompt_len):
 
 def test_pool_exhaustion_raises_not_degrades(smoke):
     """Two admitted slots fill a 6-block pool; the first growth past it
-    raises BlockAllocationError instead of stalling or dropping writes."""
-    _, _, tcfg, tparams = smoke
+    preempts one request and resumes it later, as the reference does, and
+    the tokens stay the reference's.  A pool that cannot hold one sequence
+    raises up front."""
+    jcfg, jparams, tcfg, tparams = smoke
     prompts, _ = _prompts_gens(2, 20, 12, 0, tcfg.vocab_size)
-    with pytest.raises(paged_kv.BlockAllocationError):
-        tserve.serve_paged(tparams, tcfg, prompts, slots=2, gen=12,
-                           block_k=8, pool_blocks=7)
+    kw = dict(slots=2, gen=12, block_k=8, pool_blocks=7)
+    want = jserve.serve_paged(jparams, jcfg, prompts, **kw)
+    got = tserve.serve_paged(tparams, tcfg, prompts, **kw)
+    assert got["preemptions"] >= 1
+    assert got["resumes"] == got["preemptions"] == want["preemptions"]
+    assert got["finished"] == want["finished"]
+    assert got["leaked_blocks"] == 0
     with pytest.raises(ValueError):                  # cannot hold one sequence
         tserve.serve_paged(tparams, tcfg, prompts, slots=2, gen=12,
                            block_k=8, pool_blocks=5)
