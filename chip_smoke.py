@@ -63,6 +63,19 @@ Phases, each fatal on failure:
           tokens), top_p 1e-9 (the greedy tokens).
        Phase a runs with ``warmup=True`` and checks that ``repeats=2``
        keeps the first run's tokens.
+  7. QAT training (fakequant attention, AdamW), at the smoke size in f32:
+     the card against the CPU over 5 steps (losses and grad norms within
+     1e-3), the same step twice bit for bit, the CLI's resume (3 steps,
+     a checkpoint, 3 more) bit for bit against 6 straight, and the
+     reference's fakequant->int8 check after 30 steps (top-1 agreement >
+     0.9, TV < 0.1); then at full TinyLlama-1.1B width, 8 steps of B 4 x
+     2048 through ``launch.train.main`` (step ms, tok/s, MFU, peak memory;
+     loss finite and falling), the fakequant->int8 check of the trained
+     weights at B 1 x 2048 (kernel 1, counted), one layer's fakequant
+     attention timed alone, and one step under the profiler whose loss and
+     grad norm repeat the run's first bit for bit.  Kernel 1 is also held
+     against its exact plain version and timed at B 1 x 2048 in phases 3
+     and 4.
 
 Kernels 7 (dense verify) and 8 (int8 GEMM) have no caller in any model, as
 in the reference: they are checked and timed in phases 3 and 4 and stand in the
@@ -78,6 +91,7 @@ from __future__ import annotations
 
 import itertools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -95,6 +109,9 @@ SERVE = dict(requests=24, slots=8, prompt_len=250, gen=32, block_k=32, seed=0)
 DENSE = dict(b=8, hq=32, hkv=4, d=64, s_max=290, lens=(251, 282),
              gammas=(4, 8))
 REPREFILL = dict(b=8, hq=32, hkv=4, s=282, d=64)
+# the fakequant->int8 check's int8 forward at full width: TinyLlama's 2048
+# pretraining context, one sequence
+INT8_CHECK = dict(b=1, hq=32, hkv=4, s=2048, d=64)
 # (m, k, n); the last is the timed TinyLlama width
 GEMMS = [(256, 512, 256), (128, 128, 128), (512, 256, 384), (300, 1000, 130),
          (1, 16, 5), (129, 272, 264), (2048, 2048, 5632)]
@@ -112,6 +129,13 @@ CHAOS = dict(exhaust_step=6, exhaust_hold=5, delay_step=14, delay_seconds=0.3,
              nan_step=20, nan_slot=1)
 CHAOS_DEADLINE_STEPS = 300
 SAMPLED = dict(temperature=0.8, top_p=0.95, sample_seed=3)
+# QAT training: the smoke checks (card vs CPU, determinism, CLI resume), the
+# reference system test's fakequant->int8 setting (tests/test_system.py), and
+# the full-width run at TinyLlama's pretraining context (arXiv:2401.02385)
+TRAIN_SMOKE = dict(batch=8, seq=64, seed=0, steps=5)
+FQ_INT8 = dict(steps=30, batch=8, seq=48, seed=11, tokens=32)
+TRAIN_FULL = dict(batch=4, seq=2048, steps=8, warmup=2, seed=0)
+H100_BF16_FLOPS = 989e12       # H100 SXM dense bf16 tensor-core peak
 
 
 class SmokeFailure(RuntimeError):
@@ -351,18 +375,36 @@ def prefill_phase(torch, F, dev):
     print(f"[prefill] re-prefill {r}: == exact oracle, max_abs_err "
           f"{rerr:.3g} (tol {rtol:.3g}), kernel host-inclusive {r_ms:.4f} ms, "
           f"plain {r_plain_ms:.4f} ms, bound {r_bms:.5f} ms ({r_by})")
+    # the fakequant->int8 check's teacher-forced int8 forward at S 2048
+    c = INT8_CHECK
+    cargs, ckw, cerr, ctol, (cq, ck, cv) = case(c["b"], c["hq"], c["hkv"],
+                                                c["s"], c["s"], c["d"])
+    GRAPHED["prefill 2048"] = lambda: K.splitmax_attention_cuda(*cargs, **ckw)
+    GRAPHED["prefill 2048 sdpa"] = sdpa_fn(cq, ck, cv)
+    c_ms = time_ms(torch, GRAPHED["prefill 2048"])
+    c_plain_ms = time_ms(torch, lambda: K.splitmax_attention_plain(
+        *cargs, **ckw), iters=3, warm=1)
+    c_bms, c_by = prefill_bound(c["b"], c["hq"], c["hkv"], c["s"], c["d"])
+    print(f"[prefill] int8 check {c}: == exact oracle, max_abs_err "
+          f"{cerr:.3g} (tol {ctol:.3g}), kernel host-inclusive {c_ms:.4f} ms, "
+          f"plain {c_plain_ms:.4f} ms, bound {c_bms:.5f} ms ({c_by})")
     return {"name": "splitmax_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/splitmax_attn.cu",
             "replaces": "src/repro/kernels/splitmax_attn.py:181",
-            "path": "paged admissions and resumes, dense re-prefills",
-            "max_abs_err": max(err, rerr), "exact_equal": True,
+            "path": "paged admissions and resumes, dense re-prefills, the "
+                    "fakequant->int8 check's int8 forward",
+            "max_abs_err": max(err, rerr, cerr), "exact_equal": True,
             "graph": "prefill", "library_graph": "prefill sdpa",
             "host_ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by,
             "reprefill": {"shape": r, "graph": "re-prefill",
                           "library_graph": "re-prefill sdpa",
                           "host_ms": r_ms, "plain_ms": r_plain_ms,
-                          "bound_ms": r_bms, "bound_by": r_by}}
+                          "bound_ms": r_bms, "bound_by": r_by},
+            "int8_check": {"shape": c, "graph": "prefill 2048",
+                           "library_graph": "prefill 2048 sdpa",
+                           "host_ms": c_ms, "plain_ms": c_plain_ms,
+                           "bound_ms": c_bms, "bound_by": c_by}}
 
 
 # ----------------------------------------------------------------- decode --
@@ -1052,7 +1094,7 @@ def graph_phase(torch, dev, kernels):
             entry[field] = med
             entry[field + "_range"] = [lo, hi]
         entry["launch_floor_ms"] = floor
-        print(f"[graph] {entry.get('name', 're-prefill')}: kernel "
+        print(f"[graph] {entry.get('name', entry.get('shape'))}: kernel "
               f"{entry['ms']:.5f} ms ({entry['ms_range'][0]:.5f}-"
               f"{entry['ms_range'][1]:.5f}), host-inclusive "
               f"{entry['host_ms']:.5f} ms, bound {entry['bound_ms']:.5f} ms "
@@ -1061,8 +1103,9 @@ def graph_phase(torch, dev, kernels):
 
     for k in kernels:
         fill(k)
-        if "reprefill" in k:
-            fill(k["reprefill"])
+        for sub in ("reprefill", "int8_check"):
+            if sub in k:
+                fill(k[sub])
     return floor
 
 
@@ -1455,6 +1498,264 @@ def sampled_phase(torch, dev, params, cfg, plain):
           f"decode launches {n_dec}")
 
 
+# --------------------------------------------------------------- training --
+
+def _run_steps(torch, step, params, state, dc, n, device):
+    """``n`` train steps on ``device``; returns the state and the losses
+    and grad norms as floats."""
+    from repro_torch.data.pipeline import batch_for_step
+    losses, norms = [], []
+    for i in range(n):
+        batch = {k: v.to(device) for k, v in batch_for_step(dc, i).items()}
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    return params, state, losses, norms
+
+
+def fq_int8_agreement(torch, params, cfg, tokens):
+    """The reference's system check (``tests/test_system.py``): the
+    teacher-forced logits of the training forward (fakequant) against the
+    int8 datapath's.  Returns (top-1 agreement, total variation, kernel-1
+    launches of the int8 forward)."""
+    from repro_torch.kernels import splitmax_attn
+    from repro_torch.models import transformer as T
+    with torch.no_grad():
+        logits_fq, _ = T.forward(params, tokens, cfg)
+        torch.cuda.synchronize()
+        splitmax_attn.launches = 0
+        logits_i8, _ = T.forward(params, tokens, cfg.replace(attn_mode="int8"))
+        torch.cuda.synchronize()
+        n = splitmax_attn.launches
+        p_fq = torch.softmax(logits_fq[..., :cfg.vocab_size], -1)
+        p_i8 = torch.softmax(logits_i8[..., :cfg.vocab_size], -1)
+        agree = float((p_fq.argmax(-1) == p_i8.argmax(-1)).float().mean())
+        tv = 0.5 * float((p_fq - p_i8).abs().sum(-1).mean())
+    check(bool(torch.isfinite(logits_i8).all()), "int8 forward: non-finite")
+    return agree, tv, n
+
+
+def train_smoke_phase(torch, dev):
+    """The QAT trainer at the smoke size in f32: the card against the CPU
+    over ``TRAIN_SMOKE["steps"]`` steps from the same weights and batches;
+    the same step twice on the card, bit for bit (loss, every gradient,
+    every parameter after the update); the CLI's resume, 6 steps straight
+    against 3, a checkpoint and 3 more, bit for bit; and the
+    fakequant->int8 check after 30 steps at the reference's thresholds.
+    Returns the int8 forward's kernel-1 launches."""
+    import tempfile
+    from repro_torch import tree as tu
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, batch_for_step
+    from repro_torch.launch import steps as st
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+
+    t = TRAIN_SMOKE
+    cfg = get_arch("tinyllama_1p1b").smoke.replace(dtype="float32")
+    cpu = torch.device("cpu")
+    opt = adamw.OptimizerConfig(peak_lr=1e-3, warmup_steps=2,
+                                total_steps=t["steps"])
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=t["seq"],
+                    global_batch=t["batch"], seed=t["seed"])
+    p0 = T.init_params(cfg, seed=0, device=cpu)
+
+    def fresh(device):
+        """A copy of the initial weights on ``device`` (steps update their
+        parameters in place)."""
+        return tu.tree_map(lambda x: x.clone().to(device), p0)
+
+    def run(device):
+        params = fresh(device)
+        return _run_steps(torch, st.make_train_step(cfg, opt), params,
+                          adamw.init_state(params), dc, t["steps"],
+                          device)[2:]
+
+    (gl, gn), (cl, cn) = run(dev), run(cpu)
+    check(all(map(math.isfinite, gl + gn)), f"smoke training: {gl} {gn}")
+    err = max(abs(a - b) / abs(b) for a, b in zip(gl + gn, cl + cn))
+    check(err <= 1e-3, f"smoke training, card vs CPU: losses {gl} vs {cl}, "
+          f"grad norms {gn} vs {cn}: relative difference {err:.3g} > 1e-3")
+    print(f"[train] smoke {t}: card vs CPU over {t['steps']} steps, losses "
+          f"{[round(x, 5) for x in gl]}, max relative difference of the "
+          f"losses and grad norms {err:.3g} (tol 1e-3)")
+
+    outs = []
+    for _ in range(2):
+        params = fresh(dev)
+        batch = {k: v.to(dev) for k, v in batch_for_step(dc, 0).items()}
+        (loss, _), grads = st.value_and_grad(params, batch, cfg)
+        params, _, m = st.make_train_step(cfg, opt)(
+            params, adamw.init_state(params), batch)
+        outs.append([loss, m["grad_norm"]] + tu.leaves((grads, params)))
+    same = all(torch.equal(a, b) for a, b in zip(*outs))
+    check(same, "smoke training: the same step twice differs on the card")
+    print(f"[train] smoke: the same step twice on the card: loss, grad norm, "
+          f"{len(outs[0]) - 2} gradient and parameter leaves bit for bit")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        common = ["--smoke", "--device", "cuda", "--batch", str(t["batch"]),
+                  "--seq", str(t["seq"]), "--log-every", "3"]
+        straight = train.main(common + ["--steps", "6", "--ckpt-dir",
+                                         f"{tmp}/a"])
+        first = train.main(common + ["--steps", "3", "--ckpt-dir",
+                                      f"{tmp}/b"])
+        second = train.main(common + ["--steps", "6", "--ckpt-dir",
+                                       f"{tmp}/b"])
+    check(second["start_step"] == 3, "CLI: the second run did not resume")
+    check(first["losses"] + second["losses"] == straight["losses"],
+          f"CLI resume: losses {first['losses']} + {second['losses']} != "
+          f"{straight['losses']}")
+    check(all(torch.equal(a, b) for a, b in zip(
+        tu.leaves((second["params"], second["opt_state"])),
+        tu.leaves((straight["params"], straight["opt_state"])))),
+        "CLI resume: final parameters or moments differ from the straight run")
+    print("[train] smoke CLI: 3 steps + checkpoint + resume + 3 steps == 6 "
+          "steps straight: losses, parameters and moments bit for bit")
+
+    f = FQ_INT8
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=f["seq"],
+                    global_batch=f["batch"], seed=f["seed"])
+    params = fresh(dev)
+    params, _, losses, _ = _run_steps(
+        torch, st.make_train_step(cfg, adamw.OptimizerConfig(
+            peak_lr=1e-3, warmup_steps=5, total_steps=f["steps"])),
+        params, adamw.init_state(params), dc, f["steps"], dev)
+    tok = batch_for_step(dc, 100)["tokens"][:, :f["tokens"]].to(dev)
+    agree, tv, n = fq_int8_agreement(torch, params, cfg, tok)
+    check(agree > 0.9 and tv < 0.1, f"fakequant->int8 (smoke): top-1 "
+          f"agreement {agree:.4f} (want > 0.9), TV {tv:.4f} (want < 0.1)")
+    check(n == cfg.n_layers, f"int8 forward: {n} kernel-1 launches")
+    print(f"[train] smoke fakequant->int8 after {f['steps']} steps (loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}): top-1 agreement "
+          f"{agree:.4f} (> 0.9), TV {tv:.4f} (< 0.1), {n} kernel-1 launches")
+    return n
+
+
+def train_full_phase(torch, dev):
+    """The QAT trainer at full TinyLlama-1.1B width through
+    ``launch.train.main``: 8 steps of B 4 x S 2048, bf16 compute, f32
+    master weights, warmup 2, seed 0; then the fakequant->int8 check of
+    the trained weights at B 1 x 2048, the fakequant attention of one
+    layer timed alone, and one fresh step under the profiler, whose loss
+    and grad norm must repeat the run's first bit for bit.  Returns the
+    int8 forward's kernel-1 launches."""
+    import statistics
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import tree as tu
+    from repro_torch.configs import get_arch
+    from repro_torch.core import attention as core_attn
+    from repro_torch.data.pipeline import DataConfig, batch_for_step
+    from repro_torch.launch import steps as st
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw
+
+    t = TRAIN_FULL
+    cfg = get_arch("tinyllama_1p1b").config
+    argv = ["--device", "cuda", "--steps", str(t["steps"]), "--warmup",
+            str(t["warmup"]), "--batch", str(t["batch"]), "--seq",
+            str(t["seq"]), "--seed", str(t["seed"]), "--log-every", "1"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = train.main(argv)
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = res["losses"]
+    check(all(map(math.isfinite, losses + res["grad_norms"])),
+          f"full-width training: losses {losses}")
+    check(losses[-1] < losses[0], f"full-width training: loss did not fall: "
+          f"{losses}")
+    tokens = t["batch"] * t["seq"]
+    step_ms = statistics.median(res["step_s"][1:]) * 1e3
+    n_params = sum(p.numel() for p in tu.leaves(res["params"]))
+    flops = 6 * n_params * tokens
+    mfu = flops / (step_ms / 1e3) / H100_BF16_FLOPS
+    print(f"[train] full width {cfg.name} {t}: losses "
+          f"{[round(x, 4) for x in losses]}; step {step_ms:.1f} ms (median "
+          f"of steps 2-{t['steps']}; first {res['step_s'][0] * 1e3:.1f} ms), "
+          f"{tokens / step_ms * 1e3:.1f} tok/s, MFU {100 * mfu:.2f}% (6 x "
+          f"{n_params} params x {tokens} tokens / step over 989 TFLOP/s "
+          f"bf16), peak memory {peak_gb:.2f} GB")
+
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=INT8_CHECK["s"],
+                    global_batch=INT8_CHECK["b"], seed=t["seed"])
+    tok = batch_for_step(dc, 100)["tokens"].to(dev)
+    agree, tv, n_int8 = fq_int8_agreement(torch, res["params"], cfg, tok)
+    check(n_int8 == cfg.n_layers, f"full-width int8 forward: {n_int8} "
+          f"kernel-1 launches, want {cfg.n_layers}")
+    print(f"[train] full-width fakequant->int8 after {t['steps']} steps, "
+          f"B {INT8_CHECK['b']} x {INT8_CHECK['s']}: top-1 agreement "
+          f"{agree:.4f}, TV {tv:.4f}, {n_int8} kernel-1 launches")
+    first = (losses[0], res["grad_norms"][0])
+    del res
+    torch.cuda.empty_cache()
+
+    # one layer's fakequant attention alone: the layer's first forward (no
+    # graph: the block is checkpointed), then its recompute and backward
+    gen = torch.Generator(device=dev).manual_seed(1)
+    b, s, hd = t["batch"], t["seq"], cfg.hd
+    q = torch.randn((b, cfg.n_heads, s, hd), generator=gen, device=dev,
+                    dtype=torch.bfloat16).requires_grad_(True)
+    k, v = (torch.randn((b, cfg.n_kv_heads, s, hd), generator=gen,
+                        device=dev, dtype=torch.bfloat16).requires_grad_(True)
+            for _ in range(2))
+    g = torch.randn(q.shape, generator=gen, device=dev, dtype=torch.bfloat16)
+    spec = cfg.attn_spec()
+
+    def fwd():
+        with torch.no_grad():
+            core_attn.attention(q, k, v, spec)
+
+    def fwd_bwd():
+        core_attn.attention(q, k, v, spec).backward(g)
+
+    attn_ms = time_ms(torch, fwd, iters=3, warm=1) + time_ms(
+        torch, fwd_bwd, iters=3, warm=1)
+    share = cfg.n_layers * attn_ms / step_ms
+    print(f"[train] fakequant attention of one layer (B {b}, Hq "
+          f"{cfg.n_heads}, Hkv {cfg.n_kv_heads}, S {s}, D {hd}, block_k "
+          f"{core_attn.FAKEQUANT_BLOCK_K}): forward + recompute + backward "
+          f"{attn_ms:.2f} ms; x {cfg.n_layers} layers = {100 * share:.1f}% "
+          f"of the step")
+    del q, k, v, g
+    torch.cuda.empty_cache()
+
+    params = st.init_params_fn(cfg)(seed=t["seed"], device=dev)
+    state = adamw.init_state(params)
+    step = st.make_train_step(cfg, adamw.OptimizerConfig(
+        peak_lr=3e-4, warmup_steps=t["warmup"], total_steps=t["steps"]))
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=t["seq"],
+                    global_batch=t["batch"], seed=t["seed"])
+    batch = {k: v.to(dev) for k, v in batch_for_step(dc, 0).items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        again = (float(m["loss"]), float(m["grad_norm"]))
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    check(again == first, f"full width: the first step's (loss, grad norm) "
+          f"{again} != the run's {first}")
+    rows = [(e.key, e.count, e.self_device_time_total / 1e3)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    busy_ms = sum(ms for _, _, ms in rows)
+    check(busy_ms > 0, "profiler saw no device time")
+    rows.sort(key=lambda r: -r[2])
+    print(f"[train] first step again under the profiler: (loss, grad norm) "
+          f"{again} bit for bit the run's; wall {wall_ms:.1f} ms, device busy "
+          f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%)")
+    for key, count, ms in rows[:12]:
+        print(f"[train]   {ms:9.3f} ms {100 * ms / busy_ms:5.1f}%  "
+              f"x{count:<6d} {key[:90]}")
+    del params, state, batch
+    torch.cuda.empty_cache()
+    return n_int8
+
+
 def rows_agree(torch, dev, params, cfg, b: int, t: int) -> bool:
     """Whether a row's result depends on the number of rows it is computed
     with: decode runs B rows, verify B * T.  For each linear weight of layer
@@ -1758,9 +2059,15 @@ def main() -> int:
     n_pressure = pressure_phase(torch, dev, params, cfg, plain)
     chaos_phase(torch, dev, params, cfg, plain)
     sampled_phase(torch, dev, params, cfg, plain)
+    del params, plain
+    torch.cuda.empty_cache()
+    n_fq_smoke = train_smoke_phase(torch, dev)
+    n_fq_full = train_full_phase(torch, dev)
     by_path = {"paged churn": launches["splitmax_attention"],
                "dense churn": dense.pop("splitmax_attention"),
-               "pressure churn": n_pressure}
+               "pressure churn": n_pressure,
+               "fakequant->int8 check, smoke": n_fq_smoke,
+               "fakequant->int8 check, full width": n_fq_full}
     launches["splitmax_attention"] = sum(by_path.values())
     launches.update(dense)
     launches["splitmax_decode_fused_verify"] = (

@@ -1,4 +1,5 @@
-"""Weight bridge from the JAX reference to the port.
+"""Weight and optimizer-state bridge between the JAX reference's layout
+and the port's.
 
 The reference draws its parameters with ``jax.random``, which torch cannot
 regenerate, so parity tests take the JAX parameters after
@@ -9,6 +10,8 @@ Layouts carry over unchanged (a linear weight is ``(d_in, d_out)`` in both
 packages); the one structural change is that the reference scans a stacked
 layer segment, ``params["segments"][0]`` with a leading ``n_layers`` axis
 on every leaf, which becomes the port's list ``params["layers"]``.
+:func:`to_jax_layout` is the inverse map, which the trainer's checkpoints
+use so that the reference restores them.
 """
 from __future__ import annotations
 
@@ -18,7 +21,9 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch import tree as tu
 from repro_torch.models.config import ModelConfig
+from repro_torch.optim.adamw import OptState
 
 
 def _to_torch(tree: Any, device) -> Any:
@@ -46,4 +51,27 @@ def from_jax_params(np_params: Dict, cfg: ModelConfig, *, device="cuda"
     out = {k: _to_torch(v, dev) for k, v in np_params.items()
            if k != "segments"}
     out["layers"] = [_to_torch(_layer(seg, i), dev) for i in range(n)]
+    return out
+
+
+def from_jax_opt_state(np_state, cfg: ModelConfig, *, device="cuda"
+                       ) -> OptState:
+    """The reference's ``OptState(step, mu, nu)`` (numpy leaves) -> the
+    port's; the step stays on the CPU."""
+    step, mu, nu = np_state
+    return OptState(
+        step=torch.from_numpy(np.array(step, dtype=np.int32)),
+        mu=from_jax_params(mu, cfg, device=device),
+        nu=from_jax_params(nu, cfg, device=device))
+
+
+def to_jax_layout(params: Dict) -> Dict:
+    """The port's parameter tree -> the reference's, as numpy copies: the
+    list ``layers`` becomes one stacked segment ``segments[0]``, each leaf
+    with a leading ``n_layers`` axis."""
+    layers = params["layers"]
+    out = {k: tu.tree_map(tu.host_copy, v) for k, v in params.items()
+           if k != "layers"}
+    out["segments"] = [tu.tree_map(
+        lambda *xs: np.stack([tu.host_copy(x) for x in xs]), *layers)]
     return out

@@ -1,11 +1,21 @@
-"""CIMple attention datapath, int8 serving mode (port of
-``repro/core/attention.py``: the int8 branches of ``attention``,
-``decode_attention`` and ``paged_decode_attention`` -- fused and composed
--- and ``paged_verify_attention``).
+"""CIMple attention datapath (port of ``repro/core/attention.py``: the
+three modes of ``attention``, and the int8 branches of ``decode_attention``
+and ``paged_decode_attention`` -- fused and composed -- and
+``paged_verify_attention``).
 
-Q/K/V are quantized to int8 with absmax scales, scores pass the 32b->8b
-requant unit, and the exp + reciprocal LUTs replace the softmax — through
-the hand-written kernels on the card, their plain versions on the CPU.
+  * ``"float"``     — 3-pass safe-softmax attention (the paper's baseline);
+  * ``"fakequant"`` — training (QAT): scores snap to the int8 grid through a
+                      straight-through estimator and the softmax takes the
+                      static ``z_quant_max`` ceiling, the differentiable twin
+                      of the deployed datapath (plain PyTorch, blocked);
+  * ``"int8"``      — serving: Q/K/V quantized to int8 with absmax scales,
+                      scores through the 32b->8b requant unit, the exp and
+                      reciprocal LUTs in place of the softmax — the
+                      hand-written kernels on the card, their plain versions
+                      on the CPU.
+
+A model trains with ``fakequant`` and serves with ``int8``.  The decode
+entry points take ``int8`` only.
 """
 from __future__ import annotations
 
@@ -18,19 +28,39 @@ import torch
 from repro_torch.core import lut as lut_lib
 from repro_torch.core import quantization as qlib
 from repro_torch.core.lut import LUTConfig
+from repro_torch.kernels import blocked as blocked_lib
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref as ref_lib
+
+MODES = ("float", "fakequant", "int8")
+FAKEQUANT_BLOCK_K = 512
 
 
 @dataclasses.dataclass(frozen=True)
 class AttentionSpec:
-    """Static attention configuration of the int8 serving datapath."""
+    """Static attention configuration."""
+    mode: str = "fakequant"            # float | fakequant | int8
     scale_z: float = 8.0 / 127         # score quant scale (clip ~ +-8)
     window: Optional[int] = None       # sliding-window size, None = full
     fused: bool = True                 # decode: in-kernel quantize of q
+    # training perf levers (defaults = the paper-faithful baseline)
+    score_dtype: str = "float32"       # float32 | bfloat16 score chain
+    triangular: bool = False           # causal triangular chunk schedule
+
+    def __post_init__(self):
+        if self.mode not in MODES:
+            raise ValueError(f"attention mode {self.mode!r}, not in {MODES}")
 
     @property
     def lut_config(self) -> LUTConfig:
         return LUTConfig(scale_z=self.scale_z)
+
+
+def _require_int8(spec: AttentionSpec) -> None:
+    if spec.mode != "int8":
+        raise NotImplementedError(
+            f"decode attention in mode {spec.mode!r}: the port decodes "
+            f"through the int8 datapath only")
 
 
 @functools.lru_cache(maxsize=32)
@@ -44,8 +74,24 @@ def luts_for(scale_z: float, device: torch.device
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               spec: AttentionSpec) -> torch.Tensor:
-    """Causal (B,Hq,Sq,D) x (B,Hkv,Sk,D) -> (B,Hq,Sq,D), dtype of q;
-    per-tensor absmax calibration of q, k and v."""
+    """Causal (B,Hq,Sq,D) x (B,Hkv,Sk,D) -> (B,Hq,Sq,D), dtype of q, in the
+    mode ``spec.mode``.  Float inputs; int8 calibrates q, k and v with
+    per-tensor absmax scales (constants: the int8 path takes no gradient).
+    Fakequant runs over k chunks of ``FAKEQUANT_BLOCK_K`` (the reference's
+    ``max(spec.block_k, 512)`` with its one ``block_k``), which must divide
+    Sk when Sk is longer."""
+    if spec.mode == "float":
+        out = ref_lib.safe_softmax_attention_ref(q, k, v, causal=True,
+                                                 window=spec.window)
+        return out.to(q.dtype)
+    if spec.mode == "fakequant":
+        out = blocked_lib.blocked_fakequant_attention(
+            q, k, v, spec.lut_config, causal=True, window=spec.window,
+            block_k=FAKEQUANT_BLOCK_K,
+            score_dtype=getattr(torch, spec.score_dtype),
+            triangular=spec.triangular)
+        return out.to(q.dtype)
+    q, k, v = q.detach(), k.detach(), v.detach()
     s_q = qlib.absmax_scale(q)
     s_k = qlib.absmax_scale(k)
     s_v = qlib.absmax_scale(v)
@@ -64,6 +110,7 @@ def decode_attention(q: torch.Tensor, k_cache_q: torch.Tensor,
     """(B,Hq,D) query vs the dense int8 cache (B,Hkv,S_max,D) -> (B,Hq,D),
     dtype of q.  One ``s_q`` per slot, as in :func:`paged_decode_attention`;
     ``spec.fused`` picks the fused or the composed kernel."""
+    _require_int8(spec)
     s_q = qlib.absmax_scale(q, axis=(1, 2))                  # (B,1,1)
     exp_lut, recip_lut = luts_for(spec.scale_z, q.device)
     if spec.fused:
@@ -90,6 +137,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     quantizes q inside the decode kernel; otherwise q is quantized here and
     the composed kernel takes the int8 query (the same values either way).
     """
+    _require_int8(spec)
     s_q = qlib.absmax_scale(q, axis=(1, 2))                  # (B,1,1)
     exp_lut, recip_lut = luts_for(spec.scale_z, q.device)
     if spec.fused:
@@ -117,6 +165,7 @@ def paged_verify_attention(q: torch.Tensor, k_pages: torch.Tensor,
     the absmax scale of slot b's token-t query, exactly the per-slot scale
     the sequential decode computes at that step.
     """
+    _require_int8(spec)
     s_q = qlib.absmax_scale(q, axis=(1, 3))[:, 0, :, 0]      # (B,T)
     exp_lut, recip_lut = luts_for(spec.scale_z, q.device)
     out = ops.splitmax_decode_fused_verify_paged(

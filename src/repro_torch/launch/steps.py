@@ -1,12 +1,154 @@
-"""Serve steps shared by the engines and the schedulers (port of
-``repro/launch/steps.py``: the dense and paged prefill steps, the decode
-and verify steps and the draft loop)."""
+"""Train and serve steps shared by the trainer, the engines and the
+schedulers (port of ``repro/launch/steps.py``: the loss, the plain,
+compressed and gradient-accumulation train steps, and the dense and paged
+prefill steps, the decode and verify steps and the draft loop).
+
+A train step computes the loss and its gradients with autograd and
+updates the parameters and the optimizer state **in place** (the port's
+counterpart of the reference's donated buffers); it returns them for
+symmetry with the reference's functional API.
+"""
 from __future__ import annotations
+
+import functools
+from typing import Dict, Tuple
 
 import torch
 
+from repro_torch import tree as tu
+from repro_torch.dist import compression as comp
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
+from repro_torch.optim import adamw
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  logical_vocab: int) -> torch.Tensor:
+    """Mean next-token CE over the *logical* vocab: logits (B, S, V_padded)
+    in f32 with the padding lanes at -1e30, the log-sum-exp in f32, the mean
+    over B x S."""
+    vp = logits.shape[-1]
+    logits = logits.to(torch.float32)
+    if vp != logical_vocab:
+        lane = torch.arange(vp, device=logits.device)
+        logits = torch.where(lane >= logical_vocab, -1e30, logits)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(lse - gold)
+
+
+def loss_fn(params, batch: Dict, cfg: ModelConfig
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    logits, aux = T.forward(params, batch["tokens"], cfg)
+    ce = cross_entropy(logits, batch["labels"], cfg.vocab_size)
+    loss = ce + aux["aux_loss"] + aux["z_loss"]
+    return loss, {"loss": loss, "ce": ce, "aux_loss": aux["aux_loss"],
+                  "z_loss": aux["z_loss"]}
+
+
+def value_and_grad(params, batch: Dict, cfg: ModelConfig):
+    """``(loss, metrics), grads``: the gradient of ``loss_fn`` with respect
+    to every leaf of ``params``, as a tree shaped like it (f32 for f32
+    parameters)."""
+    leaves = tu.leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss, metrics = loss_fn(params, batch, cfg)
+    grads = torch.autograd.grad(loss, leaves)
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return (loss.detach(), metrics), tu.unflatten_like(params, list(grads))
+
+
+# ---------------------------------------------------------------------------
+# train steps
+# ---------------------------------------------------------------------------
+
+def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptimizerConfig):
+    """(params, opt_state, batch) -> (params, opt_state, metrics)."""
+
+    def train_step(params, opt_state, batch):
+        (_, metrics), grads = value_and_grad(params, batch, cfg)
+        params, opt_state, opt_metrics = adamw.apply_updates(
+            params, grads, opt_state, opt_cfg)
+        metrics.update(opt_metrics)
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def _stacked(tree):
+    """The per-layer leaves of ``tree["layers"]`` stacked into one leaf
+    each, as the reference's scanned segment holds them."""
+    return dict(tree, layers=tu.tree_map(lambda *xs: torch.stack(xs),
+                                         *tree["layers"]))
+
+
+def _unstacked(tree, n: int):
+    return dict(tree, layers=[tu.tree_map(lambda x: x[i], tree["layers"])
+                              for i in range(n)])
+
+
+def make_compressed_train_step(cfg: ModelConfig,
+                               opt_cfg: adamw.OptimizerConfig):
+    """(params, opt_state, err, batch) -> (params, opt_state, err, metrics):
+    the gradient passes the int8 error-feedback pipe
+    (:mod:`repro_torch.dist.compression`) before the optimizer; ``err``
+    comes from ``compression.init_error(params)``.  Each quantization
+    scale covers a leaf of the reference's layout, so a layer weight's
+    scale is shared by all layers, as in the reference's stacked
+    segment."""
+
+    def train_step(params, opt_state, err, batch):
+        (_, metrics), grads = value_and_grad(params, batch, cfg)
+        grads, err = comp.compressed_psum(_stacked(grads), _stacked(err),
+                                          axis_name=None)
+        grads, err = (_unstacked(t, cfg.n_layers) for t in (grads, err))
+        params, opt_state, opt_metrics = adamw.apply_updates(
+            params, grads, opt_state, opt_cfg)
+        metrics.update(opt_metrics)
+        return params, opt_state, err, metrics
+
+    return train_step
+
+
+def make_grad_accum_train_step(cfg: ModelConfig,
+                               opt_cfg: adamw.OptimizerConfig):
+    """Microbatched variant: the batch has a leading accumulation axis
+    (A, B/A, S); gradients and losses are summed in f32 over the A
+    microbatches in order and divided by ``opt_cfg.accum_steps``."""
+
+    def train_step(params, opt_state, batch):
+        gsum = tu.tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                 device=p.device), params)
+        lsum = torch.zeros((), dtype=torch.float32,
+                           device=tu.leaves(params)[0].device)
+        for i in range(batch["tokens"].shape[0]):
+            mb = {k: v[i] for k, v in batch.items()}
+            (loss, _), g = value_and_grad(params, mb, cfg)
+            gsum = tu.tree_map(torch.add, gsum, g)
+            lsum = lsum + loss
+        n = opt_cfg.accum_steps
+        grads = tu.tree_map(lambda g: g / n, gsum)
+        params, opt_state, opt_metrics = adamw.apply_updates(
+            params, grads, opt_state, opt_cfg)
+        opt_metrics["loss"] = lsum / n
+        return params, opt_state, opt_metrics
+
+    return train_step
+
+
+def init_params_fn(cfg: ModelConfig):
+    """``fn(seed=..., device=...)`` -> random parameters of ``cfg``."""
+    return functools.partial(T.init_params, cfg)
+
+
+# ---------------------------------------------------------------------------
+# serve steps
+# ---------------------------------------------------------------------------
 
 
 def make_prefill_step(cfg: ModelConfig, cache_len: int):

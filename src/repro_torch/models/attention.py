@@ -1,7 +1,8 @@
-"""Multi-head attention block wired to the CIMple int8 datapath (port of
-``repro/models/attention.py``: projections, the dense cache and its decode
-block with the sliding-window ring buffer, the paged pool, the paged decode
-block and the paged speculative-verify block).
+"""Multi-head attention block wired to the CIMple datapath (port of
+``repro/models/attention.py``: projections, the full-sequence block of
+training, the dense cache and its decode block with the sliding-window ring
+buffer, the paged pool, the paged decode block and the paged
+speculative-verify block).
 
 Projections run in the model's compute dtype; the score -> LUT softmax ->
 PV epilogue runs through :mod:`repro_torch.core.attention`.  The KV cache
@@ -33,6 +34,17 @@ def attn_block_init(gen, cfg: ModelConfig, *, device) -> L.Params:
         "wo": L.linear_init(gen, hq * hd, d, device=device,
                             std=(hq * hd) ** -0.5 / (2 * cfg.n_layers) ** 0.5),
     }
+
+
+def attn_block_apply(params, x: torch.Tensor, cfg: ModelConfig
+                     ) -> torch.Tensor:
+    """Full-sequence causal attention block of training: x (B, S, d) ->
+    (B, S, d), attention in ``cfg.attn_mode``."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(params, x, cfg, torch.arange(s, device=x.device))
+    out = core_attn.attention(q, k, v, cfg.attn_spec())
+    out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd)
+    return L.linear_apply(params["wo"], out, dtype=cfg.compute_dtype)
 
 
 def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig,
@@ -85,7 +97,7 @@ def attn_block_decode(params, x: torch.Tensor,
     the reference's out-of-bounds scatter is.
     """
     b = x.shape[0]
-    spec = cfg.attn_spec()
+    spec = cfg.attn_spec(serve=True)
     k_q, v_q = layer_cache["k_q"], layer_cache["v_q"]
     cache_size = k_q.shape[2]
     new_len = layer_cache["length"] + 1            # includes current token
@@ -153,7 +165,7 @@ def attn_block_decode_paged(params, x: torch.Tensor,
     v_pages[blk, :, off, :] = qlib.quantize(v[:, :, 0, :], s_v)
     out = core_attn.paged_decode_attention(
         q[:, :, 0, :], k_pages, v_pages, table, s_k, s_v, new_len,
-        cfg.attn_spec())
+        cfg.attn_spec(serve=True))
     out = out.reshape(b, 1, cfg.n_heads * hd)
     return L.linear_apply(params["wo"], out, dtype=cfg.compute_dtype)
 
@@ -184,6 +196,7 @@ def attn_block_verify_paged(params, x: torch.Tensor,
     paged_kv.append_kv(v_pages, table, base_len,
                        qlib.quantize(v, s_v).transpose(1, 2))
     out = core_attn.paged_verify_attention(
-        q, k_pages, v_pages, table, s_k, s_v, base_len + t, cfg.attn_spec())
+        q, k_pages, v_pages, table, s_k, s_v, base_len + t,
+        cfg.attn_spec(serve=True))
     out = out.transpose(1, 2).reshape(b, t, cfg.n_heads * cfg.hd)
     return L.linear_apply(params["wo"], out, dtype=cfg.compute_dtype)

@@ -59,9 +59,31 @@ def embedding_init(gen, vocab_padded: int, dim: int, *, device,
     return {"table": normal_init(gen, (vocab_padded, dim), std, device)}
 
 
+class _EmbeddingGather(torch.autograd.Function):
+    """``table[ids]`` whose backward is deterministic on the card: the rows'
+    gradient is the product ``onehot(ids)^T @ g`` (each output row's sum in
+    one GEMM's fixed order), not a scatter-add, whose CUDA path may add the
+    rows of a repeated token in any order."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.vocab = table.shape[0]
+        return table[ids]
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        flat = ids.reshape(-1)
+        n = flat.numel()
+        onehot = torch.zeros((n, ctx.vocab), dtype=g.dtype, device=g.device)
+        onehot[torch.arange(n, device=g.device), flat] = 1
+        return onehot.T @ g.reshape(n, -1), None
+
+
 def embedding_apply(params: Params, token_ids: torch.Tensor, *,
                     dtype: torch.dtype) -> torch.Tensor:
-    return params["table"][token_ids.long()].to(dtype)
+    return _EmbeddingGather.apply(params["table"], token_ids.long()).to(dtype)
 
 
 def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:

@@ -1,12 +1,15 @@
-"""Dense decoder assembly for int8 serving (port of
-``repro/models/transformer.py``, dense family, serve mode).
+"""Dense decoder assembly for training and int8 serving (port of
+``repro/models/transformer.py``, dense family).
 
 Parameters are a plain dict laid out like the reference's, except that the
-scanned layer stack is a Python list of per-layer dicts.  Two cache
+scanned layer stack is a Python list of per-layer dicts
+(:mod:`repro_torch.bridge` maps between the two).  Two cache
 layouts, told apart by their keys: the paged pool (``k_pages``, from
 :func:`make_paged_cache`) and the dense ``(slots, max_len)`` cache
 (``k_q``, from :func:`make_cache`).  Entry points:
 
+  * :func:`forward` — full-sequence logits: training mode (QAT attention,
+    per-block remat) or serve mode (the prefills' forward);
   * :func:`prefill` — run the whole batch, calibrate and fill a dense
     cache, return each row's last valid logits;
   * :func:`prefill_paged` — run a prompt, write its int8 K/V into the named
@@ -22,9 +25,10 @@ the reference's functional API.
 from __future__ import annotations
 
 import functools
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.core import attention as core_attn
@@ -89,25 +93,57 @@ def unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return L.linear_apply(params["lm_head"], x, dtype=torch.float32)
 
 
-def forward(params, tokens: torch.Tensor, cfg: ModelConfig
-            ) -> Tuple[torch.Tensor, List[Tuple[torch.Tensor, torch.Tensor]]]:
-    """Serve-mode forward: tokens (B, S) -> logits (B, S, vocab_padded) and
-    each layer's raw (k, v) (B, Hkv, S, hd) for the cache."""
-    x = embed_tokens(params, tokens, cfg)
+def _block_apply(lp, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """One training-mode block (attention in ``cfg.attn_mode``)."""
+    h = L.rmsnorm_apply(lp["norm1"], x)
+    x = x + A.attn_block_apply(lp["attn"], h, cfg)
+    h = L.rmsnorm_apply(lp["norm2"], x)
+    return x + M.mlp_apply(lp["mlp"], h, cfg)
+
+
+def _block_apply_serve(lp, x: torch.Tensor, cfg: ModelConfig,
+                       positions: torch.Tensor):
+    """One serve-mode block (``cfg.serve_attn_mode``), returning this
+    layer's raw (k, v) for the cache."""
     b, s, _ = x.shape
-    positions = torch.arange(s, device=x.device)
-    spec = cfg.attn_spec()
-    kvs = []
-    for lp in params["layers"]:
-        h = L.rmsnorm_apply(lp["norm1"], x)
-        q, k, v = A._project_qkv(lp["attn"], h, cfg, positions)
-        o = core_attn.attention(q, k, v, spec)
-        o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd)
-        x = x + L.linear_apply(lp["attn"]["wo"], o, dtype=cfg.compute_dtype)
-        h = L.rmsnorm_apply(lp["norm2"], x)
-        x = x + M.mlp_apply(lp["mlp"], h, cfg)
-        kvs.append((k, v))
-    return unembed(params, x, cfg), kvs
+    h = L.rmsnorm_apply(lp["norm1"], x)
+    q, k, v = A._project_qkv(lp["attn"], h, cfg, positions)
+    o = core_attn.attention(q, k, v, cfg.attn_spec(serve=True))
+    o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd)
+    x = x + L.linear_apply(lp["attn"]["wo"], o, dtype=cfg.compute_dtype)
+    h = L.rmsnorm_apply(lp["norm2"], x)
+    return x + M.mlp_apply(lp["mlp"], h, cfg), (k, v)
+
+
+def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
+            serve: bool = False) -> Tuple[torch.Tensor, Dict]:
+    """tokens (B, S) -> f32 logits (B, S, vocab_padded) and ``aux``.
+
+    Training mode (``serve=False``): attention in ``cfg.attn_mode``, each
+    block under ``torch.utils.checkpoint`` when ``cfg.remat``; ``aux``
+    holds the zero ``aux_loss`` and ``z_loss`` of the dense family.  Serve
+    mode: ``cfg.serve_attn_mode`` and ``aux["kv"]``, each layer's raw (k, v)
+    (B, Hkv, S, hd) for the cache.
+    """
+    x = embed_tokens(params, tokens, cfg)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux: Dict = {"aux_loss": zero, "z_loss": zero}
+    if serve:
+        positions = torch.arange(tokens.shape[1], device=x.device)
+        kvs = []
+        for lp in params["layers"]:
+            x, kv = _block_apply_serve(lp, x, cfg, positions)
+            kvs.append(kv)
+        aux["kv"] = kvs
+    else:
+        for lp in params["layers"]:
+            if cfg.remat:
+                x = checkpoint(functools.partial(_block_apply, lp, cfg=cfg),
+                               x, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = _block_apply(lp, x, cfg)
+    return unembed(params, x, cfg), aux
 
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda"
@@ -135,7 +171,8 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig,
     if valid_len is None:
         valid_len = torch.full((b,), s, dtype=torch.int32,
                                device=tokens.device)
-    logits, kvs = forward(params, tokens, cfg)
+    logits, aux = forward(params, tokens, cfg, serve=True)
+    kvs = aux["kv"]
     k_all = torch.stack([k for k, _ in kvs])        # (L, B, Hkv, S, hd)
     v_all = torch.stack([v for _, v in kvs])
     cache_size = cache["k_q"].shape[3]
@@ -183,7 +220,8 @@ def prefill_paged(params, tokens: torch.Tensor, cfg: ModelConfig,
     quantize with the existing scales, like decode.
     """
     b, s = tokens.shape
-    logits, kvs = forward(params, tokens, cfg)
+    logits, aux = forward(params, tokens, cfg, serve=True)
+    kvs = aux["kv"]
     block_k = cache["k_pages"].shape[3]
     mb = cache["block_table"].shape[1]
     if block_ids.shape[1] != mb:

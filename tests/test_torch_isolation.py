@@ -1,6 +1,7 @@
 """The PyTorch port imports neither JAX nor anything of the JAX package
-``repro`` (not even its JAX-free modules), and neither does
-``chip_smoke.py``: the machine with the card has no JAX."""
+``repro`` (not even its JAX-free modules), nor ``msgpack`` (its checkpoints
+carry their own codec), and neither does ``chip_smoke.py``: the machine
+with the card has none of them."""
 import os
 import re
 import subprocess
@@ -10,8 +11,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
 
-_IMPORT = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|repro)(\.|\s|$)")
-_DYNAMIC = re.compile(r"""(import_module|__import__)\(\s*f?["'](jax|repro)[."']""")
+_IMPORT = re.compile(
+    r"^\s*(from|import)\s+(jax|jaxlib|repro|msgpack)(\.|\s|$)")
+_DYNAMIC = re.compile(
+    r"""(import_module|__import__)\(\s*f?["'](jax|repro|msgpack)[."']""")
 
 _CHILD = """
 import importlib, pkgutil, sys
@@ -23,7 +26,7 @@ for name in names:
 sys.path.insert(0, ".")
 import chip_smoke  # noqa: F401  (module level only; main() needs a card)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+             if m.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack"))
 print(len(names), "modules;", "foreign:", bad)
 assert not bad, bad
 """
