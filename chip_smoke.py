@@ -12,7 +12,9 @@ Phases, each fatal on failure:
      250-token prefill and the dense path's 8 x 282 re-prefill, 8-slot
      ragged decode over the pool and over a 290-position dense cache,
      gamma 4 and 8 verify over both, and the verify at group 8 with gamma
-     16 at D 64 and gamma 8 at D 128) and at edge cases (length 0, 1 or
+     16 at D 64 and gamma 8 at D 128), at DeepSeekMoE-16B's (16/16 heads,
+     MHA at D 128: its 250-token prefill, 8-slot decode and gamma 4
+     verify) and at edge cases (length 0, 1 or
      gamma, tile boundaries, window, padding mask, an idle slot, a dense
      cache no tile divides, block 0 filled with 127 and then -77); every
      split-softmax kernel bit for bit its plain version's ``exact=True``
@@ -76,6 +78,18 @@ Phases, each fatal on failure:
      grad norm repeat the run's first bit for bit.  Kernel 1 is also held
      against its exact plain version and timed at B 1 x 2048 in phases 3
      and 4.
+  8. the MoE family: both MoE smoke configs (DeepSeekMoE, Mixtral) in f32
+     on the card against the CPU (paged prefill + 8 decode steps within
+     2e-3 of the logits' scale, a small churn's tokens equal); then
+     DeepSeekMoE-16B at full width (28 layers, d_model 2048, 64 experts,
+     top-6, 2 shared; seeded random weights drawn on the card leaf by leaf
+     in bf16), once the training phases' memory is freed: the churn
+     through ``serve_paged`` with ``warmup=True`` (launch counts as in
+     6a), one batch under the profiler, the row-count check, the churn
+     through ``serve_speculative`` self-drafted at gamma 4 (tokens those of
+     the plain churn, kernel 3 counted), and layer 1 on one prompt against
+     an f32 recomputation on the card (routing and dropped set equal
+     outside near-ties, output within a stated bf16 tolerance).
 
 Kernels 7 (dense verify) and 8 (int8 GEMM) have no caller in any model, as
 in the reference: they are checked and timed in phases 3 and 4 and stand in the
@@ -112,6 +126,10 @@ REPREFILL = dict(b=8, hq=32, hkv=4, s=282, d=64)
 # the fakequant->int8 check's int8 forward at full width: TinyLlama's 2048
 # pretraining context, one sequence
 INT8_CHECK = dict(b=1, hq=32, hkv=4, s=2048, d=64)
+# DeepSeekMoE-16B's attention (MHA, group 1, at D 128) at the churn's
+# shapes: a 250-token admission, 8 slots over the pool, gamma 4 verify
+MOE_HEADS = dict(hq=16, hkv=16, d=128)
+MOE_PREFILL = dict(b=1, s=250, **MOE_HEADS)
 # (m, k, n); the last is the timed TinyLlama width
 GEMMS = [(256, 512, 256), (128, 128, 128), (512, 256, 384), (300, 1000, 130),
          (1, 16, 5), (129, 272, 264), (2048, 2048, 5632)]
@@ -136,6 +154,15 @@ TRAIN_SMOKE = dict(batch=8, seq=64, seed=0, steps=5)
 FQ_INT8 = dict(steps=30, batch=8, seq=48, seed=11, tokens=32)
 TRAIN_FULL = dict(batch=4, seq=2048, steps=8, warmup=2, seed=0)
 H100_BF16_FLOPS = 989e12       # H100 SXM dense bf16 tensor-core peak
+# the MoE family: DeepSeekMoE-16B at full width (the one MoE config of the
+# reference's registry that one card holds), both MoE smoke configs
+MOE_ARCH = "deepseek_moe_16b"
+MOE_SMOKE_ARCHS = ("deepseek_moe_16b", "mixtral_8x22b")
+# router probabilities this close at the k-th/(k+1)-th rank may swap
+MOE_TIE = 1e-6
+# the MoE layer check's bf16 tolerances (see moe_layer_check)
+MOE_TOL_MAX = 2 ** -5
+MOE_TOL_RMS = 2 ** -7
 
 
 class SmokeFailure(RuntimeError):
@@ -326,6 +353,10 @@ def prefill_phase(torch, F, dev):
         dict(b=2, hq=8, hkv=2, sq=100, sk=100, d=16),
         dict(b=1, hq=8, hkv=8, sq=100, sk=100, d=64, window=16),
         dict(b=1, hq=4, hkv=1, sq=50, sk=100, d=32, causal=False, kv_valid=70),
+        # MHA at D 128 (the kKSteps 4 instance): DeepSeekMoE's admission,
+        # and a ragged tail
+        dict(b=1, hq=16, hkv=16, sq=250, sk=250, d=128),
+        dict(b=1, hq=16, hkv=16, sq=33, sk=33, d=128),
     ]
     for e in edges:
         _, _, err, tol, _ = case(**e)
@@ -388,12 +419,25 @@ def prefill_phase(torch, F, dev):
     print(f"[prefill] int8 check {c}: == exact oracle, max_abs_err "
           f"{cerr:.3g} (tol {ctol:.3g}), kernel host-inclusive {c_ms:.4f} ms, "
           f"plain {c_plain_ms:.4f} ms, bound {c_bms:.5f} ms ({c_by})")
+    # DeepSeekMoE-16B's admission: MHA at D 128
+    m = MOE_PREFILL
+    margs, mkw, merr, mtol, (mq, mk, mv) = case(m["b"], m["hq"], m["hkv"],
+                                                m["s"], m["s"], m["d"])
+    GRAPHED["prefill moe"] = lambda: K.splitmax_attention_cuda(*margs, **mkw)
+    GRAPHED["prefill moe sdpa"] = sdpa_fn(mq, mk, mv)
+    m_ms = time_ms(torch, GRAPHED["prefill moe"])
+    m_plain_ms = time_ms(torch, lambda: K.splitmax_attention_plain(
+        *margs, **mkw), iters=10)
+    m_bms, m_by = prefill_bound(m["b"], m["hq"], m["hkv"], m["s"], m["d"])
+    print(f"[prefill] moe {m}: == exact oracle, max_abs_err {merr:.3g} (tol "
+          f"{mtol:.3g}), kernel host-inclusive {m_ms:.4f} ms, plain "
+          f"{m_plain_ms:.4f} ms, bound {m_bms:.5f} ms ({m_by})")
     return {"name": "splitmax_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/splitmax_attn.cu",
             "replaces": "src/repro/kernels/splitmax_attn.py:181",
             "path": "paged admissions and resumes, dense re-prefills, the "
-                    "fakequant->int8 check's int8 forward",
-            "max_abs_err": max(err, rerr, cerr), "exact_equal": True,
+                    "fakequant->int8 check's int8 forward, MoE admissions",
+            "max_abs_err": max(err, rerr, cerr, merr), "exact_equal": True,
             "graph": "prefill", "library_graph": "prefill sdpa",
             "host_ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by,
@@ -404,7 +448,11 @@ def prefill_phase(torch, F, dev):
             "int8_check": {"shape": c, "graph": "prefill 2048",
                            "library_graph": "prefill 2048 sdpa",
                            "host_ms": c_ms, "plain_ms": c_plain_ms,
-                           "bound_ms": c_bms, "bound_by": c_by}}
+                           "bound_ms": c_bms, "bound_by": c_by},
+            "moe": {"shape": m, "graph": "prefill moe",
+                    "library_graph": "prefill moe sdpa", "host_ms": m_ms,
+                    "plain_ms": m_plain_ms, "bound_ms": m_bms,
+                    "bound_by": m_by}}
 
 
 # ----------------------------------------------------------------- decode --
@@ -467,6 +515,11 @@ def decode_phase(torch, F, dev):
                        window=48)
     print(f"[decode] window 48: == exact oracle, max_abs_err {err:.3g} (tol "
           f"{tol:.3g})")
+    mh = (MOE_HEADS["hq"], MOE_HEADS["hkv"], MOE_HEADS["d"])
+    err, tol = compare(make(edge_lens, *mh, bk, idle=(6,)),
+                       "moe heads edges (group 1, d 128)")
+    print(f"[decode] group 1, d 128, lens {edge_lens} (slot 6 idle): == "
+          f"exact oracle, max_abs_err {err:.3g} (tol {tol:.3g})")
 
     lens = torch.randint(p["prompt"] + 1, p["prompt"] + p["gen"] + 1,
                          (p["b"],), generator=gen, device=dev).tolist()
@@ -482,24 +535,50 @@ def decode_phase(torch, F, dev):
     b = p["b"]
     GRAPHED["decode sdpa"] = sdpa_decode_yardstick(torch, F, gen, dev, b, hq,
                                                    d, [[n] for n in lens])
-    total = sum(lens)
-    tiles = sum(paged_kv.blocks_per_seq(n, bk) for n in lens)
-    n_bytes = (4 * b * hq * d                    # f32 q
-               + 2 * hkv * d * total             # int8 k, v at live positions
-               + 4 * tiles + 4 * b * 3           # table entries, lens, scales
-               + 4 * b * hq * d                  # f32 out
-               + 4 * (256 + cfg.recip_table_size))
-    bms, by = bound_ms(n_bytes, total * hq * 6 * d)
+
+    def decode_bound(lens, hq, hkv, d):
+        total = sum(lens)
+        tiles = sum(paged_kv.blocks_per_seq(n, bk) for n in lens)
+        n_bytes = (4 * b * hq * d                # f32 q
+                   + 2 * hkv * d * total         # int8 k, v at live positions
+                   + 4 * tiles + 4 * b * 3       # table entries, lens, scales
+                   + 4 * b * hq * d              # f32 out
+                   + 4 * (256 + cfg.recip_table_size))
+        return bound_ms(n_bytes, total * hq * 6 * d)
+
+    bms, by = decode_bound(lens, hq, hkv, d)
     print(f"[decode] main lens {lens}: == exact oracle, max_abs_err "
           f"{err:.3g} (tol {tol:.3g}), kernel host-inclusive {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms, bound {bms:.5f} ms ({by})")
+    # DeepSeekMoE-16B's decode: 8 slots, group 1 at D 128
+    m_lens = torch.randint(p["prompt"] + 1, p["prompt"] + p["gen"] + 1,
+                           (b,), generator=gen, device=dev).tolist()
+    m_args = make(m_lens, *mh, bk)
+    m_err, _ = compare(m_args, f"moe main lens {m_lens}")
+    m_args[1][paged_kv.TRASH_BLOCK] = 127
+    m_args[2][paged_kv.TRASH_BLOCK] = 127
+    GRAPHED["decode moe"] = lambda: K.splitmax_decode_fused_paged_cuda(
+        *m_args, cfg=cfg)
+    GRAPHED["decode moe sdpa"] = sdpa_decode_yardstick(
+        torch, F, gen, dev, b, mh[0], mh[2], [[n] for n in m_lens])
+    m_ms = time_ms(torch, GRAPHED["decode moe"])
+    m_plain_ms = time_ms(torch, lambda: K.splitmax_decode_fused_paged_plain(
+        *m_args, cfg=cfg), iters=10)
+    m_bms, m_by = decode_bound(m_lens, *mh)
+    print(f"[decode] moe main lens {m_lens} heads {mh}: == exact oracle, "
+          f"max_abs_err {m_err:.3g}, kernel host-inclusive {m_ms:.4f} ms, "
+          f"plain {m_plain_ms:.4f} ms, bound {m_bms:.5f} ms ({m_by})")
     return {"name": "splitmax_decode_fused_paged", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/splitmax_decode.cu",
             "replaces": "src/repro/kernels/splitmax_decode.py:747",
             "path": "paged decode steps, draft steps",
-            "max_abs_err": err, "exact_equal": True, "graph": "decode",
-            "library_graph": "decode sdpa", "host_ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by}, args
+            "max_abs_err": max(err, m_err), "exact_equal": True,
+            "graph": "decode", "library_graph": "decode sdpa", "host_ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "moe": {"shape": dict(b=b, lens=m_lens, **MOE_HEADS),
+                    "graph": "decode moe", "library_graph": "decode moe sdpa",
+                    "host_ms": m_ms, "plain_ms": m_plain_ms,
+                    "bound_ms": m_bms, "bound_by": m_by}}, args
 
 
 # ----------------------------------------------------------------- verify --
@@ -572,6 +651,19 @@ def verify_phase(torch, F, dev):
         case(edges, gamma, "edges window 48", window=48, idle=(4,))
     case([40, 77, 96], 4, "smoke-width heads d 64")
 
+    def verify_bound(lens, gamma, hq, hkv, d):
+        b = len(lens)
+        q_lens = [[n - (gamma - 1 - t) for t in range(gamma)] for n in lens]
+        tiles = sum(paged_kv.blocks_per_seq(n, bk) for n in lens)
+        pairs = hq * sum(sum(row) for row in q_lens)    # live (query, key)
+        n_bytes = (4 * b * hq * gamma * d           # f32 q
+                   + 2 * hkv * d * sum(lens)        # int8 k, v, read once
+                   + 4 * tiles + 4 * b              # table entries, lens
+                   + 2 * 4 * b * gamma + 4          # m_z, s_q, s_v
+                   + 4 * b * hq * gamma * d         # f32 out
+                   + 4 * (256 + cfg.recip_table_size))
+        return bound_ms(n_bytes, pairs * 6 * d)
+
     results = []
     for gamma in p["gammas"]:
         lens = torch.randint(p["lens"][0], p["lens"][1] + 1, (p["b"],),
@@ -595,15 +687,7 @@ def verify_phase(torch, F, dev):
         q_lens = [[n - (gamma - 1 - t) for t in range(gamma)] for n in lens]
         GRAPHED[f"{key} sdpa"] = sdpa_decode_yardstick(torch, F, gen, dev, b,
                                                        hq, d, q_lens)
-        tiles = sum(paged_kv.blocks_per_seq(n, bk) for n in lens)
-        pairs = hq * sum(sum(row) for row in q_lens)    # live (query, key)
-        n_bytes = (4 * b * hq * gamma * d           # f32 q
-                   + 2 * hkv * d * sum(lens)        # int8 k, v, read once
-                   + 4 * tiles + 4 * b              # table entries, lens
-                   + 2 * 4 * b * gamma + 4          # m_z, s_q, s_v
-                   + 4 * b * hq * gamma * d         # f32 out
-                   + 4 * (256 + cfg.recip_table_size))
-        bms, by = bound_ms(n_bytes, pairs * 6 * d)
+        bms, by = verify_bound(lens, gamma, hq, hkv, d)
         print(f"[verify] main gamma {gamma}: kernel host-inclusive {ms:.4f} "
               f"ms, plain {plain_ms:.4f} ms, bound {bms:.5f} ms ({by})")
         results.append({
@@ -628,8 +712,40 @@ def verify_phase(torch, F, dev):
         GRAPHED[f"verify g{gamma} d{wide}"] = (
             lambda a=args: K.splitmax_decode_fused_verify_paged_cuda(*a,
                                                                      cfg=cfg))
+    # DeepSeekMoE-16B's verify: group 1 at D 128, the serving gamma
+    mh = (MOE_HEADS["hq"], MOE_HEADS["hkv"], MOE_HEADS["d"])
+    gamma = SPEC["gamma"]
+    edges = [gamma, bk, 2 * bk + gamma // 2, 250, gamma, 282, 96, 33]
+    for window in (None, 48):
+        case(edges, gamma, "moe heads (group 1, d 128)", window=window,
+             idle=(4,), heads=mh)
+    m_lens = torch.randint(p["lens"][0], p["lens"][1] + 1, (p["b"],),
+                           generator=gen, device=dev).tolist()
+    m_args, m_rows, m_err, _ = case(m_lens, gamma, "moe main", heads=mh)
+    m_args[1][paged_kv.TRASH_BLOCK] = 127
+    m_args[2][paged_kv.TRASH_BLOCK] = 127
+    GRAPHED["verify moe"] = lambda: K.splitmax_decode_fused_verify_paged_cuda(
+        *m_args, cfg=cfg)
+    GRAPHED["verify moe sdpa"] = sdpa_decode_yardstick(
+        torch, F, gen, dev, p["b"], mh[0], mh[2],
+        [[n - (gamma - 1 - t) for t in range(gamma)] for n in m_lens])
+    m_ms = time_ms(torch, GRAPHED["verify moe"])
+    m_plain_ms = time_ms(
+        torch, lambda: K.splitmax_decode_fused_verify_paged_plain(
+            *m_args, cfg=cfg), iters=10)
+    m_bms, m_by = verify_bound(m_lens, gamma, *mh)
+    print(f"[verify] moe main gamma {gamma} heads {mh}: kernel "
+          f"host-inclusive {m_ms:.4f} ms, plain {m_plain_ms:.4f} ms, bound "
+          f"{m_bms:.5f} ms ({m_by})")
     # the serving path runs gamma = SPEC["gamma"]: its row goes in the line
-    return next(r for r in results if r["gamma"] == SPEC["gamma"])
+    main = next(r for r in results if r["gamma"] == SPEC["gamma"])
+    main["max_abs_err"] = max(main["max_abs_err"], m_err)
+    main["moe"] = {"shape": dict(b=p["b"], lens=m_lens, gamma=gamma,
+                                 **MOE_HEADS),
+                   "graph": "verify moe", "library_graph": "verify moe sdpa",
+                   "host_ms": m_ms, "plain_ms": m_plain_ms,
+                   "bound_ms": m_bms, "bound_by": m_by}
+    return main
 
 
 # --------------------------------------------------------------- composed --
@@ -1103,7 +1219,7 @@ def graph_phase(torch, dev, kernels):
 
     for k in kernels:
         fill(k)
-        for sub in ("reprefill", "int8_check"):
+        for sub in ("reprefill", "int8_check", "moe"):
             if sub in k:
                 fill(k[sub])
     return floor
@@ -1111,12 +1227,41 @@ def graph_phase(torch, dev, kernels):
 
 # ------------------------------------------------------- model reference --
 
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
 def tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: tree_to(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
         return [tree_to(v, device) for v in tree]
     return tree.to(device)
+
+
+def smoke_paged_logits(torch, params, cfg, tokens, device, steps: int = 8):
+    """Paged prefill of ``tokens (1, S)`` and ``steps`` greedy decode steps
+    on ``device``: the stacked logits, on the CPU."""
+    from repro_torch.models import transformer as T
+    p = tree_to(params, device)
+    cache = T.make_paged_cache(cfg, 1, 40, block_k=8, device=device)
+    row = torch.arange(1, 6, dtype=torch.int32, device=device)[None]
+    tok = torch.as_tensor(tokens, device=device)
+    last, cache = T.prefill_paged(p, tok, cfg, cache,
+                                  torch.zeros(1, dtype=torch.int32,
+                                              device=device), row,
+                                  calibrate=True)
+    outs = [last]
+    nxt = torch.argmax(last, -1)
+    for _ in range(steps):
+        logits, cache = T.decode_step(p, nxt, cfg, cache)
+        outs.append(logits)
+        nxt = torch.argmax(logits, -1)
+    return torch.stack(outs).cpu()
 
 
 def smoke_reference_phase(torch, dev):
@@ -1135,25 +1280,8 @@ def smoke_reference_phase(torch, dev):
     cpu = torch.device("cpu")
     params = T.init_params(cfg, seed=0, device=cpu)
     tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 20))
-
-    def run(device):
-        p = tree_to(params, device)
-        cache = T.make_paged_cache(cfg, 1, 40, block_k=8, device=device)
-        row = torch.arange(1, 6, dtype=torch.int32, device=device)[None]
-        tok = torch.as_tensor(tokens, device=device)
-        last, cache = T.prefill_paged(p, tok, cfg, cache,
-                                      torch.zeros(1, dtype=torch.int32,
-                                                  device=device), row,
-                                      calibrate=True)
-        outs = [last]
-        nxt = torch.argmax(last, -1)
-        for _ in range(8):
-            logits, cache = T.decode_step(p, nxt, cfg, cache)
-            outs.append(logits)
-            nxt = torch.argmax(logits, -1)
-        return torch.stack(outs).cpu()
-
-    gpu, ref = run(dev), run(cpu)
+    gpu = smoke_paged_logits(torch, params, cfg, tokens, dev)
+    ref = smoke_paged_logits(torch, params, cfg, tokens, cpu)
     err = float((gpu - ref).abs().max())
     scale = float(ref.abs().max())
     check(bool(torch.isfinite(gpu).all()), "smoke model: non-finite logits")
@@ -1758,33 +1886,48 @@ def train_full_phase(torch, dev):
 
 def rows_agree(torch, dev, params, cfg, b: int, t: int) -> bool:
     """Whether a row's result depends on the number of rows it is computed
-    with: decode runs B rows, verify B * T.  For each linear weight of layer
-    0 in the compute dtype, ``x[:B] @ W`` against the first B rows of
-    ``x @ W`` at M = B * T; verify runs these GEMMs on all B * T rows, so
-    the answer decides whether full-width tokens must equal.  The RMSNorm
-    and the f32 LM head are shown too: verify runs them one token at a
-    time, at the decode step's shape, because their rows do depend on it."""
+    with: decode runs B rows, verify B * T.  For each linear weight of the
+    first layer of each kind in the compute dtype, ``x[:B] @ W`` against
+    the first B rows of ``x @ W`` at M = B * T.  Verify runs the attention
+    projections on all B * T rows, so their answer decides whether
+    full-width tokens must equal.  The rest is shown too: verify runs the
+    RMSNorms, the MLP (DeepSeekMoE's d_ff 10944 down projection sums in a
+    row-count-dependent order), the MoE router and shared experts and the
+    f32 LM head one token at a time, at the decode step's shape.  (The
+    expert GEMMs have the same shape in both: their rows are the capacity
+    slots.)"""
     gen = torch.Generator(device=dev).manual_seed(6)
-    lp = params["layers"][0]
-    weights = [("wq", lp["attn"]["wq"]["w"]), ("wk", lp["attn"]["wk"]["w"]),
-               ("wv", lp["attn"]["wv"]["w"]), ("wo", lp["attn"]["wo"]["w"]),
-               ("w_in", lp["mlp"]["w_in"]["w"]),
-               ("w_gate", lp["mlp"]["w_gate"]["w"]),
-               ("w_out", lp["mlp"]["w_out"]["w"]),
-               ("lm_head", params["lm_head"]["w"])]
+    weights, per_token, seen = [], [("lm_head", params["lm_head"]["w"])], set()
+    for i, lp in enumerate(params["layers"]):
+        kind = "moe" if "moe" in lp else "dense"
+        if kind in seen:
+            continue
+        seen.add(kind)
+        weights += [(f"layer {i} {n}", lp["attn"][n]["w"])
+                    for n in ("wq", "wk", "wv", "wo")]
+        if kind == "moe":
+            per_token.append((f"layer {i} router", lp["moe"]["router"]["w"]))
+        ffn = lp["mlp"] if kind == "dense" else lp["moe"].get("shared")
+        if ffn is not None:
+            tag = "mlp" if kind == "dense" else "shared"
+            per_token += [(f"layer {i} {tag} {n}", ffn[n]["w"])
+                          for n in ("w_in", "w_gate", "w_out")]
     verdicts = []
-    for name, w in weights:
-        w = w.to(torch.float32 if name == "lm_head" else cfg.compute_dtype)
+    tokenwise_names = {name for name, _ in per_token}
+    for name, w in weights + per_token:
+        tokenwise = name in tokenwise_names
+        w = w.to(torch.float32 if "lm_head" in name or "router" in name
+                 else cfg.compute_dtype)
         x = torch.randn((b * t, w.shape[0]), generator=gen, device=dev
                         ).to(w.dtype)
         small, big = x[:b] @ w, (x @ w)[:b]
         same = torch.equal(small, big)
-        if name != "lm_head":
+        if not tokenwise:
             verdicts.append(same)
         print(f"[rows] {name} {tuple(w.shape)} {w.dtype}: rows at M={b} "
               f"{'==' if same else '!='} rows at M={b * t} (max diff "
               f"{float((small.float() - big.float()).abs().max()):.3g})"
-              + ("; verify runs it per token" if name == "lm_head" else ""))
+              + ("; verify runs it per token" if tokenwise else ""))
     # the RMSNorm's f32 mean of squares, per token slice vs all tokens
     x = torch.randn((b, t, cfg.d_model), generator=gen, device=dev)
     small = torch.cat([torch.mean(torch.square(x[:, i:i + 1].contiguous()),
@@ -1954,6 +2097,226 @@ def dense_serve_phase(torch, dev, params, cfg):
             "splitmax_decode": nc[2]}
 
 
+# ------------------------------------------------------------------- MoE --
+
+def moe_smoke_phase(torch, dev):
+    """Both MoE smoke configs (DeepSeekMoE: 1 dense layer, then MoE with
+    shared experts; Mixtral: GQA, window 32) in f32, kernels on the card
+    vs plain versions on the CPU, same weights: paged prefill logits and 8
+    decode steps within 2e-3 of the logits' scale, and the served tokens of
+    a small churn (24-token prompts, up to 16 generated: past the window)
+    equal."""
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve as srv
+    from repro_torch.models import transformer as T
+
+    cpu = torch.device("cpu")
+    for arch in MOE_SMOKE_ARCHS:
+        cfg = get_arch(arch).smoke.replace(dtype="float32")
+        params = T.init_params(cfg, seed=0, device=cpu)
+        tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 20))
+        gpu = smoke_paged_logits(torch, params, cfg, tokens, dev)
+        ref = smoke_paged_logits(torch, params, cfg, tokens, cpu)
+        err = float((gpu - ref).abs().max())
+        scale = float(ref.abs().max())
+        check(bool(torch.isfinite(gpu).all()), f"{arch} smoke: non-finite")
+        check(err <= 2e-3 * scale, f"{arch} smoke: max|gpu-cpu| logits "
+              f"{err:.3g} > 2e-3 * {scale:.3g}")
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab_size, 24, dtype=np.int32)
+                   for _ in range(6)]
+        gens = [int(g) for g in rng.integers(8, 17, 6)]
+        kw = dict(slots=3, gen=16, gens=gens, block_k=8)
+        on_card = srv.serve_paged(tree_to(params, dev), cfg, prompts, **kw)
+        on_cpu = srv.serve_paged(params, cfg, prompts, **kw)
+        check_served(on_card, gens, cfg.vocab_size, f"{arch} smoke churn")
+        check(on_card["finished"] == on_cpu["finished"],
+              f"{arch} smoke churn: card tokens differ from the CPU's")
+        print(f"[moe-smoke] {arch} smoke (f32), card vs CPU plain path: "
+              f"prefill + 8 decode steps max|logit diff| {err:.3g} (logits "
+              f"up to {scale:.3g}; tol 2e-3 of that); 6-request churn "
+              f"tokens == CPU tokens")
+
+
+def moe_layer_check(torch, params, cfg, prompt):
+    """Layer 1 (the first MoE layer) of the bf16 serving path against an
+    f32 recomputation of the same ``moe_apply`` on the card from the same
+    weights, on the hidden states of one admitted prompt (its serve-mode
+    forward, the layer's input captured): routing indices equal for every
+    token whose k-th and (k+1)-th probabilities are more than ``MOE_TIE``
+    apart, queue positions and the dropped set equal up to the first token
+    within it, and the output within the stated bf16 tolerance."""
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+
+    captured = []
+    apply = MOE.moe_apply
+
+    def capture(p, x, c, **kw):
+        if not captured:
+            captured.append(x)
+        return apply(p, x, c, **kw)
+
+    MOE.moe_apply = capture
+    try:
+        T.forward(params, torch.as_tensor(prompt[None], device=params[
+            "embed"]["table"].device), cfg, serve=True)
+    finally:
+        MOE.moe_apply = apply
+    h = captured[0]                                         # (1, S, d) bf16
+    layer = params["layers"][cfg.moe.first_dense_layers]["moe"]
+    c32 = cfg.replace(dtype="float32")
+    mc = cfg.moe
+    *_, idx = MOE.route(layer, h, cfg)
+    _, probs32, _, idx32 = MOE.route(layer, h.float(), c32)
+    top = torch.topk(probs32, mc.top_k + 1, dim=-1).values
+    tie = (top[..., -2] - top[..., -1] <= MOE_TIE)[0]
+    n_tie = int(tie.sum())
+    check(n_tie <= 0.01 * tie.numel(), f"moe layer: {n_tie} near-tie tokens")
+    ok = ~tie
+    check(torch.equal(idx[0][ok], idx32[0][ok]), "moe layer: routing indices "
+          "differ between bf16 and f32")
+    # queue positions cascade: compare up to the first near-tie token
+    first = int(tie.nonzero()[0]) if n_tie else h.shape[1]
+    cap = MOE._capacity(mc, h.shape[1])
+    pos = MOE.queue_positions(idx, mc.n_experts)[:, :first]
+    pos32 = MOE.queue_positions(idx32, mc.n_experts)[:, :first]
+    check(torch.equal(pos, pos32), "moe layer: queue positions differ")
+    dropped = int((pos >= cap).sum())
+    out, _ = MOE.moe_apply(layer, h, cfg, losses=False)
+    ref, _ = MOE.moe_apply(layer, h.float(), c32, losses=False)
+    diff = (out.float() - ref)[:, :first]
+    ref = ref[:, :first]
+    err, scale = float(diff.abs().max()), float(ref.abs().max())
+    rel_rms = float(diff.square().mean().sqrt() / ref.square().mean().sqrt())
+    check(bool(torch.isfinite(out).all()), "moe layer: non-finite output")
+    # bf16's unit roundoff u = 2^-8: the serving path rounds the expert
+    # GEMMs' outputs, the SwiGLU product, the down projection's output,
+    # the gate weights and the combined sum, each <= u relative, and they
+    # add like a random walk: the rms error stays under 2u = 2^-7 of the
+    # output's rms and every element under 8u = 2^-5 of its largest value
+    check(err <= MOE_TOL_MAX * scale and rel_rms <= MOE_TOL_RMS,
+          f"moe layer: bf16 vs f32 max|diff| {err:.3g} (> {MOE_TOL_MAX} * "
+          f"{scale:.3g}?) rms {rel_rms:.3g} (> {MOE_TOL_RMS}?)")
+    print(f"[moe] layer {cfg.moe.first_dense_layers} on a {h.shape[1]}-token "
+          f"prompt, bf16 serving path vs f32 recomputation on the card: "
+          f"routing equal ({n_tie} near-tie tokens within {MOE_TIE} left "
+          f"out), capacity {cap}, {dropped} dropped assignments in both, "
+          f"max|diff| {err:.3g} of {scale:.3g} ({err / scale:.3g}; tol "
+          f"{MOE_TOL_MAX}), rms {rel_rms:.3g} (tol {MOE_TOL_RMS})")
+
+
+def moe_phase(torch, dev):
+    """DeepSeekMoE-16B at full width on the card, drawn leaf by leaf in
+    bf16 (router and LM head f32): the churn through ``serve_paged`` with
+    its warm-up, one batch under the profiler, the row-count check, the
+    churn through ``serve_speculative`` self-drafted at gamma 4 (tokens
+    those of the plain churn), and the layer check.  Returns the main
+    paths' launches of kernels 1, 2 and 3."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import splitmax_attn, splitmax_decode as K
+    from repro_torch.launch import serve as srv
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_arch(MOE_ARCH).config
+    mc = cfg.moe
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=SERVE["seed"], device=dev, serving=True)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    w_bytes = sum(x.numel() * x.element_size()
+                  for x in tree_leaves(params))
+    init_peak = torch.cuda.max_memory_allocated()
+    # the f32 masters (65.5 GB) are never all on the card: at most one f32
+    # leaf (the largest, the 0.84 GB embedding draw) beside the weights
+    check(init_peak <= w_bytes + 2 ** 30, f"moe init: peak "
+          f"{init_peak / 1e9:.2f} GB for {w_bytes / 1e9:.2f} GB of weights")
+    print(f"[moe] {cfg.name} at full width: {cfg.n_layers} layers "
+          f"({mc.first_dense_layers} dense, then MoE), d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, "
+          f"{mc.n_experts} experts of d_ff {mc.d_ff_expert}, top-{mc.top_k}, "
+          f"{mc.n_shared} shared, capacity factor {mc.capacity_factor}, "
+          f"vocab {cfg.vocab_size}; {cfg.param_count():,} parameters "
+          f"({cfg.active_param_count():,} active), seeded random weights "
+          f"drawn leaf by leaf in {init_s:.2f} s: {w_bytes / 1e9:.2f} GB, "
+          f"peak {init_peak / 1e9:.2f} GB")
+
+    prompts, gens = churn(cfg)
+    kw = dict(slots=SERVE["slots"], gen=SERVE["gen"], gens=gens,
+              block_k=SERVE["block_k"])
+    splitmax_attn.launches = K.launches = 0
+    stats = srv.serve_paged(params, cfg, prompts, warmup=True, **kw)
+    torch.cuda.synchronize()
+    n_prefill, n_decode = splitmax_attn.launches, K.launches
+    check_served(stats, gens, cfg.vocab_size, "moe churn")
+    n_warm = (stats["warmup_prefills"], stats["warmup_decode_steps"])
+    check(n_warm == (2, 1), f"moe warm-up ran {n_warm} prefills and decodes")
+    check(n_prefill == (stats["slot_prefills"] + n_warm[0]) * cfg.n_layers,
+          f"moe prefill launches {n_prefill} != ({stats['slot_prefills']} "
+          f"admissions + {n_warm[0]} warm-up) x {cfg.n_layers} layers")
+    check(n_decode == (stats["decode_steps"] + n_warm[1]) * cfg.n_layers,
+          f"moe decode launches {n_decode} != ({stats['decode_steps']} steps "
+          f"+ {n_warm[1]} warm-up) x {cfg.n_layers} layers")
+    print(f"[moe] churn {SERVE}: served {stats['served']}, "
+          f"{stats['total_tokens']} tokens in {stats['wall_s']:.3f} s, "
+          f"{stats['tok_s']:.1f} tok/s, {stats['decode_steps']} decode steps, "
+          f"{stats['slot_prefills']} slot prefills, p50/p99 step "
+          f"{stats['p50_step_ms']:.2f}/{stats['p99_step_ms']:.2f} ms, leaked "
+          f"{stats['leaked_blocks']}, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, launches "
+          f"prefill {n_prefill} decode {n_decode} (warm-up included)")
+    profile_serving(torch, srv, params, cfg, prompts[:SERVE["slots"]])
+
+    gamma = SPEC["gamma"]
+    rows_agree(torch, dev, params, cfg, SERVE["slots"], gamma)
+    # warm-up: the verify GEMM shapes (M = slots * gamma)
+    srv.serve(params, cfg, prompts[:2], slots=2, gen=4, gamma=gamma,
+              draft="self", block_k=SERVE["block_k"])
+    torch.cuda.synchronize()
+    splitmax_attn.launches = K.launches = K.verify_launches = 0
+    spec = srv.serve_speculative(params, cfg, prompts, gamma=gamma, **kw)
+    torch.cuda.synchronize()
+    n_pre, n_dec, n_ver = (splitmax_attn.launches, K.launches,
+                           K.verify_launches)
+    check_served(spec, gens, cfg.vocab_size, "moe speculative")
+    check(n_ver == spec["verify_steps"] * cfg.n_layers > 0,
+          f"moe speculative: verify launches {n_ver} != "
+          f"{spec['verify_steps']} rounds x {cfg.n_layers}")
+    check(n_dec == spec["draft_steps"] * gamma * cfg.n_layers,
+          f"moe speculative: decode launches {n_dec} != "
+          f"{spec['draft_steps']} x {gamma} x {cfg.n_layers}")
+    check(n_pre == spec["slot_prefills"] * cfg.n_layers,
+          f"moe speculative: prefill launches {n_pre} != "
+          f"{spec['slot_prefills']} x {cfg.n_layers}")
+    same = sum(spec["finished"][r] == stats["finished"][r]
+               for r in stats["finished"])
+    check(same == len(stats["finished"]),
+          f"moe speculative: tokens differ from plain serving in "
+          f"{len(stats['finished']) - same} requests")
+    print(f"[moe] speculative self gamma {gamma}: served {spec['served']}, "
+          f"{spec['total_tokens']} tokens in {spec['wall_s']:.3f} s, "
+          f"{spec['tok_s']:.1f} tok/s (plain {stats['tok_s']:.1f}), "
+          f"{spec['verify_steps']} rounds, p50/p99 round "
+          f"{spec['p50_step_ms']:.2f}/{spec['p99_step_ms']:.2f} ms, "
+          f"accept_rate {spec['accept_rate']:.4f}, tokens == plain "
+          f"({same}/{len(stats['finished'])}), leaked "
+          f"{spec['leaked_blocks']}, launches prefill {n_pre} decode {n_dec} "
+          f"verify {n_ver}")
+
+    moe_layer_check(torch, params, cfg, prompts[0])
+    print(f"[moe] phase wall time {time.perf_counter() - t_phase:.1f} s, "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+          f"GB")
+    del params
+    torch.cuda.empty_cache()
+    return {"splitmax_attention": n_prefill,
+            "splitmax_decode_fused_paged": n_decode,
+            "splitmax_decode_fused_verify_paged": n_ver}
+
+
 def profile_serving(torch, srv, params, cfg, prompts, gen: int = 8):
     """Where the time goes: one full batch (8 admissions, then decode steps)
     under torch.profiler; device busy share and the top kernels."""
@@ -2063,11 +2426,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     n_fq_smoke = train_smoke_phase(torch, dev)
     n_fq_full = train_full_phase(torch, dev)
+    moe_smoke_phase(torch, dev)
+    moe = moe_phase(torch, dev)
     by_path = {"paged churn": launches["splitmax_attention"],
                "dense churn": dense.pop("splitmax_attention"),
                "pressure churn": n_pressure,
                "fakequant->int8 check, smoke": n_fq_smoke,
-               "fakequant->int8 check, full width": n_fq_full}
+               "fakequant->int8 check, full width": n_fq_full,
+               "moe churn": moe["splitmax_attention"]}
+    for name in ("splitmax_decode_fused_paged",
+                 "splitmax_decode_fused_verify_paged"):
+        launches[name] += moe[name]
     launches["splitmax_attention"] = sum(by_path.values())
     launches.update(dense)
     launches["splitmax_decode_fused_verify"] = (

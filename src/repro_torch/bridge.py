@@ -7,9 +7,10 @@ regenerate, so parity tests take the JAX parameters after
 This module takes numpy only and never imports JAX.
 
 Layouts carry over unchanged (a linear weight is ``(d_in, d_out)`` in both
-packages); the one structural change is that the reference scans a stacked
-layer segment, ``params["segments"][0]`` with a leading ``n_layers`` axis
-on every leaf, which becomes the port's list ``params["layers"]``.
+packages); the one structural change is that the reference scans stacked
+layer segments, ``params["segments"]``, each homogeneous (a MoE config's
+leading dense layers, then its MoE layers) with a leading layer axis on
+every leaf, which become the port's one list ``params["layers"]``.
 :func:`to_jax_layout` is the inverse map, which the trainer's checkpoints
 use so that the reference restores them.
 """
@@ -23,6 +24,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch import tree as tu
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import layer_segments
 from repro_torch.optim.adamw import OptState
 
 
@@ -38,19 +40,29 @@ def _layer(tree: Any, i: int) -> Any:
     return tree[i]
 
 
+def _kind(layer: Dict) -> str:
+    return "moe" if "moe" in layer else "dense"
+
+
 def from_jax_params(np_params: Dict, cfg: ModelConfig, *, device="cuda"
                     ) -> Dict:
-    """JAX dense-family parameters (numpy leaves) -> the port's layout."""
-    if cfg.family != "dense" or len(np_params["segments"]) != 1:
-        raise ValueError("the bridge takes one dense layer segment")
-    seg = np_params["segments"][0]
-    n = np.shape(seg["norm1"]["scale"])[0]
-    if n != cfg.n_layers:
-        raise ValueError(f"{n} stacked layers for a {cfg.n_layers}-layer config")
+    """JAX dense- or MoE-family parameters (numpy leaves) -> the port's
+    layout: every segment's layers, in order, into ``layers``."""
+    segments = layer_segments(cfg)
+    segs = np_params["segments"]
+    if len(segs) != len(segments):
+        raise ValueError(f"{len(segs)} layer segments for {cfg.name}'s "
+                         f"{segments}")
     dev = resolve_device(device)
     out = {k: _to_torch(v, dev) for k, v in np_params.items()
            if k != "segments"}
-    out["layers"] = [_to_torch(_layer(seg, i), dev) for i in range(n)]
+    out["layers"] = []
+    for seg, (kind, n) in zip(segs, segments):
+        m = np.shape(seg["norm1"]["scale"])[0]
+        if m != n or _kind(seg) != kind:
+            raise ValueError(f"a segment of {m} {_kind(seg)} layers where "
+                             f"{cfg.name} has {n} {kind} layers")
+        out["layers"] += [_to_torch(_layer(seg, i), dev) for i in range(n)]
     return out
 
 
@@ -66,12 +78,19 @@ def from_jax_opt_state(np_state, cfg: ModelConfig, *, device="cuda"
 
 
 def to_jax_layout(params: Dict) -> Dict:
-    """The port's parameter tree -> the reference's, as numpy copies: the
-    list ``layers`` becomes one stacked segment ``segments[0]``, each leaf
-    with a leading ``n_layers`` axis."""
-    layers = params["layers"]
+    """The port's parameter tree -> the reference's, as numpy copies: each
+    run of consecutive layers of one kind in the list ``layers`` becomes
+    one stacked segment of ``segments``, each leaf with a leading layer
+    axis."""
+    runs = []
+    for layer in params["layers"]:
+        if runs and _kind(runs[-1][-1]) == _kind(layer):
+            runs[-1].append(layer)
+        else:
+            runs.append([layer])
     out = {k: tu.tree_map(tu.host_copy, v) for k, v in params.items()
            if k != "layers"}
     out["segments"] = [tu.tree_map(
-        lambda *xs: np.stack([tu.host_copy(x) for x in xs]), *layers)]
+        lambda *xs: np.stack([tu.host_copy(x) for x in xs]), *run)
+        for run in runs]
     return out

@@ -1,5 +1,5 @@
 """Architecture registry (port of ``repro/configs``; the port so far holds
-the paper's own evaluation model)."""
+the paper's own evaluation model and the two MoE configs)."""
 from __future__ import annotations
 
 import importlib
@@ -7,7 +7,12 @@ from typing import List
 
 from repro_torch.configs.base import ArchSpec
 
-ARCH_IDS: List[str] = ["tinyllama_1p1b"]
+ARCH_IDS: List[str] = [
+    "mixtral_8x22b",
+    "deepseek_moe_16b",
+    # the paper's own evaluation model
+    "tinyllama_1p1b",
+]
 
 
 def get_arch(name: str) -> ArchSpec:

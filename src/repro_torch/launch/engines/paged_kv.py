@@ -1,4 +1,4 @@
-"""Dense cache engine: the int8 paged KV block pool (port of
+"""Dense/MoE cache engine: the int8 paged KV block pool (port of
 ``repro/launch/engines/paged_kv.py``).
 
 The allocator makes the same decisions in the same order as the
@@ -26,9 +26,11 @@ class PagedKVEngine(base.CacheEngine):
     def __init__(self, params, cfg, prompts: List[np.ndarray], *,
                  slots: int, max_len: int, block_k: int = 32,
                  pool_blocks: Optional[int] = None):
-        if cfg.family != "dense":
-            raise NotImplementedError(f"family {cfg.family!r}: the port "
-                                      f"serves the dense family only")
+        if cfg.family not in ("dense", "moe"):
+            raise NotImplementedError(
+                f"family {cfg.family!r}: the paged engine serves the dense "
+                f"and MoE families; the SSM, encoder-decoder and hybrid "
+                f"engines are ROADMAP queue 1 item 9")
         self.params = T.cast_for_serving(params, cfg)
         self.device = params["embed"]["table"].device
         self.cfg = cfg

@@ -496,9 +496,12 @@ def run_speculative(params, cfg, prompts: List[np.ndarray], *, slots: int,
     """
     self_draft = draft is None
     draft_params, dcfg = draft if draft is not None else (params, cfg)
-    if cfg.family != "dense" or dcfg.family != "dense":
-        raise NotImplementedError("speculative serving: the port serves the "
-                                  "dense family only")
+    for c in (cfg, dcfg):
+        if c.family not in ("dense", "moe"):
+            raise NotImplementedError(
+                f"speculative serving of family {c.family!r}: the port "
+                f"serves the dense and MoE families; the others are ROADMAP "
+                f"queue 1 item 9")
     if dcfg.vocab_size != cfg.vocab_size:
         raise ValueError("the drafter must share the target's vocab")
     _check_policy(preempt_policy)

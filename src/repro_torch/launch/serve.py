@@ -1,7 +1,9 @@
 """Continuous-batching int8 serving (port of ``repro/launch/serve.py``:
 ``make_engine``, ``serve_paged``, ``serve_dense``, ``make_self_draft``,
 ``serve_speculative``, the ``serve`` dispatcher and the CLI, for the dense
-family).
+and MoE families: DeepSeekMoE-16B and Mixtral-8x22B go through the same
+paged engine and speculative loop as the dense decoder; the layer-prefix
+drafter stays dense-only).
 
 Paged (the default): every admission is a per-slot prefill that allocates
 only the blocks its prompt needs; a slot grows one block at a time as it
@@ -40,6 +42,9 @@ from the environment (``launch/faults.py``):
     python -m repro_torch.launch.serve --arch tinyllama_1p1b
     python -m repro_torch.launch.serve --arch tinyllama_1p1b --draft self:4
     python -m repro_torch.launch.serve --arch tinyllama_1p1b --cache dense
+    python -m repro_torch.launch.serve --arch deepseek_moe_16b --draft self
+    python -m repro_torch.launch.serve --arch mixtral_8x22b --smoke \\
+        --device cpu
     python -m repro_torch.launch.serve --arch tinyllama_1p1b --smoke \\
         --device cpu --requests 8 --slots 4 --prompt-len 32 --gen 24 \\
         --pool-blocks 12 --temperature 0.8 --top-p 0.95 \\
@@ -68,13 +73,14 @@ def make_engine(params, cfg, prompts: List[np.ndarray], *, slots: int,
                 max_len: int, block_k: int = 32,
                 pool_blocks: Optional[int] = None):
     """Family -> cache engine; the only family switch in serving."""
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return PagedKVEngine(params, cfg, prompts, slots=slots,
                              max_len=max_len, block_k=block_k,
                              pool_blocks=pool_blocks)
     raise NotImplementedError(
-        f"family {cfg.family!r}: the port serves the dense family only; the "
-        f"MoE, SSM and encoder-decoder engines are ROADMAP queue 1 items 8-9")
+        f"family {cfg.family!r}: the port serves the dense and MoE families; "
+        f"the SSM, encoder-decoder and hybrid engines are ROADMAP queue 1 "
+        f"item 9")
 
 
 def serve_paged(params, cfg, prompts: List[np.ndarray], *, slots: int,
@@ -443,8 +449,11 @@ def main(argv=None) -> None:
         c = arch.smoke.replace(dtype="float32") if args.smoke else arch.config
         return c.replace(attn_fused=args.fused != "off")
 
+    # weights drawn already cast for serving: the f32 masters of a full
+    # width MoE would not fit beside them
     cfg = config(args.arch)
-    params = T.init_params(cfg, seed=args.seed, device=args.device)
+    params = T.init_params(cfg, seed=args.seed, device=args.device,
+                           serving=True)
     rng = np.random.default_rng(args.seed)
     prompts = [rng.integers(0, cfg.vocab_size, args.prompt_len,
                             dtype=np.int32) for _ in range(args.requests)]
@@ -455,7 +464,7 @@ def main(argv=None) -> None:
         else:
             dcfg = config(draft)
             draft = (T.init_params(dcfg, seed=args.seed + 1,
-                                   device=args.device), dcfg)
+                                   device=args.device, serving=True), dcfg)
     fault_plan = faults_mod.FaultPlan.from_env()
     stats = serve(params, cfg, prompts, slots=args.slots, gen=args.gen,
                   cache_kind=args.cache, block_k=args.block_k,

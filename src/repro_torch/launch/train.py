@@ -73,6 +73,11 @@ def main(argv=None) -> Dict:
     cfg = arch.smoke if args.smoke else arch.config
     if args.smoke:
         cfg = cfg.replace(dtype="float32")
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: the port trains the dense family only; training "
+            f"the {cfg.family} family (its aux losses in the train step) is "
+            f"the open half of ROADMAP queue 1 item 8")
 
     opt_cfg = adamw.OptimizerConfig(peak_lr=args.lr,
                                     warmup_steps=args.warmup,

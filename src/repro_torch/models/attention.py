@@ -23,15 +23,16 @@ from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
 
-def attn_block_init(gen, cfg: ModelConfig, *, device) -> L.Params:
-    """QKV + output projections."""
+def attn_block_init(gen, cfg: ModelConfig, *, device,
+                    dtype: torch.dtype = torch.float32) -> L.Params:
+    """QKV + output projections (``dtype``: see ``layers.normal_init``)."""
     hd, hq, hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     d = cfg.d_model
     return {
-        "wq": L.linear_init(gen, d, hq * hd, device=device),
-        "wk": L.linear_init(gen, d, hkv * hd, device=device),
-        "wv": L.linear_init(gen, d, hkv * hd, device=device),
-        "wo": L.linear_init(gen, hq * hd, d, device=device,
+        "wq": L.linear_init(gen, d, hq * hd, device=device, dtype=dtype),
+        "wk": L.linear_init(gen, d, hkv * hd, device=device, dtype=dtype),
+        "wv": L.linear_init(gen, d, hkv * hd, device=device, dtype=dtype),
+        "wo": L.linear_init(gen, hq * hd, d, device=device, dtype=dtype,
                             std=(hq * hd) ** -0.5 / (2 * cfg.n_layers) ** 0.5),
     }
 

@@ -1,9 +1,10 @@
 """Architecture configuration (port of ``repro/models/config.py``, the
-fields the dense decoder's training and int8 serving paths read).
+fields the dense and MoE decoders' training and int8 serving paths read).
 
-The port's dense family is the llama block: RMSNorm, SwiGLU, an untied
-f32 LM head; the reference's ``norm``, ``act``, ``tie_embeddings`` and
-``logits_dtype`` have one value in use and are not fields here."""
+The port's block is the llama block: RMSNorm, SwiGLU, an f32 LM head; the
+reference's ``norm``, ``act`` and ``logits_dtype`` have one value in use
+and are not fields here.  ``tie_embeddings`` is stated by every config of
+the registry; the port implements the untied head only."""
 from __future__ import annotations
 
 import dataclasses
@@ -15,9 +16,21 @@ from repro_torch.core.attention import AttentionSpec
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int            # routed experts
+    top_k: int
+    d_ff_expert: int
+    n_shared: int = 0         # always-on shared experts (deepseek-moe)
+    capacity_factor: float = 1.25
+    first_dense_layers: int = 0   # leading layers that stay dense
+    router_z_loss: float = 1e-3
+    aux_loss: float = 1e-2
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str               # only "dense" is ported
+    family: str               # "dense" | "moe" (ssm, encdec, hybrid: not ported)
     n_layers: int
     d_model: int
     n_heads: int
@@ -26,6 +39,7 @@ class ModelConfig:
     vocab_size: int
     head_dim: Optional[int] = None
     rope_theta: float = 1e4
+    tie_embeddings: bool = False      # True is not ported
     dtype: str = "float32"    # compute dtype ("bfloat16" for production)
     vocab_pad_multiple: int = 256
     # attention datapath: train in attn_mode, serve in serve_attn_mode
@@ -38,6 +52,7 @@ class ModelConfig:
     attn_score_dtype: str = "float32"
     attn_triangular: bool = False
     remat: bool = True                # checkpoint each block in training
+    moe: Optional[MoEConfig] = None
 
     @property
     def hd(self) -> int:
@@ -58,3 +73,14 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    # ------ parameter counting ---------------------------------------------
+    def param_count(self) -> int:
+        """Exact trainable parameter count (excl. vocab padding)."""
+        from repro_torch.models import transformer as tr
+        return tr.count_params(self)
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: shared + top_k experts only)."""
+        from repro_torch.models import transformer as tr
+        return tr.count_params(self, active_only=True)

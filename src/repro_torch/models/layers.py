@@ -14,16 +14,19 @@ import torch
 Params = Dict[str, torch.Tensor]
 
 
-def normal_init(gen: torch.Generator, shape, std: float, device
-                ) -> torch.Tensor:
-    return torch.randn(shape, generator=gen, device=device,
-                       dtype=torch.float32) * std
+def normal_init(gen: torch.Generator, shape, std: float, device,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """A float32 normal draw times ``std``, cast to ``dtype`` before the
+    next leaf is drawn (the serving init keeps no f32 master)."""
+    return (torch.randn(shape, generator=gen, device=device,
+                        dtype=torch.float32) * std).to(dtype)
 
 
 def linear_init(gen, d_in: int, d_out: int, *, device,
-                std: Optional[float] = None) -> Params:
+                std: Optional[float] = None,
+                dtype: torch.dtype = torch.float32) -> Params:
     std = std if std is not None else d_in ** -0.5
-    return {"w": normal_init(gen, (d_in, d_out), std, device)}
+    return {"w": normal_init(gen, (d_in, d_out), std, device, dtype)}
 
 
 def linear_apply(params: Params, x: torch.Tensor, *,
@@ -33,6 +36,18 @@ def linear_apply(params: Params, x: torch.Tensor, *,
         w = w.to(dtype)
         x = x.to(dtype)
     return x @ w
+
+
+def per_token(fn, x: torch.Tensor):
+    """``fn`` on each token's contiguous (B, 1, ...) slice of ``x (B, T,
+    ...)``, its output (a tensor or a tuple of them) concatenated on the
+    token axis.  On the card a float reduction (an f32 mean or GEMM, a bf16
+    GEMM with a long K) may sum in an order chosen by the row count, so the
+    speculative verify runs such stages at the decode step's shape."""
+    outs = [fn(x[:, i:i + 1].contiguous()) for i in range(x.shape[1])]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts, dim=1) for parts in zip(*outs))
+    return torch.cat(outs, dim=1)
 
 
 def rmsnorm_init(dim: int, device) -> Params:
@@ -55,8 +70,10 @@ def pad_vocab(vocab_size: int, multiple: int = 256) -> int:
 
 
 def embedding_init(gen, vocab_padded: int, dim: int, *, device,
-                   std: float = 0.02) -> Params:
-    return {"table": normal_init(gen, (vocab_padded, dim), std, device)}
+                   std: float = 0.02,
+                   dtype: torch.dtype = torch.float32) -> Params:
+    return {"table": normal_init(gen, (vocab_padded, dim), std, device,
+                                 dtype)}
 
 
 class _EmbeddingGather(torch.autograd.Function):

@@ -8,13 +8,17 @@ from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
 
-def mlp_init(gen, cfg: ModelConfig, *, device) -> L.Params:
+def mlp_init(gen, cfg: ModelConfig, *, device,
+             dtype: torch.dtype = torch.float32) -> L.Params:
     d_ff = cfg.d_ff
     return {
-        "w_in": L.linear_init(gen, cfg.d_model, d_ff, device=device),
+        "w_in": L.linear_init(gen, cfg.d_model, d_ff, device=device,
+                              dtype=dtype),
         "w_out": L.linear_init(gen, d_ff, cfg.d_model, device=device,
-                               std=d_ff ** -0.5 / (2 * cfg.n_layers) ** 0.5),
-        "w_gate": L.linear_init(gen, cfg.d_model, d_ff, device=device),
+                               std=d_ff ** -0.5 / (2 * cfg.n_layers) ** 0.5,
+                               dtype=dtype),
+        "w_gate": L.linear_init(gen, cfg.d_model, d_ff, device=device,
+                                dtype=dtype),
     }
 
 

@@ -1,0 +1,166 @@
+"""Mixture-of-Experts with token-choice top-k routing and capacity limits
+(port of ``repro/models/moe.py``).
+
+The reference's dense-dispatch formulation, one group per sequence: each
+token's f32 router picks its top-k experts, every (token, k) assignment
+takes the next slot of its expert's queue in token-major, then k order, an
+assignment past the expert's capacity is dropped (its token falls through
+the residual), a one-hot dispatch tensor moves the kept tokens into an
+``(E, B, C, d)`` batch, the experts run as stacked batched GEMMs, and each
+token's output is the gate-weighted sum of its experts' rows.  Shared
+experts (deepseek-moe) are one fused SwiGLU of width ``n_shared * d_ff``.
+
+Integer parts (routing indices, queue positions, the dropped set) equal the
+reference's; float parts agree within rounding.  Two formulations differ
+from the reference's and give the same values:
+
+* the dispatch tensor is scattered, not summed from ``top_k`` one-hots: no
+  two assignments of a group share an (expert, slot), so each entry is the
+  same 0 or 1;
+* the combine gathers each token's ``top_k`` expert rows and sums their
+  gate-weighted products in f32, k by k, instead of contracting the whole
+  ``(E, C)`` one-hot: the zero terms add nothing, and the elementwise sum
+  gives every token the same result whatever the batch's row count or the
+  token's queue slot, which the speculative verify needs on the card.
+
+The speculative verify (``tokenwise=True``) runs the router and the shared
+experts one token at a time, at the decode step's shape.  The expert GEMMs
+have that shape already while the capacity at T tokens stays at its floor
+``top_k`` (their rows are the capacity slots; DeepSeekMoE-16B at T = 4).
+
+``shard(...)`` annotations of the reference have no counterpart on one
+card.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import layers as L
+from repro_torch.models import mlp as M
+from repro_torch.models.config import ModelConfig, MoEConfig
+
+
+def moe_init(gen, cfg: ModelConfig, *, device,
+             dtype: torch.dtype = torch.float32) -> L.Params:
+    """Router, stacked expert weights ``(E, d, dff)`` / ``(E, dff, d)`` and
+    the shared experts.  ``dtype`` casts every weight but the router, which
+    stays f32 (see ``layers.normal_init``)."""
+    mc = cfg.moe
+    d, dff = cfg.d_model, mc.d_ff_expert
+    std_out = dff ** -0.5 / (2 * cfg.n_layers) ** 0.5
+    p = {
+        "router": L.linear_init(gen, d, mc.n_experts, device=device, std=0.02),
+        "w_in": L.normal_init(gen, (mc.n_experts, d, dff), d ** -0.5, device,
+                              dtype),
+        "w_gate": L.normal_init(gen, (mc.n_experts, d, dff), d ** -0.5,
+                                device, dtype),
+        "w_out": L.normal_init(gen, (mc.n_experts, dff, d), std_out, device,
+                               dtype),
+    }
+    if mc.n_shared:
+        width = mc.n_shared * dff
+        p["shared"] = {
+            "w_in": L.linear_init(gen, d, width, device=device, dtype=dtype),
+            "w_gate": L.linear_init(gen, d, width, device=device,
+                                    dtype=dtype),
+            "w_out": L.linear_init(gen, width, d, device=device, std=std_out,
+                                   dtype=dtype),
+        }
+    return p
+
+
+def _capacity(mc: MoEConfig, tokens_per_group: int) -> int:
+    cap = int(tokens_per_group * mc.top_k * mc.capacity_factor / mc.n_experts)
+    return max(cap, mc.top_k)
+
+
+def route(params, x: torch.Tensor, cfg: ModelConfig):
+    """The f32 router of ``x (B, S, d)``: logits and probabilities (B, S, E)
+    and the top-k ``gate_vals`` (renormalised) and ``gate_idx`` (B, S, K),
+    largest first, ties to the lower expert index as ``jax.lax.top_k``."""
+    logits = L.linear_apply(params["router"], x.to(torch.float32))
+    probs = torch.softmax(logits, dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    k = cfg.moe.top_k
+    gate_vals, gate_idx = vals[..., :k], idx[..., :k]
+    gate_vals = gate_vals / torch.clamp_min(
+        torch.sum(gate_vals, dim=-1, keepdim=True), 1e-9)
+    return logits, probs, gate_vals, gate_idx
+
+
+def aux_losses(logits, probs, gate_idx, cfg: ModelConfig) -> Dict:
+    """The load-balancing loss and the router z-loss."""
+    mc = cfg.moe
+    e = mc.n_experts
+    me = torch.mean(probs, dim=(0, 1))                           # (E,)
+    ce = torch.mean(torch.sum(F.one_hot(gate_idx, e).to(torch.float32),
+                              dim=2), dim=(0, 1))                # (E,)
+    return {"aux_loss": mc.aux_loss * e * torch.sum(me * ce),
+            "z_loss": mc.router_z_loss * torch.mean(
+                torch.square(torch.logsumexp(logits, dim=-1)))}
+
+
+def queue_positions(gate_idx: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """Each (token, k) assignment's position in its expert's queue, counted
+    over the group's flattened ``(S * K)`` assignments in token-major, then
+    k order: (B, S, K) int64."""
+    b, s, k = gate_idx.shape
+    onehot = F.one_hot(gate_idx, n_experts)                      # (B,S,K,E)
+    flat = onehot.reshape(b, s * k, n_experts)
+    pos_flat = torch.cumsum(flat, dim=1) - flat
+    return torch.sum(pos_flat.reshape(b, s, k, n_experts) * onehot, dim=-1)
+
+
+def moe_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
+              losses: bool = True, tokenwise: bool = False
+              ) -> Tuple[torch.Tensor, Dict]:
+    """x (B, S, d) -> (out (B, S, d) in the compute dtype, aux), with aux
+    ``{"aux_loss", "z_loss"}``; ``losses=False`` (the serve steps) leaves
+    aux empty.  ``tokenwise`` runs the router and the shared experts one
+    token at a time (``layers.per_token``).  Groups are the B sequences."""
+    mc = cfg.moe
+    dt = cfg.compute_dtype
+    b, s, d = x.shape
+    e, k, cap = mc.n_experts, mc.top_k, _capacity(mc, s)
+
+    def rowwise(fn):
+        return L.per_token(fn, x) if tokenwise else fn(x)
+
+    logits, probs, gate_vals, gate_idx = rowwise(
+        functools.partial(route, params, cfg=cfg))
+    aux = aux_losses(logits, probs, gate_idx, cfg) if losses else {}
+
+    # ---- capacity-limited dispatch ----------------------------------------
+    pos = queue_positions(gate_idx, e)                           # (B,S,K)
+    keep = pos < cap
+    pos_c = torch.clamp_max(pos, cap - 1)  # a dropped one adds a 0 anywhere
+    dispatch = torch.zeros((b, s, e * cap), dtype=dt, device=x.device)
+    dispatch.scatter_(2, gate_idx * cap + pos_c, keep.to(dt))
+    dispatch = dispatch.reshape(b, s, e, cap)
+
+    # ---- expert FFN (stacked batched GEMMs) --------------------------------
+    xe = torch.einsum("bsec,bsd->ebcd", dispatch, x.to(dt))      # (E,B,C,d)
+    h = torch.einsum("ebcd,edf->ebcf", xe, params["w_in"].to(dt))
+    g = torch.einsum("ebcd,edf->ebcf", xe, params["w_gate"].to(dt))
+    ye = torch.einsum("ebcf,efd->ebcd", F.silu(g) * h,
+                      params["w_out"].to(dt))                    # (E,B,C,d)
+
+    # ---- combine: gate-weighted rows, cast to dt, summed in f32 ------------
+    b_idx = torch.arange(b, device=x.device)[:, None, None]
+    picked = ye[gate_idx, b_idx, pos_c].to(torch.float32)        # (B,S,K,d)
+    w = (gate_vals * keep).to(dt).to(torch.float32)[..., None]
+    terms = w * picked
+    acc = terms[:, :, 0]
+    for j in range(1, k):
+        acc = acc + terms[:, :, j]
+    out = acc.to(dt)
+
+    # ---- shared experts ------------------------------------------------------
+    if mc.n_shared:
+        out = out + rowwise(functools.partial(M.mlp_apply, params["shared"],
+                                              cfg=cfg))
+    return out, aux

@@ -1,15 +1,17 @@
-"""Dense decoder assembly for training and int8 serving (port of
-``repro/models/transformer.py``, dense family).
+"""Decoder assembly for training and int8 serving, dense and MoE families
+(port of ``repro/models/transformer.py``).
 
 Parameters are a plain dict laid out like the reference's, except that the
-scanned layer stack is a Python list of per-layer dicts
+scanned layer segments are one Python list of per-layer dicts, each with
+an ``mlp`` (dense block) or a ``moe`` (MoE block) entry
 (:mod:`repro_torch.bridge` maps between the two).  Two cache
 layouts, told apart by their keys: the paged pool (``k_pages``, from
 :func:`make_paged_cache`) and the dense ``(slots, max_len)`` cache
 (``k_q``, from :func:`make_cache`).  Entry points:
 
   * :func:`forward` — full-sequence logits: training mode (QAT attention,
-    per-block remat) or serve mode (the prefills' forward);
+    per-block remat, the MoE aux losses) or serve mode (the prefills'
+    forward);
   * :func:`prefill` — run the whole batch, calibrate and fill a dense
     cache, return each row's last valid logits;
   * :func:`prefill_paged` — run a prompt, write its int8 K/V into the named
@@ -25,7 +27,7 @@ the reference's functional API.
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -37,44 +39,78 @@ from repro_torch.core import quantization as qlib
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mlp as M
+from repro_torch.models import moe as MOE
 from repro_torch.models.config import ModelConfig
 
 Params = Dict
 
 
-def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Params:
-    """Random float32 master parameters from a seeded ``torch.Generator``,
-    with the reference's initializer scales (the values differ from
+def layer_segments(cfg: ModelConfig) -> List[Tuple[str, int]]:
+    """(kind, count) segments, in order: the reference's ``_layer_kinds``,
+    its stacked segments (a MoE config's leading dense layers, then its MoE
+    layers)."""
+    if cfg.family == "dense":
+        return [("dense", cfg.n_layers)]
+    if cfg.family == "moe":
+        fd = cfg.moe.first_dense_layers
+        return ([("dense", fd)] if fd else []) + [("moe", cfg.n_layers - fd)]
+    raise NotImplementedError(
+        f"{cfg.name}: the port has the dense and MoE families; the "
+        f"{cfg.family} family is ROADMAP queue 1 item 9")
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
+                serving: bool = False) -> Params:
+    """Random parameters from a seeded ``torch.Generator``, with the
+    reference's initializer scales (the values differ from
     ``jax.random``'s; bridge JAX parameters with :mod:`repro_torch.bridge`
-    to compare)."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: the port serves the dense family only")
+    to compare).
+
+    float32 masters by default.  ``serving=True`` casts each leaf that
+    :func:`cast_for_serving` casts as soon as it is drawn, before the next
+    draw: the result equals ``cast_for_serving(init_params(...))`` bit for
+    bit, and the device never holds more than one f32 leaf beyond it
+    (DeepSeekMoE-16B's f32 masters alone are 65.5 GB).
+    """
+    segments = layer_segments(cfg)
+    if cfg.tie_embeddings:
+        raise NotImplementedError(f"{cfg.name}: tied embeddings are not "
+                                  f"ported")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
+    wdt = cfg.compute_dtype if serving else torch.float32
     vp = L.pad_vocab(cfg.vocab_size, cfg.vocab_pad_multiple)
-    p: Params = {"embed": L.embedding_init(gen, vp, cfg.d_model, device=dev)}
-    p["layers"] = [{
-        "norm1": L.rmsnorm_init(cfg.d_model, dev),
-        "attn": A.attn_block_init(gen, cfg, device=dev),
-        "norm2": L.rmsnorm_init(cfg.d_model, dev),
-        "mlp": M.mlp_init(gen, cfg, device=dev),
-    } for _ in range(cfg.n_layers)]
+    p: Params = {"embed": L.embedding_init(gen, vp, cfg.d_model, device=dev,
+                                           dtype=wdt)}
+    p["layers"] = []
+    for kind in (kind for kind, n in segments for _ in range(n)):
+        lp = {"norm1": L.rmsnorm_init(cfg.d_model, dev),
+              "attn": A.attn_block_init(gen, cfg, device=dev, dtype=wdt),
+              "norm2": L.rmsnorm_init(cfg.d_model, dev)}
+        if kind == "dense":
+            lp["mlp"] = M.mlp_init(gen, cfg, device=dev, dtype=wdt)
+        else:
+            lp["moe"] = MOE.moe_init(gen, cfg, device=dev, dtype=wdt)
+        p["layers"].append(lp)
     p["final_norm"] = L.rmsnorm_init(cfg.d_model, dev)
     p["lm_head"] = L.linear_init(gen, cfg.d_model, vp, device=dev)
     return p
 
 
 def cast_for_serving(params: Params, cfg: ModelConfig) -> Params:
-    """Cast the weights each layer casts at use (the layers' linear
-    weights, the embedding table) to the compute dtype once, so a step does
-    not re-cast them.  Results are unchanged: casting once equals casting at
-    every use.  The f32 LM head and the norms stay f32."""
+    """Cast the weights each layer casts at use (the linear weights, the
+    MoE expert stacks, the embedding table) to the compute dtype once, so a
+    step does not re-cast them.  Results are unchanged: casting once equals
+    casting at every use.  The MoE router (routing is computed from f32
+    weights), the f32 LM head and the norms stay f32; a leaf already in the
+    compute dtype is kept, not copied."""
     dt = cfg.compute_dtype
 
-    def cast(tree):
-        return {k: (cast(v) if isinstance(v, dict) else
-                    v.to(dt) if k == "w" else v) for k, v in tree.items()}
+    def cast(tree, stacks=False):
+        return {k: (v if k == "router" else
+                    cast(v, stacks=k == "moe") if isinstance(v, dict) else
+                    v.to(dt) if k == "w" or stacks else v)
+                for k, v in tree.items()}
 
     return {"embed": {"table": params["embed"]["table"].to(dt)},
             "layers": [cast(lp) for lp in params["layers"]],
@@ -93,12 +129,32 @@ def unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return L.linear_apply(params["lm_head"], x, dtype=torch.float32)
 
 
-def _block_apply(lp, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """One training-mode block (attention in ``cfg.attn_mode``)."""
+def _ffn(lp, h: torch.Tensor, cfg: ModelConfig, *, tokenwise: bool = False
+         ) -> torch.Tensor:
+    """A serve step's second half of a block on its normed input: the
+    SwiGLU, or the MoE layer without its aux losses.  ``tokenwise`` (the
+    verify step) runs the SwiGLU, and the MoE layer's router and shared
+    experts, one token at a time (``layers.per_token``)."""
+    if "mlp" in lp:
+        if tokenwise:
+            return L.per_token(functools.partial(M.mlp_apply, lp["mlp"],
+                                                 cfg=cfg), h)
+        return M.mlp_apply(lp["mlp"], h, cfg)
+    return MOE.moe_apply(lp["moe"], h, cfg, losses=False,
+                         tokenwise=tokenwise)[0]
+
+
+def _block_apply(lp, x: torch.Tensor, cfg: ModelConfig):
+    """One training-mode block (attention in ``cfg.attn_mode``): the new
+    ``x`` and, for a MoE block, its (aux_loss, z_loss) stacked (None for a
+    dense block)."""
     h = L.rmsnorm_apply(lp["norm1"], x)
     x = x + A.attn_block_apply(lp["attn"], h, cfg)
     h = L.rmsnorm_apply(lp["norm2"], x)
-    return x + M.mlp_apply(lp["mlp"], h, cfg)
+    if "mlp" in lp:
+        return x + M.mlp_apply(lp["mlp"], h, cfg), None
+    out, aux = MOE.moe_apply(lp["moe"], h, cfg)
+    return x + out, torch.stack([aux["aux_loss"], aux["z_loss"]])
 
 
 def _block_apply_serve(lp, x: torch.Tensor, cfg: ModelConfig,
@@ -112,7 +168,7 @@ def _block_apply_serve(lp, x: torch.Tensor, cfg: ModelConfig,
     o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd)
     x = x + L.linear_apply(lp["attn"]["wo"], o, dtype=cfg.compute_dtype)
     h = L.rmsnorm_apply(lp["norm2"], x)
-    return x + M.mlp_apply(lp["mlp"], h, cfg), (k, v)
+    return x + _ffn(lp, h, cfg), (k, v)
 
 
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
@@ -121,9 +177,10 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
 
     Training mode (``serve=False``): attention in ``cfg.attn_mode``, each
     block under ``torch.utils.checkpoint`` when ``cfg.remat``; ``aux``
-    holds the zero ``aux_loss`` and ``z_loss`` of the dense family.  Serve
-    mode: ``cfg.serve_attn_mode`` and ``aux["kv"]``, each layer's raw (k, v)
-    (B, Hkv, S, hd) for the cache.
+    holds ``aux_loss`` and ``z_loss`` summed over the MoE layers (zero for
+    the dense family).  Serve mode: ``cfg.serve_attn_mode`` and
+    ``aux["kv"]``, each layer's raw (k, v) (B, Hkv, S, hd) for the cache;
+    its losses stay zero (the reference's are discarded by its callers).
     """
     x = embed_tokens(params, tokens, cfg)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -138,11 +195,14 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     else:
         for lp in params["layers"]:
             if cfg.remat:
-                x = checkpoint(functools.partial(_block_apply, lp, cfg=cfg),
-                               x, use_reentrant=False,
-                               preserve_rng_state=False)
+                x, losses = checkpoint(
+                    functools.partial(_block_apply, lp, cfg=cfg), x,
+                    use_reentrant=False, preserve_rng_state=False)
             else:
-                x = _block_apply(lp, x, cfg)
+                x, losses = _block_apply(lp, x, cfg)
+            if losses is not None:
+                aux = {"aux_loss": aux["aux_loss"] + losses[0],
+                       "z_loss": aux["z_loss"] + losses[1]}
     return unembed(params, x, cfg), aux
 
 
@@ -278,18 +338,9 @@ def decode_step(params, token: torch.Tensor, cfg: ModelConfig,
         h = L.rmsnorm_apply(lp["norm1"], x)
         x = x + block(lp["attn"], h, _layer_cache(cache, i), cfg)
         h = L.rmsnorm_apply(lp["norm2"], x)
-        x = x + M.mlp_apply(lp["mlp"], h, cfg)
+        x = x + _ffn(lp, h, cfg)
     cache["length"] += 1
     return unembed(params, x, cfg)[:, 0], cache
-
-
-def _tokenwise(fn, x: torch.Tensor) -> torch.Tensor:
-    """``fn`` on each token's contiguous (B, 1, d) slice of ``x (B, T, d)``,
-    concatenated on the token axis.  On the card a float reduction (the
-    RMSNorm mean, the f32 LM-head GEMM) sums in an order chosen by the
-    tensor's row count, so verify runs them at the decode step's shape."""
-    return torch.cat([fn(x[:, i:i + 1].contiguous())
-                      for i in range(x.shape[1])], dim=1)
 
 
 def verify_step(params, tokens: torch.Tensor, cfg: ModelConfig,
@@ -301,18 +352,48 @@ def verify_step(params, tokens: torch.Tensor, cfg: ModelConfig,
     tokens' K/V through the block table and runs the verify attention with
     per-token lengths, so ``logits[:, t]`` is bit for bit what
     ``decode_step`` gives after accepting ``tokens[:, :t+1]``.  The
-    projections and the MLP run on all B * T rows at once (their bf16 GEMM
+    attention projections run on all B * T rows at once (their bf16 GEMM
     rows do not depend on the row count, which ``chip_smoke.py`` checks on
-    the card); the norms and the f32 LM head run per token.  Every slot's
-    length grows by T; the scheduler truncates it to the accepted prefix.
+    the card); the norms, the MLP (its down projection's long K sums in a
+    row-count-dependent order at DeepSeekMoE's d_ff 10944), the MoE
+    router and shared experts and the f32 LM head run per token
+    (``layers.per_token``).  The MoE expert GEMMs have the decode step's
+    shape while the capacity at T tokens stays at ``top_k`` (see
+    ``moe``).  Where that capacity is below T, verify can drop assignments
+    that decode keeps, as the reference does.  Every slot's length grows
+    by T; the scheduler truncates it to the accepted prefix.
     """
     t = tokens.shape[1]
     x = embed_tokens(params, tokens, cfg)               # (B, T, d)
     for i, lp in enumerate(params["layers"]):
-        h = _tokenwise(functools.partial(L.rmsnorm_apply, lp["norm1"]), x)
+        h = L.per_token(functools.partial(L.rmsnorm_apply, lp["norm1"]), x)
         x = x + A.attn_block_verify_paged(lp["attn"], h, _layer_cache(cache, i),
                                           cfg)
-        h = _tokenwise(functools.partial(L.rmsnorm_apply, lp["norm2"]), x)
-        x = x + M.mlp_apply(lp["mlp"], h, cfg)
+        h = L.per_token(functools.partial(L.rmsnorm_apply, lp["norm2"]), x)
+        x = x + _ffn(lp, h, cfg, tokenwise=True)
     cache["length"] += t
-    return _tokenwise(lambda y: unembed(params, y, cfg), x), cache
+    return L.per_token(lambda y: unembed(params, y, cfg), x), cache
+
+
+def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Analytic parameter count (RMSNorm, SwiGLU, no vocab padding); MoE
+    ``active_only`` counts the shared and the top-k routed experts."""
+    d, hd = cfg.d_model, cfg.hd
+    attn_p = d * hd * (cfg.n_heads + 2 * cfg.n_kv_heads) + hd * cfg.n_heads * d
+    mlp_p = 3 * d * cfg.d_ff
+    embed = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
+    dense_layer = attn_p + mlp_p + 2 * d
+    if cfg.family == "dense":
+        return embed + cfg.n_layers * dense_layer + d
+    if cfg.family == "moe":
+        mc = cfg.moe
+        routed = 3 * d * mc.d_ff_expert
+        n_routed = mc.top_k if active_only else mc.n_experts
+        shared = 3 * d * mc.d_ff_expert * mc.n_shared
+        router = d * mc.n_experts
+        moe_layer = attn_p + routed * n_routed + shared + router + 2 * d
+        fd = mc.first_dense_layers
+        return (embed + fd * dense_layer + (cfg.n_layers - fd) * moe_layer
+                + d)
+    raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is "
+                              f"ROADMAP queue 1 item 9")
