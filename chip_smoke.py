@@ -14,7 +14,9 @@ Phases, each fatal on failure:
      gamma 4 and 8 verify over both, and the verify at group 8 with gamma
      16 at D 64 and gamma 8 at D 128), at DeepSeekMoE-16B's (16/16 heads,
      MHA at D 128: its 250-token prefill, 8-slot decode and gamma 4
-     verify) and at edge cases (length 0, 1 or
+     verify), at the dense family's GQA groups at D 128 (Mistral-NeMo-12B's
+     32/8 heads, group 4; DeepSeek-Coder-33B's 56/8, group 7: the same
+     three shapes) and at edge cases (length 0, 1 or
      gamma, tile boundaries, window, padding mask, an idle slot, a dense
      cache no tile divides, block 0 filled with 127 and then -77); every
      split-softmax kernel bit for bit its plain version's ``exact=True``
@@ -24,8 +26,15 @@ Phases, each fatal on failure:
      ones, and the dense decode bit for bit the paged one on the same K/V;
      the int8 GEMM bit for bit at the reference's shapes, a ragged one and
      TinyLlama's widths; the plain version's time and the kernel's
-     host-inclusive time (back-to-back Python calls) and bound;
-  4. device times: each kernel at its main shape and its yardsticks
+     host-inclusive time (back-to-back Python calls) and bound; then the
+     kernels' two options on each split-softmax kernel's main inputs: its
+     ``exact_recip`` instance bit for bit the plain version's ``exact=True``
+     with ``exact_recip``, within ``tolerance`` of the default plain
+     version and within the reference's 2^-8 of the LUT instance; and the
+     kernel reading the ``lut_mode="compute"`` table bit for bit the plain
+     version on that table;
+  4. device times: each kernel at its main shape (and its ``exact_recip``
+     instance, and the MoE and dense-family shapes) and its yardsticks
      (``F.scaled_dot_product_attention``, a float softmax and not this
      function, which the port never calls; for verify also the gamma decode
      launches one verify replaces; ``torch._int_mm`` for the GEMM) captured
@@ -90,11 +99,22 @@ Phases, each fatal on failure:
      the plain churn, kernel 3 counted), and layer 1 on one prompt against
      an f32 recomputation on the card (routing and dropped set equal
      outside near-ties, output within a stated bf16 tolerance).
+  9. the rest of the dense family: the five smoke configs (OLMo-1B,
+     Mistral-NeMo-12B, Chameleon-34B, DeepSeek-Coder-33B, DeepSeek-67B) in
+     f32 on the card against the CPU as in phase 8; then Mistral-NeMo-12B
+     at full width (40 layers, d_model 5120, 32/8 heads of 128, d_ff
+     14336, vocab 131072; seeded random bf16 weights drawn leaf by leaf,
+     the LM head f32): the churn through ``serve_paged`` with
+     ``warmup=True``, one profiled batch, the row-count check, and the
+     churn through ``serve_speculative`` self-drafted at gamma 4 (tokens
+     those of the plain churn where the row check says they must be); and
+     OLMo-1B at full width (non-parametric LayerNorm, the tied f32 head):
+     the plain churn.  Each prints its seconds.
 
 Kernels 7 (dense verify) and 8 (int8 GEMM) have no caller in any model, as
 in the reference: they are checked and timed in phases 3 and 4 and stand in the
 JSON line with ``"launches": 0`` (kernel 8 also ``"pre_pass_launches": 0``)
-and ``"path": null``.
+and ``"path": null``.  Kernels 1-3 also carry ``launches_by_path``.
 
 The line before the last is the card's name and power limit; before it, one
 JSON object with each kernel's numbers.  The last line is
@@ -130,6 +150,12 @@ INT8_CHECK = dict(b=1, hq=32, hkv=4, s=2048, d=64)
 # shapes: a 250-token admission, 8 slots over the pool, gamma 4 verify
 MOE_HEADS = dict(hq=16, hkv=16, d=128)
 MOE_PREFILL = dict(b=1, s=250, **MOE_HEADS)
+# the dense family's GQA groups at D 128, at the same three shapes:
+# Mistral-NeMo-12B (group 4) and DeepSeek-Coder-33B (group 7, the first odd
+# group); Chameleon-34B and DeepSeek-67B are group 8 at D 128, the verify's
+# FULL_GROUP shape below
+DENSE_HEADS = {"mistral_nemo": dict(hq=32, hkv=8, d=128),
+               "deepseek_coder": dict(hq=56, hkv=8, d=128)}
 # (m, k, n); the last is the timed TinyLlama width
 GEMMS = [(256, 512, 256), (128, 128, 128), (512, 256, 384), (300, 1000, 130),
          (1, 16, 5), (129, 272, 264), (2048, 2048, 5632)]
@@ -163,6 +189,17 @@ MOE_TIE = 1e-6
 # the MoE layer check's bf16 tolerances (see moe_layer_check)
 MOE_TOL_MAX = 2 ** -5
 MOE_TOL_RMS = 2 ** -7
+# the rest of the dense family: every smoke config card vs CPU, and two at
+# full width (Mistral-NeMo-12B, 24.5 GB in bf16; OLMo-1B, the tied head);
+# Chameleon-34B and DeepSeek-Coder-33B (67 GB in bf16) run at smoke size
+# only, and DeepSeek-67B (135 GB) does not fit one card
+DENSE_SMOKE_ARCHS = ("olmo_1b", "mistral_nemo_12b", "chameleon_34b",
+                     "deepseek_coder_33b", "deepseek_67b")
+NEMO_ARCH = "mistral_nemo_12b"
+OLMO_ARCH = "olmo_1b"
+# the reference's bound on the reciprocal LUT's error against the division
+# (tests/test_fused_decode.py::test_fused_recip_lut_error_bounded)
+RECIP_LUT_REL_ERR = 2 ** -8
 
 
 class SmokeFailure(RuntimeError):
@@ -184,6 +221,9 @@ def gpu_line() -> str:
 # Closures timed by graph replay after the kernel phases, by key: kernels,
 # their SDPA / torch._int_mm yardsticks, and the launch floor.
 GRAPHED = {}
+# Each split-softmax kernel's main inputs, by kernel name: (args, kwargs,
+# tolerance), for the options phase.
+MAIN_ARGS = {}
 GRAPH_ITERS = 50
 GRAPH_ROUNDS = 7
 
@@ -383,6 +423,7 @@ def prefill_phase(torch, F, dev):
     p = PREFILL
     args, kw, err, tol, (q, k, v) = case(p["b"], p["hq"], p["hkv"], p["s"],
                                          p["s"], p["d"])
+    MAIN_ARGS["splitmax_attention"] = (args, kw, tol)
     GRAPHED["prefill"] = lambda: K.splitmax_attention_cuda(*args, **kw)
     GRAPHED["prefill sdpa"] = sdpa_fn(q, k, v)
     ms = time_ms(torch, GRAPHED["prefill"])
@@ -432,11 +473,39 @@ def prefill_phase(torch, F, dev):
     print(f"[prefill] moe {m}: == exact oracle, max_abs_err {merr:.3g} (tol "
           f"{mtol:.3g}), kernel host-inclusive {m_ms:.4f} ms, plain "
           f"{m_plain_ms:.4f} ms, bound {m_bms:.5f} ms ({m_by})")
+    # the dense family's admissions: GQA groups 4 and 7 at D 128
+    dense = {}
+    for key, heads in DENSE_HEADS.items():
+        h = dict(b=1, s=250, **heads)
+        for e in (dict(sq=33, sk=33), dict(sq=100, sk=100, window=16)):
+            _, _, e_err, e_tol, _ = case(1, heads["hq"], heads["hkv"],
+                                         d=heads["d"], **e)
+            print(f"[prefill] {key} edge {e}: == exact oracle, max_abs_err "
+                  f"{e_err:.3g} (tol {e_tol:.3g})")
+        hargs, hkw, herr, htol, (hq_, hk_, hv_) = case(
+            1, heads["hq"], heads["hkv"], 250, 250, heads["d"])
+        GRAPHED[f"prefill {key}"] = (
+            lambda a=hargs, k=hkw: K.splitmax_attention_cuda(*a, **k))
+        GRAPHED[f"prefill {key} sdpa"] = sdpa_fn(hq_, hk_, hv_)
+        h_ms = time_ms(torch, GRAPHED[f"prefill {key}"])
+        h_plain_ms = time_ms(torch, lambda: K.splitmax_attention_plain(
+            *hargs, **hkw), iters=10)
+        h_bms, h_by = prefill_bound(1, heads["hq"], heads["hkv"], 250,
+                                    heads["d"])
+        print(f"[prefill] {key} {h}: == exact oracle, max_abs_err {herr:.3g} "
+              f"(tol {htol:.3g}), kernel host-inclusive {h_ms:.4f} ms, plain "
+              f"{h_plain_ms:.4f} ms, bound {h_bms:.5f} ms ({h_by})")
+        merr = max(merr, herr)
+        dense[key] = {"shape": h, "graph": f"prefill {key}",
+                      "library_graph": f"prefill {key} sdpa", "host_ms": h_ms,
+                      "plain_ms": h_plain_ms, "bound_ms": h_bms,
+                      "bound_by": h_by}
     return {"name": "splitmax_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/splitmax_attn.cu",
             "replaces": "src/repro/kernels/splitmax_attn.py:181",
             "path": "paged admissions and resumes, dense re-prefills, the "
-                    "fakequant->int8 check's int8 forward, MoE admissions",
+                    "fakequant->int8 check's int8 forward, MoE and dense-"
+                    "family admissions",
             "max_abs_err": max(err, rerr, cerr, merr), "exact_equal": True,
             "graph": "prefill", "library_graph": "prefill sdpa",
             "host_ms": ms, "plain_ms": plain_ms,
@@ -452,7 +521,7 @@ def prefill_phase(torch, F, dev):
             "moe": {"shape": m, "graph": "prefill moe",
                     "library_graph": "prefill moe sdpa", "host_ms": m_ms,
                     "plain_ms": m_plain_ms, "bound_ms": m_bms,
-                    "bound_by": m_by}}
+                    "bound_by": m_by}, **dense}
 
 
 # ----------------------------------------------------------------- decode --
@@ -527,6 +596,7 @@ def decode_phase(torch, F, dev):
     err, tol = compare(args, f"main lens {lens}")
     args[1][paged_kv.TRASH_BLOCK] = 127
     args[2][paged_kv.TRASH_BLOCK] = 127
+    MAIN_ARGS["splitmax_decode_fused_paged"] = (args, dict(cfg=cfg), tol)
     GRAPHED["decode"] = lambda: K.splitmax_decode_fused_paged_cuda(*args,
                                                                     cfg=cfg)
     ms = time_ms(torch, GRAPHED["decode"])
@@ -568,6 +638,41 @@ def decode_phase(torch, F, dev):
     print(f"[decode] moe main lens {m_lens} heads {mh}: == exact oracle, "
           f"max_abs_err {m_err:.3g}, kernel host-inclusive {m_ms:.4f} ms, "
           f"plain {m_plain_ms:.4f} ms, bound {m_bms:.5f} ms ({m_by})")
+    # the dense family's decode: 8 slots, GQA groups 4 and 7 at D 128
+    dense = {}
+    for key, heads in DENSE_HEADS.items():
+        hh = (heads["hq"], heads["hkv"], heads["d"])
+        e_err, _ = compare(make(edge_lens, *hh, bk, idle=(6,)),
+                           f"{key} heads edges")
+        w_err, _ = compare(make([100, 64, 33], *hh, bk), f"{key} window 48",
+                           window=48)
+        h_lens = torch.randint(p["prompt"] + 1, p["prompt"] + p["gen"] + 1,
+                               (b,), generator=gen, device=dev).tolist()
+        h_args = make(h_lens, *hh, bk)
+        h_err, _ = compare(h_args, f"{key} main lens {h_lens}")
+        h_args[1][paged_kv.TRASH_BLOCK] = 127
+        h_args[2][paged_kv.TRASH_BLOCK] = 127
+        GRAPHED[f"decode {key}"] = (
+            lambda a=h_args: K.splitmax_decode_fused_paged_cuda(*a, cfg=cfg))
+        GRAPHED[f"decode {key} sdpa"] = sdpa_decode_yardstick(
+            torch, F, gen, dev, b, hh[0], hh[2], [[n] for n in h_lens])
+        h_ms = time_ms(torch, GRAPHED[f"decode {key}"])
+        h_plain_ms = time_ms(
+            torch, lambda: K.splitmax_decode_fused_paged_plain(*h_args,
+                                                               cfg=cfg),
+            iters=10)
+        h_bms, h_by = decode_bound(h_lens, *hh)
+        print(f"[decode] {key} heads {hh}, edges (slot 6 idle), window 48 "
+              f"and main lens {h_lens}: == exact oracle, max_abs_err "
+              f"{max(e_err, w_err, h_err):.3g}, kernel host-inclusive "
+              f"{h_ms:.4f} ms, plain {h_plain_ms:.4f} ms, bound {h_bms:.5f} "
+              f"ms ({h_by})")
+        m_err = max(m_err, e_err, w_err, h_err)
+        dense[key] = {"shape": dict(b=b, lens=h_lens, **heads),
+                      "graph": f"decode {key}",
+                      "library_graph": f"decode {key} sdpa",
+                      "host_ms": h_ms, "plain_ms": h_plain_ms,
+                      "bound_ms": h_bms, "bound_by": h_by}
     return {"name": "splitmax_decode_fused_paged", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/splitmax_decode.cu",
             "replaces": "src/repro/kernels/splitmax_decode.py:747",
@@ -578,7 +683,7 @@ def decode_phase(torch, F, dev):
             "moe": {"shape": dict(b=b, lens=m_lens, **MOE_HEADS),
                     "graph": "decode moe", "library_graph": "decode moe sdpa",
                     "host_ms": m_ms, "plain_ms": m_plain_ms,
-                    "bound_ms": m_bms, "bound_by": m_by}}, args
+                    "bound_ms": m_bms, "bound_by": m_by}, **dense}, args
 
 
 # ----------------------------------------------------------------- verify --
@@ -671,6 +776,9 @@ def verify_phase(torch, F, dev):
         args, rows, err, tol = case(lens, gamma, "main")
         args[1][paged_kv.TRASH_BLOCK] = 127
         args[2][paged_kv.TRASH_BLOCK] = 127
+        if gamma == SPEC["gamma"]:
+            MAIN_ARGS["splitmax_decode_fused_verify_paged"] = (
+                args, dict(cfg=cfg), tol)
         key = f"verify g{gamma}"
         GRAPHED[key] = (lambda a=args: K.splitmax_decode_fused_verify_paged_cuda(
             *a, cfg=cfg))
@@ -737,8 +845,42 @@ def verify_phase(torch, F, dev):
     print(f"[verify] moe main gamma {gamma} heads {mh}: kernel "
           f"host-inclusive {m_ms:.4f} ms, plain {m_plain_ms:.4f} ms, bound "
           f"{m_bms:.5f} ms ({m_by})")
+    # the dense family's verify: GQA groups 4 and 7 at D 128, gamma 4
+    dense = {}
+    for key, heads in DENSE_HEADS.items():
+        hh = (heads["hq"], heads["hkv"], heads["d"])
+        for window in (None, 48):
+            case(edges, gamma, f"{key} heads", window=window, idle=(4,),
+                 heads=hh)
+        h_lens = torch.randint(p["lens"][0], p["lens"][1] + 1, (p["b"],),
+                               generator=gen, device=dev).tolist()
+        h_args, _, h_err, _ = case(h_lens, gamma, f"{key} main", heads=hh)
+        h_args[1][paged_kv.TRASH_BLOCK] = 127
+        h_args[2][paged_kv.TRASH_BLOCK] = 127
+        GRAPHED[f"verify {key}"] = (
+            lambda a=h_args: K.splitmax_decode_fused_verify_paged_cuda(
+                *a, cfg=cfg))
+        GRAPHED[f"verify {key} sdpa"] = sdpa_decode_yardstick(
+            torch, F, gen, dev, p["b"], hh[0], hh[2],
+            [[n - (gamma - 1 - t) for t in range(gamma)] for n in h_lens])
+        h_ms = time_ms(torch, GRAPHED[f"verify {key}"])
+        h_plain_ms = time_ms(
+            torch, lambda: K.splitmax_decode_fused_verify_paged_plain(
+                *h_args, cfg=cfg), iters=10)
+        h_bms, h_by = verify_bound(h_lens, gamma, *hh)
+        print(f"[verify] {key} main gamma {gamma} heads {hh}: kernel "
+              f"host-inclusive {h_ms:.4f} ms, plain {h_plain_ms:.4f} ms, "
+              f"bound {h_bms:.5f} ms ({h_by})")
+        m_err = max(m_err, h_err)
+        dense[key] = {"shape": dict(b=p["b"], lens=h_lens, gamma=gamma,
+                                    **heads),
+                      "graph": f"verify {key}",
+                      "library_graph": f"verify {key} sdpa",
+                      "host_ms": h_ms, "plain_ms": h_plain_ms,
+                      "bound_ms": h_bms, "bound_by": h_by}
     # the serving path runs gamma = SPEC["gamma"]: its row goes in the line
     main = next(r for r in results if r["gamma"] == SPEC["gamma"])
+    main.update(dense)
     main["max_abs_err"] = max(main["max_abs_err"], m_err)
     main["moe"] = {"shape": dict(b=p["b"], lens=m_lens, gamma=gamma,
                                  **MOE_HEADS),
@@ -791,6 +933,8 @@ def composed_phase(torch, dev, decode_args):
         errs.append(err)
         print(f"[composed] window {window}: == exact oracle, max_abs_err "
               f"{err:.3g} (tol {tol:.3g}), == fused kernel bit for bit")
+    MAIN_ARGS["splitmax_decode_paged"] = (args, dict(cfg=cfg),
+                                          tolerance(float(s_v)))
     GRAPHED["composed"] = lambda: K.splitmax_decode_paged_cuda(*args,
                                                                 cfg=cfg)
     ms = time_ms(torch, GRAPHED["composed"])
@@ -951,6 +1095,7 @@ def dense_decode_phase(torch, F, dev):
             ("splitmax_decode", 642, K.splitmax_decode_cuda,
              K.splitmax_decode_plain, cargs, 1,
              "dense decode steps, --fused off")):
+        MAIN_ARGS[name] = (a, dict(cfg=cfg), tolerance(float(a[-4])))
         GRAPHED[name] = lambda fn=fn, a=a: fn(*a, cfg=cfg)
         ms = time_ms(torch, GRAPHED[name])
         plain_ms = time_ms(torch, lambda: plain_fn(*a, cfg=cfg), iters=10)
@@ -1031,6 +1176,9 @@ def dense_verify_phase(torch, F, dev):
         lens = torch.randint(p["lens"][0], p["lens"][1] + 1, (p["b"],),
                              generator=gen, device=dev).tolist()
         args, rows, err = case(lens, gamma, "main")
+        if gamma == SPEC["gamma"]:
+            MAIN_ARGS["splitmax_decode_fused_verify"] = (
+                args, dict(cfg=cfg), tolerance(float(args[5])))
         key = f"dense verify g{gamma}"
         GRAPHED[key] = (lambda a=args: K.splitmax_decode_fused_verify_cuda(
             *a, cfg=cfg))
@@ -1185,6 +1333,71 @@ def int8_gemm_phase(torch, dev):
 
 # ------------------------------------------------------ graph-replay times --
 
+def options_phase(torch, dev, kernels):
+    """The reference's two kernel options on every split-softmax kernel's
+    main inputs (``MAIN_ARGS``): the ``exact_recip`` instance (a division
+    in the finalize) bit for bit the plain version's ``exact=True`` with
+    ``exact_recip``, within ``tolerance`` of its default plain version, and
+    the LUT instance within the reference's ``RECIP_LUT_REL_ERR`` of it;
+    then the kernel reading the ``lut_mode="compute"`` table (built on the
+    CPU, as ``core.attention.luts_for`` serves it) bit for bit its plain
+    version on that table.  Each ``exact_recip`` instance is timed in the
+    graph phase; its entry goes under the kernel's ``"exact_recip"``."""
+    from repro_torch.core.attention import luts_for
+    from repro_torch.kernels import splitmax_attn, splitmax_decode
+
+    scale_z = 8.0 / 127
+    exp_lut = luts_for(scale_z, dev)[0]
+    exp_compute = luts_for(scale_z, dev, "compute")[0]
+    n_diff = int((exp_compute != exp_lut).sum())
+    print(f"[options] compute table at scale_z {scale_z:.6g} (the served "
+          f"configs'): {n_diff} of 256 entries differ from the one-hot "
+          f"mode's f64-built table")
+    for k in kernels:
+        name = k["name"]
+        if name not in MAIN_ARGS:
+            continue
+        args, kw, tol = MAIN_ARGS.pop(name)
+        mod = splitmax_attn if name == "splitmax_attention" else \
+            splitmax_decode
+        kern, plain = (getattr(mod, f"{name}_cuda"),
+                       getattr(mod, f"{name}_plain"))
+        got = kern(*args, exact_recip=True, **kw)
+        exact = plain(*args, exact_recip=True, exact=True, **kw)
+        default = plain(*args, exact_recip=True, **kw)
+        lut = kern(*args, **kw)
+        c_args = [exp_compute if a is exp_lut else a for a in args]
+        c_got = kern(*c_args, **kw)
+        c_exact = plain(*c_args, exact=True, **kw)
+        torch.cuda.synchronize()
+        err = float((got - default).abs().max())
+        rel = float((lut - got).abs().max() / got.abs().max())
+        check(torch.equal(got, exact), f"{name} exact_recip: kernel != the "
+              f"exact=True plain version")
+        check(err <= tol, f"{name} exact_recip: max|kernel-plain| {err:.3g} "
+              f"> {tol:.3g}")
+        check(rel < RECIP_LUT_REL_ERR, f"{name}: the LUT instance is "
+              f"{rel:.3g} of the scale from the exact_recip one")
+        check(torch.equal(c_got, c_exact), f"{name} compute mode: kernel != "
+              f"the exact=True plain version on the compute table")
+        key = f"{name} exact_recip"
+        GRAPHED[key] = (lambda f=kern, a=args, w=kw:
+                        f(*a, exact_recip=True, **w))
+        ms = time_ms(torch, GRAPHED[key])
+        plain_ms = time_ms(torch, lambda: plain(*args, exact_recip=True,
+                                                **kw), iters=10)
+        k["exact_recip"] = {"graph": key, "library_graph": k["library_graph"],
+                            "host_ms": ms, "plain_ms": plain_ms,
+                            "bound_ms": k["bound_ms"],
+                            "bound_by": k["bound_by"], "max_abs_err": err}
+        print(f"[options] {name}: exact_recip instance == exact oracle, "
+              f"max_abs_err {err:.3g} (tol {tol:.3g}), LUT instance within "
+              f"{rel:.3g} of its scale (bound {RECIP_LUT_REL_ERR:.3g}), "
+              f"host-inclusive {ms:.4f} ms, plain {plain_ms:.4f} ms; "
+              f"compute mode == exact oracle")
+    check(not MAIN_ARGS, f"options: no kernel entry for {sorted(MAIN_ARGS)}")
+
+
 def graph_phase(torch, dev, kernels):
     """Every closure in GRAPHED timed by graph replay, 7 rounds interleaved,
     beside the launch floor (a replayed one-element ``add_``); each kernel
@@ -1219,7 +1432,8 @@ def graph_phase(torch, dev, kernels):
 
     for k in kernels:
         fill(k)
-        for sub in ("reprefill", "int8_check", "moe"):
+        for sub in ("reprefill", "int8_check", "moe", *DENSE_HEADS,
+                    "exact_recip"):
             if sub in k:
                 fill(k[sub])
     return floor
@@ -1893,11 +2107,18 @@ def rows_agree(torch, dev, params, cfg, b: int, t: int) -> bool:
     full-width tokens must equal.  The rest is shown too: verify runs the
     RMSNorms, the MLP (DeepSeekMoE's d_ff 10944 down projection sums in a
     row-count-dependent order), the MoE router and shared experts and the
-    f32 LM head one token at a time, at the decode step's shape.  (The
-    expert GEMMs have the same shape in both: their rows are the capacity
-    slots.)"""
+    f32 LM head (a tied config's: the f32 embedding table, as
+    ``layers.unembed_apply`` multiplies it) one token at a time, at the
+    decode step's shape, and the q/k norms too.  (The expert GEMMs have the
+    same shape in both: their rows are the capacity slots.)  The norms'
+    lines (RMSNorm; the q/k RMSNorm over each head's D; OLMo's
+    non-parametric LayerNorm) are shown for every config."""
+    from repro_torch.models import layers as L
+
     gen = torch.Generator(device=dev).manual_seed(6)
-    weights, per_token, seen = [], [("lm_head", params["lm_head"]["w"])], set()
+    head = (("tied head (embedding table)", params["embed"]["table"].T)
+            if cfg.tie_embeddings else ("lm_head", params["lm_head"]["w"]))
+    weights, per_token, seen = [], [head], set()
     for i, lp in enumerate(params["layers"]):
         kind = "moe" if "moe" in lp else "dense"
         if kind in seen:
@@ -1916,7 +2137,7 @@ def rows_agree(torch, dev, params, cfg, b: int, t: int) -> bool:
     tokenwise_names = {name for name, _ in per_token}
     for name, w in weights + per_token:
         tokenwise = name in tokenwise_names
-        w = w.to(torch.float32 if "lm_head" in name or "router" in name
+        w = w.to(torch.float32 if "head" in name or "router" in name
                  else cfg.compute_dtype)
         x = torch.randn((b * t, w.shape[0]), generator=gen, device=dev
                         ).to(w.dtype)
@@ -1937,6 +2158,24 @@ def rows_agree(torch, dev, params, cfg, b: int, t: int) -> bool:
           f"{'==' if torch.equal(small, big) else '!='} ({b}, {t}, "
           f"{cfg.d_model}) ({int((small != big).sum())} of {b * t} rows "
           f"differ); verify runs the norms per token")
+    # the norms as the serving path applies them, on its compute dtype: the
+    # q/k RMSNorm on (B, T, Hq, D) heads and the non-parametric LayerNorm on
+    # (B, T, d_model) rows, per token slice vs all tokens at once
+    for what, shape, fn in (
+            ("q/k rmsnorm", (b, t, cfg.n_heads, cfg.hd),
+             lambda y: L.rmsnorm_apply(
+                 {"scale": torch.ones(cfg.hd, device=dev)}, y)),
+            ("nonparam layernorm", (b, t, cfg.d_model),
+             lambda y: L.nonparam_layernorm_apply({}, y))):
+        x = torch.randn(shape, generator=gen, device=dev).to(
+            cfg.compute_dtype)
+        small, big = L.per_token(fn, x), fn(x)
+        n_rows = small.numel() // shape[-1]
+        differ = int((small != big).any(-1).sum())
+        print(f"[rows] {what} {tuple(shape)} {x.dtype}: per-token slices "
+              f"{'==' if torch.equal(small, big) else '!='} all tokens "
+              f"({differ} of {n_rows} rows differ); verify runs it per "
+              f"token")
     return all(verdicts)
 
 
@@ -2099,12 +2338,11 @@ def dense_serve_phase(torch, dev, params, cfg):
 
 # ------------------------------------------------------------------- MoE --
 
-def moe_smoke_phase(torch, dev):
-    """Both MoE smoke configs (DeepSeekMoE: 1 dense layer, then MoE with
-    shared experts; Mixtral: GQA, window 32) in f32, kernels on the card
-    vs plain versions on the CPU, same weights: paged prefill logits and 8
-    decode steps within 2e-3 of the logits' scale, and the served tokens of
-    a small churn (24-token prompts, up to 16 generated: past the window)
+def smoke_arch_check(torch, dev, arch: str, tag: str) -> None:
+    """One smoke config in f32, kernels on the card vs plain versions on
+    the CPU, same weights: paged prefill logits and 8 decode steps within
+    2e-3 of the logits' scale, and the served tokens of a small churn
+    (24-token prompts, up to 16 generated: past a 32-position window)
     equal."""
     import numpy as np
     from repro_torch.configs import get_arch
@@ -2112,31 +2350,37 @@ def moe_smoke_phase(torch, dev):
     from repro_torch.models import transformer as T
 
     cpu = torch.device("cpu")
+    cfg = get_arch(arch).smoke.replace(dtype="float32")
+    params = T.init_params(cfg, seed=0, device=cpu)
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 20))
+    gpu = smoke_paged_logits(torch, params, cfg, tokens, dev)
+    ref = smoke_paged_logits(torch, params, cfg, tokens, cpu)
+    err = float((gpu - ref).abs().max())
+    scale = float(ref.abs().max())
+    check(bool(torch.isfinite(gpu).all()), f"{arch} smoke: non-finite")
+    check(err <= 2e-3 * scale, f"{arch} smoke: max|gpu-cpu| logits "
+          f"{err:.3g} > 2e-3 * {scale:.3g}")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, 24, dtype=np.int32)
+               for _ in range(6)]
+    gens = [int(g) for g in rng.integers(8, 17, 6)]
+    kw = dict(slots=3, gen=16, gens=gens, block_k=8)
+    on_card = srv.serve_paged(tree_to(params, dev), cfg, prompts, **kw)
+    on_cpu = srv.serve_paged(params, cfg, prompts, **kw)
+    check_served(on_card, gens, cfg.vocab_size, f"{arch} smoke churn")
+    check(on_card["finished"] == on_cpu["finished"],
+          f"{arch} smoke churn: card tokens differ from the CPU's")
+    print(f"[{tag}] {arch} smoke (f32), card vs CPU plain path: "
+          f"prefill + 8 decode steps max|logit diff| {err:.3g} (logits "
+          f"up to {scale:.3g}; tol 2e-3 of that); 6-request churn "
+          f"tokens == CPU tokens")
+
+
+def moe_smoke_phase(torch, dev):
+    """Both MoE smoke configs (DeepSeekMoE: 1 dense layer, then MoE with
+    shared experts; Mixtral: GQA, window 32): :func:`smoke_arch_check`."""
     for arch in MOE_SMOKE_ARCHS:
-        cfg = get_arch(arch).smoke.replace(dtype="float32")
-        params = T.init_params(cfg, seed=0, device=cpu)
-        tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 20))
-        gpu = smoke_paged_logits(torch, params, cfg, tokens, dev)
-        ref = smoke_paged_logits(torch, params, cfg, tokens, cpu)
-        err = float((gpu - ref).abs().max())
-        scale = float(ref.abs().max())
-        check(bool(torch.isfinite(gpu).all()), f"{arch} smoke: non-finite")
-        check(err <= 2e-3 * scale, f"{arch} smoke: max|gpu-cpu| logits "
-              f"{err:.3g} > 2e-3 * {scale:.3g}")
-        rng = np.random.default_rng(0)
-        prompts = [rng.integers(0, cfg.vocab_size, 24, dtype=np.int32)
-                   for _ in range(6)]
-        gens = [int(g) for g in rng.integers(8, 17, 6)]
-        kw = dict(slots=3, gen=16, gens=gens, block_k=8)
-        on_card = srv.serve_paged(tree_to(params, dev), cfg, prompts, **kw)
-        on_cpu = srv.serve_paged(params, cfg, prompts, **kw)
-        check_served(on_card, gens, cfg.vocab_size, f"{arch} smoke churn")
-        check(on_card["finished"] == on_cpu["finished"],
-              f"{arch} smoke churn: card tokens differ from the CPU's")
-        print(f"[moe-smoke] {arch} smoke (f32), card vs CPU plain path: "
-              f"prefill + 8 decode steps max|logit diff| {err:.3g} (logits "
-              f"up to {scale:.3g}; tol 2e-3 of that); 6-request churn "
-              f"tokens == CPU tokens")
+        smoke_arch_check(torch, dev, arch, "moe-smoke")
 
 
 def moe_layer_check(torch, params, cfg, prompt):
@@ -2317,6 +2561,131 @@ def moe_phase(torch, dev):
             "splitmax_decode_fused_verify_paged": n_ver}
 
 
+# ------------------------------------------------------- the dense family --
+
+def dense_smoke_phase(torch, dev):
+    """The dense family's other smoke configs: :func:`smoke_arch_check`."""
+    t0 = time.perf_counter()
+    for arch in DENSE_SMOKE_ARCHS:
+        smoke_arch_check(torch, dev, arch, "dense-smoke")
+    print(f"[dense-smoke] phase wall time {time.perf_counter() - t0:.1f} s")
+
+
+def dense_full_phase(torch, dev, arch: str, *, speculative: bool):
+    """``arch`` at full width on the card, drawn leaf by leaf in bf16 (the
+    LM head, or a tied embedding table, f32): the churn through
+    ``serve_paged`` with its warm-up; with ``speculative`` also one batch
+    under the profiler, the row-count check and the churn through
+    ``serve_speculative`` self-drafted at gamma 4 (tokens those of the
+    plain churn where the row check says they must be).  Returns the main
+    paths' launches of kernels 1, 2 and 3 (1 and 2 from the plain churn, 3
+    from the speculative one)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import splitmax_attn, splitmax_decode as K
+    from repro_torch.launch import serve as srv
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_arch(arch).config
+    name = cfg.name
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=SERVE["seed"], device=dev, serving=True)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    w_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(params))
+    init_peak = torch.cuda.max_memory_allocated()
+    # never the f32 masters: at most the largest f32 draw (the padded vocab
+    # x d_model table or head) and its scaled copy beside the weights
+    f32_draw = 4 * L.pad_vocab(cfg.vocab_size,
+                               cfg.vocab_pad_multiple) * cfg.d_model
+    check(init_peak <= w_bytes + 2 * f32_draw, f"{name} init: peak "
+          f"{init_peak / 1e9:.2f} GB for {w_bytes / 1e9:.2f} GB of weights")
+    print(f"[dense] {name} at full width: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd} "
+          f"(q columns {cfg.n_heads * cfg.hd}), d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, norm {cfg.norm}, qk_norm {cfg.qk_norm}, tied "
+          f"{cfg.tie_embeddings}, rope {cfg.rope_theta:g}; "
+          f"{cfg.param_count():,} parameters, seeded random weights drawn "
+          f"leaf by leaf in {init_s:.2f} s: {w_bytes / 1e9:.2f} GB, peak "
+          f"{init_peak / 1e9:.2f} GB")
+
+    prompts, gens = churn(cfg)
+    kw = dict(slots=SERVE["slots"], gen=SERVE["gen"], gens=gens,
+              block_k=SERVE["block_k"])
+    splitmax_attn.launches = K.launches = 0
+    stats = srv.serve_paged(params, cfg, prompts, warmup=True, **kw)
+    torch.cuda.synchronize()
+    n_prefill, n_decode = splitmax_attn.launches, K.launches
+    check_served(stats, gens, cfg.vocab_size, f"{name} churn")
+    n_warm = (stats["warmup_prefills"], stats["warmup_decode_steps"])
+    check(n_warm == (2, 1), f"{name} warm-up ran {n_warm} prefills and "
+          f"decodes")
+    check(n_prefill == (stats["slot_prefills"] + n_warm[0]) * cfg.n_layers,
+          f"{name} prefill launches {n_prefill} != ({stats['slot_prefills']} "
+          f"admissions + {n_warm[0]} warm-up) x {cfg.n_layers} layers")
+    check(n_decode == (stats["decode_steps"] + n_warm[1]) * cfg.n_layers,
+          f"{name} decode launches {n_decode} != ({stats['decode_steps']} "
+          f"steps + {n_warm[1]} warm-up) x {cfg.n_layers} layers")
+    print(f"[dense] {name} churn {SERVE}: served {stats['served']}, "
+          f"{stats['total_tokens']} tokens in {stats['wall_s']:.3f} s, "
+          f"{stats['tok_s']:.1f} tok/s, {stats['decode_steps']} decode steps, "
+          f"{stats['slot_prefills']} slot prefills, p50/p99 step "
+          f"{stats['p50_step_ms']:.2f}/{stats['p99_step_ms']:.2f} ms, leaked "
+          f"{stats['leaked_blocks']}, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, launches "
+          f"prefill {n_prefill} decode {n_decode} (warm-up included)")
+    n_ver = 0
+    if speculative:
+        profile_serving(torch, srv, params, cfg, prompts[:SERVE["slots"]])
+        gamma = SPEC["gamma"]
+        agree = rows_agree(torch, dev, params, cfg, SERVE["slots"], gamma)
+        # warm-up: the verify GEMM shapes (M = slots * gamma)
+        srv.serve(params, cfg, prompts[:2], slots=2, gen=4, gamma=gamma,
+                  draft="self", block_k=SERVE["block_k"])
+        torch.cuda.synchronize()
+        splitmax_attn.launches = K.launches = K.verify_launches = 0
+        spec = srv.serve_speculative(params, cfg, prompts, gamma=gamma, **kw)
+        torch.cuda.synchronize()
+        n_pre, n_dec, n_ver = (splitmax_attn.launches, K.launches,
+                               K.verify_launches)
+        check_served(spec, gens, cfg.vocab_size, f"{name} speculative")
+        check(n_ver == spec["verify_steps"] * cfg.n_layers > 0,
+              f"{name} speculative: verify launches {n_ver} != "
+              f"{spec['verify_steps']} rounds x {cfg.n_layers}")
+        check(n_dec == spec["draft_steps"] * gamma * cfg.n_layers,
+              f"{name} speculative: decode launches {n_dec} != "
+              f"{spec['draft_steps']} x {gamma} x {cfg.n_layers}")
+        check(n_pre == spec["slot_prefills"] * cfg.n_layers,
+              f"{name} speculative: prefill launches {n_pre} != "
+              f"{spec['slot_prefills']} x {cfg.n_layers}")
+        same = sum(spec["finished"][r] == stats["finished"][r]
+                   for r in stats["finished"])
+        if agree:
+            check(same == len(stats["finished"]),
+                  f"{name} speculative: tokens differ from plain serving in "
+                  f"{len(stats['finished']) - same} requests")
+        print(f"[dense] {name} speculative self gamma {gamma}: served "
+              f"{spec['served']}, {spec['total_tokens']} tokens in "
+              f"{spec['wall_s']:.3f} s, {spec['tok_s']:.1f} tok/s (plain "
+              f"{stats['tok_s']:.1f}), {spec['verify_steps']} rounds, p50/p99 "
+              f"round {spec['p50_step_ms']:.2f}/{spec['p99_step_ms']:.2f} ms, "
+              f"accept_rate {spec['accept_rate']:.4f}, tokens == plain in "
+              f"{same}/{len(stats['finished'])} requests (required: {agree}), "
+              f"leaked {spec['leaked_blocks']}, launches prefill {n_pre} "
+              f"decode {n_dec} verify {n_ver}")
+    print(f"[dense] {name} phase wall time {time.perf_counter() - t_phase:.1f} "
+          f"s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del params
+    torch.cuda.empty_cache()
+    return {"splitmax_attention": n_prefill,
+            "splitmax_decode_fused_paged": n_decode,
+            "splitmax_decode_fused_verify_paged": n_ver}
+
+
 def profile_serving(torch, srv, params, cfg, prompts, gen: int = 8):
     """Where the time goes: one full batch (8 admissions, then decode steps)
     under torch.profiler; device busy share and the top kernels."""
@@ -2399,6 +2768,7 @@ def main() -> int:
                composed_phase(torch, dev, decode_args),
                *dense_decode_phase(torch, F, dev),
                dense_verify_phase(torch, F, dev), int8_gemm_phase(torch, dev)]
+    options_phase(torch, dev, kernels)
     graph_phase(torch, dev, kernels)
     smoke_reference_phase(torch, dev)
 
@@ -2428,15 +2798,34 @@ def main() -> int:
     n_fq_full = train_full_phase(torch, dev)
     moe_smoke_phase(torch, dev)
     moe = moe_phase(torch, dev)
+    dense_smoke_phase(torch, dev)
+    nemo = dense_full_phase(torch, dev, NEMO_ARCH, speculative=True)
+    olmo = dense_full_phase(torch, dev, OLMO_ARCH, speculative=False)
     by_path = {"paged churn": launches["splitmax_attention"],
                "dense churn": dense.pop("splitmax_attention"),
                "pressure churn": n_pressure,
                "fakequant->int8 check, smoke": n_fq_smoke,
                "fakequant->int8 check, full width": n_fq_full,
-               "moe churn": moe["splitmax_attention"]}
-    for name in ("splitmax_decode_fused_paged",
-                 "splitmax_decode_fused_verify_paged"):
-        launches[name] += moe[name]
+               "moe churn": moe["splitmax_attention"],
+               "mistral-nemo churn": nemo["splitmax_attention"],
+               "olmo churn": olmo["splitmax_attention"]}
+    decode_by_path = {
+        "paged churn": launches["splitmax_decode_fused_paged"],
+        "moe churn": moe["splitmax_decode_fused_paged"],
+        "mistral-nemo churn": nemo["splitmax_decode_fused_paged"],
+        "olmo churn": olmo["splitmax_decode_fused_paged"]}
+    verify_by_path = {
+        "speculative churn (self, self:4)":
+            launches["splitmax_decode_fused_verify_paged"],
+        "moe speculative churn": moe["splitmax_decode_fused_verify_paged"],
+        "mistral-nemo speculative churn":
+            nemo["splitmax_decode_fused_verify_paged"]}
+    for paths in (by_path, decode_by_path, verify_by_path):
+        for path, n in paths.items():
+            check(n > 0, f"no split-softmax launch on the {path} path")
+    launches["splitmax_decode_fused_paged"] = sum(decode_by_path.values())
+    launches["splitmax_decode_fused_verify_paged"] = sum(
+        verify_by_path.values())
     launches["splitmax_attention"] = sum(by_path.values())
     launches.update(dense)
     launches["splitmax_decode_fused_verify"] = (
@@ -2448,7 +2837,8 @@ def main() -> int:
         k["launches"] = launches[k["name"]]
     next(k for k in kernels if k["name"] == "int8_matmul")[
         "pre_pass_launches"] = launches["int8_matmul pre-pass"]
-    kernels[0]["launches_by_path"] = by_path
+    for k, paths in zip(kernels, (by_path, decode_by_path, verify_by_path)):
+        k["launches_by_path"] = paths
     for name in ("splitmax_attention", "splitmax_decode_fused_paged",
                  "splitmax_decode_fused_verify_paged", "splitmax_decode_paged",
                  "splitmax_decode_fused", "splitmax_decode"):

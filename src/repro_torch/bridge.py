@@ -12,7 +12,9 @@ layer segments, ``params["segments"]``, each homogeneous (a MoE config's
 leading dense layers, then its MoE layers) with a leading layer axis on
 every leaf, which become the port's one list ``params["layers"]``.
 :func:`to_jax_layout` is the inverse map, which the trainer's checkpoints
-use so that the reference restores them.
+use so that the reference restores them.  A non-parametric norm is the
+empty dict in both layouts, and a tied config has no ``lm_head`` in
+either.
 """
 from __future__ import annotations
 
@@ -53,12 +55,17 @@ def from_jax_params(np_params: Dict, cfg: ModelConfig, *, device="cuda"
     if len(segs) != len(segments):
         raise ValueError(f"{len(segs)} layer segments for {cfg.name}'s "
                          f"{segments}")
+    if ("lm_head" in np_params) == cfg.tie_embeddings:
+        raise ValueError(f"{cfg.name}: tie_embeddings={cfg.tie_embeddings}, "
+                         f"but the parameters "
+                         f"{'have' if cfg.tie_embeddings else 'lack'} an "
+                         f"lm_head")
     dev = resolve_device(device)
     out = {k: _to_torch(v, dev) for k, v in np_params.items()
            if k != "segments"}
     out["layers"] = []
     for seg, (kind, n) in zip(segs, segments):
-        m = np.shape(seg["norm1"]["scale"])[0]
+        m = np.shape(seg["attn"]["wq"]["w"])[0]     # every layer has it
         if m != n or _kind(seg) != kind:
             raise ValueError(f"a segment of {m} {_kind(seg)} layers where "
                              f"{cfg.name} has {n} {kind} layers")

@@ -1,5 +1,5 @@
-"""Architecture registry (port of ``repro/configs``; the port so far holds
-the paper's own evaluation model and the two MoE configs)."""
+"""Architecture registry (port of ``repro/configs``: the dense and MoE
+configs; the SSM, encoder-decoder and hybrid ones are not ported)."""
 from __future__ import annotations
 
 import importlib
@@ -8,6 +8,11 @@ from typing import List
 from repro_torch.configs.base import ArchSpec
 
 ARCH_IDS: List[str] = [
+    "chameleon_34b",
+    "mistral_nemo_12b",
+    "olmo_1b",
+    "deepseek_coder_33b",
+    "deepseek_67b",
     "mixtral_8x22b",
     "deepseek_moe_16b",
     # the paper's own evaluation model

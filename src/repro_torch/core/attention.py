@@ -16,6 +16,12 @@ and ``paged_decode_attention`` -- fused and composed -- and
 
 A model trains with ``fakequant`` and serves with ``int8``.  The decode
 entry points take ``int8`` only.
+
+Two options of the int8 kernels, the reference's ablations, default off
+and set by no config: ``lut_mode="compute"`` reads the exp values the
+reference recomputes per element from a second table
+(:func:`luts_for`), and ``exact_recip`` divides in the finalize instead
+of reading the reciprocal LUT.
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import ref as ref_lib
 
 MODES = ("float", "fakequant", "int8")
+LUT_MODES = ("onehot", "compute")
 FAKEQUANT_BLOCK_K = 512
 
 
@@ -43,6 +50,8 @@ class AttentionSpec:
     scale_z: float = 8.0 / 127         # score quant scale (clip ~ +-8)
     window: Optional[int] = None       # sliding-window size, None = full
     fused: bool = True                 # decode: in-kernel quantize of q
+    lut_mode: str = "onehot"           # onehot | compute: the int8 exp table
+    exact_recip: bool = False          # int8 finalize: 1/s, not the LUT
     # training perf levers (defaults = the paper-faithful baseline)
     score_dtype: str = "float32"       # float32 | bfloat16 score chain
     triangular: bool = False           # causal triangular chunk schedule
@@ -50,6 +59,9 @@ class AttentionSpec:
     def __post_init__(self):
         if self.mode not in MODES:
             raise ValueError(f"attention mode {self.mode!r}, not in {MODES}")
+        if self.lut_mode not in LUT_MODES:
+            raise ValueError(f"lut_mode {self.lut_mode!r}, not in "
+                             f"{LUT_MODES}")
 
     @property
     def lut_config(self) -> LUTConfig:
@@ -64,11 +76,15 @@ def _require_int8(spec: AttentionSpec) -> None:
 
 
 @functools.lru_cache(maxsize=32)
-def luts_for(scale_z: float, device: torch.device
+def luts_for(scale_z: float, device: torch.device, lut_mode: str = "onehot"
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(exp LUT, recip LUT) as int32 tensors on ``device``."""
+    """(exp LUT, recip LUT) as int32 tensors on ``device``; with
+    ``lut_mode="compute"`` the exp table holds the reference's per-element
+    f32 recompute (``lut.build_exp_lut_compute``, built on the CPU)."""
     cfg = LUTConfig(scale_z=scale_z)
-    return (torch.from_numpy(lut_lib.build_exp_lut(cfg)).to(device),
+    exp_lut = (lut_lib.build_exp_lut_compute(cfg) if lut_mode == "compute"
+               else torch.from_numpy(lut_lib.build_exp_lut(cfg)))
+    return (exp_lut.to(device),
             torch.from_numpy(lut_lib.build_recip_lut(cfg)).to(device))
 
 
@@ -95,11 +111,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s_q = qlib.absmax_scale(q)
     s_k = qlib.absmax_scale(k)
     s_v = qlib.absmax_scale(v)
-    exp_lut, recip_lut = luts_for(spec.scale_z, q.device)
+    exp_lut, recip_lut = luts_for(spec.scale_z, q.device, spec.lut_mode)
     out = ops.splitmax_attention(
         qlib.quantize(q, s_q), qlib.quantize(k, s_k), qlib.quantize(v, s_v),
         s_q, s_k, s_v, exp_lut, recip_lut, cfg=spec.lut_config,
-        causal=True, window=spec.window)
+        causal=True, window=spec.window, exact_recip=spec.exact_recip)
     return out.to(q.dtype)
 
 
@@ -112,16 +128,17 @@ def decode_attention(q: torch.Tensor, k_cache_q: torch.Tensor,
     ``spec.fused`` picks the fused or the composed kernel."""
     _require_int8(spec)
     s_q = qlib.absmax_scale(q, axis=(1, 2))                  # (B,1,1)
-    exp_lut, recip_lut = luts_for(spec.scale_z, q.device)
+    exp_lut, recip_lut = luts_for(spec.scale_z, q.device, spec.lut_mode)
     if spec.fused:
         out = ops.splitmax_decode_fused(
             q, k_cache_q, v_cache_q, s_q, s_k, s_v, cache_len, exp_lut,
-            recip_lut, cfg=spec.lut_config, window=spec.window)
+            recip_lut, cfg=spec.lut_config, window=spec.window,
+            exact_recip=spec.exact_recip)
     else:
         out = ops.splitmax_decode(
             qlib.quantize(q, s_q), k_cache_q, v_cache_q, s_q, s_k, s_v,
             cache_len, exp_lut, recip_lut, cfg=spec.lut_config,
-            window=spec.window)
+            window=spec.window, exact_recip=spec.exact_recip)
     return out.to(q.dtype)
 
 
@@ -139,16 +156,17 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     """
     _require_int8(spec)
     s_q = qlib.absmax_scale(q, axis=(1, 2))                  # (B,1,1)
-    exp_lut, recip_lut = luts_for(spec.scale_z, q.device)
+    exp_lut, recip_lut = luts_for(spec.scale_z, q.device, spec.lut_mode)
     if spec.fused:
         out = ops.splitmax_decode_fused_paged(
             q, k_pages, v_pages, block_table, s_q, s_k, s_v, cache_len,
-            exp_lut, recip_lut, cfg=spec.lut_config, window=spec.window)
+            exp_lut, recip_lut, cfg=spec.lut_config, window=spec.window,
+            exact_recip=spec.exact_recip)
     else:
         out = ops.splitmax_decode_paged(
             qlib.quantize(q, s_q), k_pages, v_pages, block_table, s_q, s_k,
             s_v, cache_len, exp_lut, recip_lut, cfg=spec.lut_config,
-            window=spec.window)
+            window=spec.window, exact_recip=spec.exact_recip)
     return out.to(q.dtype)
 
 
@@ -167,8 +185,9 @@ def paged_verify_attention(q: torch.Tensor, k_pages: torch.Tensor,
     """
     _require_int8(spec)
     s_q = qlib.absmax_scale(q, axis=(1, 3))[:, 0, :, 0]      # (B,T)
-    exp_lut, recip_lut = luts_for(spec.scale_z, q.device)
+    exp_lut, recip_lut = luts_for(spec.scale_z, q.device, spec.lut_mode)
     out = ops.splitmax_decode_fused_verify_paged(
         q, k_pages, v_pages, block_table, s_q, s_k, s_v, cache_len,
-        exp_lut, recip_lut, cfg=spec.lut_config, window=spec.window)
+        exp_lut, recip_lut, cfg=spec.lut_config, window=spec.window,
+        exact_recip=spec.exact_recip)
     return out.to(q.dtype)

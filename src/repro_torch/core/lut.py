@@ -12,6 +12,11 @@ The table builders are numpy (host constants), copied verbatim so both
 packages build identical tables.  The reciprocal index and ``2^e`` are read
 from f32 *bit patterns*: float ``log2``/``exp2`` can be an ulp off even at
 powers of two, which flips the table index at bin boundaries.
+
+The reference's two kernel options live here too: ``lut_mode="compute"``
+(:func:`build_exp_lut_compute`, the exp recomputed in f32 instead of the
+f64-built table) and ``exact_recip`` (:func:`recip_factor`, a division in
+place of the reciprocal LUT).
 """
 from __future__ import annotations
 
@@ -46,6 +51,27 @@ def build_exp_lut(cfg: LUTConfig) -> np.ndarray:
     z = idx - 128.0 - float(Z_QUANT_MAX)          # z_q - z_quant_max in [-255, 0]
     vals = np.round(np.exp(z * cfg.scale_z) * (1 << cfg.exp_frac_bits))
     return vals.astype(np.int32)
+
+
+def build_exp_lut_compute(cfg: LUTConfig) -> torch.Tensor:
+    """The reference's ``lut_mode="compute"`` exp as a 256-entry int32
+    table (CPU), indexed like :func:`build_exp_lut`:
+    ``round(exp(f32(z_q - 127) * f32(s_z)) * 2^f_e)`` in f32, rounded half
+    to even, ``s_z`` cast to f32 first as JAX does with the weak-typed
+    float.
+
+    The reference's kernels compute that formula per element.  ``e``
+    depends on ``z_q`` alone, and ``z_q`` takes only the 256 values
+    -128..127, so a table of the formula's values is the same function;
+    the one-hot matmul read and the per-element recompute are TPU layout
+    choices.  The card reads this CPU-built table, so card and CPU agree bit
+    for bit.  Against the reference it holds within 1 LSB of ``e``: XLA's
+    and torch's f32 ``exp`` may differ by an ulp, which can flip a rounding.
+    Every entry is at most ``2^f_e``."""
+    z = torch.arange(-128, 128, dtype=torch.int32) - Z_QUANT_MAX
+    arg = z.to(torch.float32) * torch.tensor(cfg.scale_z, dtype=torch.float32)
+    e = torch.round(torch.exp(arg) * float(1 << cfg.exp_frac_bits))
+    return e.to(torch.int32)
 
 
 def build_recip_lut(cfg: LUTConfig) -> np.ndarray:
@@ -87,6 +113,21 @@ def exp2_int(e: torch.Tensor) -> torch.Tensor:
     """Exact 2^e for integer e in [-126, 127], by building the f32 bits."""
     bits = (e.to(torch.int32) + 127) << 23
     return bits.view(torch.float32)
+
+
+def recip_factor(s: torch.Tensor, recip_lut: torch.Tensor, cfg: LUTConfig,
+                 exact_recip: bool = False) -> torch.Tensor:
+    """The f32 factor ``1/max(s, 1)`` of the split softmax's finalize: the
+    reciprocal LUT's ``r * 2^e``, or with ``exact_recip`` the correctly
+    rounded f32 quotient (the reference's ``1.0 / s``), formed in f64 and
+    rounded once: a correctly rounded f64 quotient rounds to the correctly
+    rounded f32 one (53 >= 2 * 24 + 2 bits), on any device and whatever its
+    division's fast paths."""
+    s = torch.clamp_min(s.to(torch.float32), 1.0)
+    if exact_recip:
+        return (1.0 / s.to(torch.float64)).to(torch.float32)
+    r, ex = recip_lookup(s, recip_lut, cfg)
+    return r.to(torch.float32) * exp2_int(ex)
 
 
 def recip_apply(x: torch.Tensor, r: torch.Tensor, e: torch.Tensor

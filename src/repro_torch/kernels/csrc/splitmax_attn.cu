@@ -27,7 +27,8 @@
 //    exp LUT, the causal / window / padding masks, and the row sums of e;
 //  * e . V on the tensor cores as well, u8 x s8 -> s32, on the bytes of
 //    e = 256 * e_hi + e_lo, two int32 accumulators per output carried across
-//    tiles and joined in int64 at the end (splitmax_common.cuh's contract).
+//    tiles and joined in int64 at the end (splitmax_common.cuh's contract);
+//    kExactRecip instances divide in the epilogue (the exact_recip option).
 //    The QK^T C fragment becomes the e . V A fragment in place: the key
 //    order inside the k32 contraction is free, so V^T is written to shared
 //    memory in the order each thread already holds its scores in (keys
@@ -84,7 +85,7 @@ __host__ __device__ Smem smem_layout(int d, int recip_bits) {
   return m;
 }
 
-template <int kKSteps>
+template <int kKSteps, bool kExactRecip>
 __global__ void __launch_bounds__(Shape<kKSteps>::kThreads)
 splitmax_attn_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ k,
                      const int8_t* __restrict__ v, const float* __restrict__ m_z_ptr,
@@ -265,16 +266,16 @@ splitmax_attn_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ k,
       const int row = row_a + h * 8;
       if (row >= sq) continue;
       float2 o;
-      o.x = finalize(256LL * acc_hi[dn][2 * h] + acc_lo[dn][2 * h], s_row[h], s_v,
-                     recip_s, recip_bits, recip_frac_bits);
-      o.y = finalize(256LL * acc_hi[dn][2 * h + 1] + acc_lo[dn][2 * h + 1], s_row[h],
-                     s_v, recip_s, recip_bits, recip_frac_bits);
+      o.x = finalize<kExactRecip>(256LL * acc_hi[dn][2 * h] + acc_lo[dn][2 * h],
+                                  s_row[h], s_v, recip_s, recip_bits, recip_frac_bits);
+      o.y = finalize<kExactRecip>(256LL * acc_hi[dn][2 * h + 1] + acc_lo[dn][2 * h + 1],
+                                  s_row[h], s_v, recip_s, recip_bits, recip_frac_bits);
       *reinterpret_cast<float2*>(og + static_cast<size_t>(row) * d + col) = o;
     }
   }
 }
 
-template <int kKSteps>
+template <int kKSteps, bool kExactRecip>
 int launch(const void* q, const void* k, const void* v, const void* m_z, const void* s_v,
            const void* exp_lut, const void* recip_lut, void* out, int b, int hq, int hkv,
            int sq, int sk, int d, int kv_valid, int causal, int window, int recip_bits,
@@ -283,12 +284,12 @@ int launch(const void* q, const void* k, const void* v, const void* m_z, const v
   const size_t smem = smem_layout<kKSteps>(d, recip_bits).total;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        splitmax_attn_kernel<kKSteps>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        splitmax_attn_kernel<kKSteps, kExactRecip>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const dim3 grid((sq + S::kBlockQ - 1) / S::kBlockQ, b * hq);
-  splitmax_attn_kernel<kKSteps><<<grid, S::kThreads, smem, stream>>>(
+  splitmax_attn_kernel<kKSteps, kExactRecip><<<grid, S::kThreads, smem, stream>>>(
       static_cast<const int8_t*>(q), static_cast<const int8_t*>(k),
       static_cast<const int8_t*>(v), static_cast<const float*>(m_z),
       static_cast<const float*>(s_v), static_cast<const int*>(exp_lut),
@@ -303,17 +304,19 @@ extern "C" {
 
 // Returns the cudaError_t of the launch (0 = cudaSuccess).  D is a multiple
 // of 16 in [16, 256]; the wrapper checks it, and that at most
-// kMaxExactKeys keys are attended.
+// kMaxExactKeys keys are attended.  exact_recip != 0 launches the
+// kExactRecip instance.
 int splitmax_attention_launch(const void* q, const void* k, const void* v, const void* m_z,
                               const void* s_v, const void* exp_lut, const void* recip_lut,
                               void* out, int b, int hq, int hkv, int sq, int sk, int d,
                               int kv_valid, int causal, int window, int recip_bits,
-                              int recip_frac_bits, void* stream) {
+                              int recip_frac_bits, int exact_recip, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-#define SPLITMAX_ATTN_CASE(n)                                                          \
-  case n:                                                                              \
-    return launch<n>(q, k, v, m_z, s_v, exp_lut, recip_lut, out, b, hq, hkv, sq, sk, d, \
-                     kv_valid, causal, window, recip_bits, recip_frac_bits, s);
+#define SPLITMAX_ATTN_CASE(n)                                                           \
+  case n:                                                                               \
+    return (exact_recip ? launch<n, true> : launch<n, false>)(                          \
+        q, k, v, m_z, s_v, exp_lut, recip_lut, out, b, hq, hkv, sq, sk, d, kv_valid,    \
+        causal, window, recip_bits, recip_frac_bits, s);
   switch ((d + 31) / 32) {
     SPLITMAX_ATTN_CASE(1)
     SPLITMAX_ATTN_CASE(2)

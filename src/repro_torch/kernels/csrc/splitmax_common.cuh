@@ -10,6 +10,8 @@
 //   acc = sum e * v    exactly, in integers
 //   s   = sum e        exactly, in integers
 //   out = f32(acc) * RecipLUT(max(f32(s), 1)) * s_v
+// (the exact_recip instances, kExactRecip: 1 / max(f32(s), 1), an IEEE
+// division, in place of RecipLUT, multiplied in the same order).
 // Each term e * v is an integer with |e * v| <= 2^22, so the sums are
 // exact whatever the order or the partition of the keys: a split-K
 // decode, a verify row and the decode at its length, a dense slot and a
@@ -61,13 +63,21 @@ __device__ __forceinline__ float recip_lut(float s, const int* recip, int mbits,
   return static_cast<float>(recip[idx]) * exp2_int(-expo - frac_bits);
 }
 
-// The contract's epilogue: f32(acc) * RecipLUT(max(f32(s), 1)) * s_v.
+// The contract's epilogue: f32(acc) * RecipLUT(max(f32(s), 1)) * s_v, or
+// with kExactRecip (the reference's exact_recip ablation) the correctly
+// rounded 1 / max(f32(s), 1) in place of the LUT.
+template <bool kExactRecip>
 __device__ __forceinline__ float finalize(long long acc, long long s, float s_v,
                                           const int* recip, int mbits,
                                           int frac_bits) {
   const float sf = fmaxf(__ll2float_rn(s), 1.f);
-  return __fmul_rn(__fmul_rn(__ll2float_rn(acc), recip_lut(sf, recip, mbits, frac_bits)),
-                   s_v);
+  float r;
+  if constexpr (kExactRecip) {
+    r = __fdiv_rn(1.f, sf);
+  } else {
+    r = recip_lut(sf, recip, mbits, frac_bits);
+  }
+  return __fmul_rn(__fmul_rn(__ll2float_rn(acc), r), s_v);
 }
 
 // int8 dot of two rows held as packed 32-bit words.

@@ -6,7 +6,9 @@
 //                              through each slot's block-table row;
 //   dense    (kDense = true):  the slot's own (Hkv, S_max, D) rows of a
 //                              (B, Hkv, S_max, D) cache, walked in tiles of
-//                              block_k positions, the last one ragged.
+//                              block_k positions, the last one ragged;
+// and each has a kExactRecip instance (the exact_recip option: the
+// finalize divides in place of the reciprocal LUT).
 //
 // Replaces: repro/kernels/splitmax_decode.py::splitmax_decode_fused_paged_pallas,
 //           ::splitmax_decode_paged_pallas (_paged_decode_call,
@@ -99,7 +101,7 @@ __host__ __device__ inline Smem smem_layout(int group, int d, int block_k, int r
 
 // ``extent`` is the table width (paged) or S_max (dense); ``table`` is
 // unused when dense.
-template <bool kQuantizeQ, bool kDense>
+template <bool kQuantizeQ, bool kDense, bool kExactRecip>
 __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads)
 decode_kernel(const void* __restrict__ q_in, const int8_t* __restrict__ k_cache,
               const int8_t* __restrict__ v_cache, const int* __restrict__ table,
@@ -273,18 +275,19 @@ decode_kernel(const void* __restrict__ q_in, const int8_t* __restrict__ k_cache,
   const int per_rank = (n_out + kRanks - 1) / kRanks;
   const int o_end = min(n_out, (rank + 1) * per_rank);
   for (int o = rank * per_rank + tid; o < o_end; o += kThreads) {
-    og[o] = finalize(cluster_sum(cluster, part_acc, o), cluster_sum(cluster, part_s, o / d),
-                     s_v, recip_s, recip_bits, recip_frac_bits);
+    og[o] = finalize<kExactRecip>(cluster_sum(cluster, part_acc, o),
+                                  cluster_sum(cluster, part_s, o / d), s_v, recip_s,
+                                  recip_bits, recip_frac_bits);
   }
   cluster.sync();  // no block exits while another still reads its partials
 }
 
-template <bool kQuantizeQ, bool kDense>
-int launch(const void* q, const void* k_cache, const void* v_cache, const void* table,
-           const void* m_z, const void* s_q, const void* s_v, const void* cache_len,
-           const void* exp_lut, const void* recip_lut, void* out, int b, int hq, int hkv,
-           int d, int block_k, int extent, int window, int recip_bits,
-           int recip_frac_bits, void* stream) {
+template <bool kQuantizeQ, bool kDense, bool kExactRecip>
+int launch_one(const void* q, const void* k_cache, const void* v_cache, const void* table,
+               const void* m_z, const void* s_q, const void* s_v, const void* cache_len,
+               const void* exp_lut, const void* recip_lut, void* out, int b, int hq,
+               int hkv, int d, int block_k, int extent, int window, int recip_bits,
+               int recip_frac_bits, void* stream) {
   const int group = hq / hkv;
   const Smem one = smem_layout(group, d, block_k, recip_bits, 1);
   const size_t per_tile = align16(one.e_tile) + align16(one.k_tile) + align16(one.v_tile);
@@ -293,12 +296,12 @@ int launch(const void* q, const void* k_cache, const void* v_cache, const void* 
   const size_t smem = smem_layout(group, d, block_k, recip_bits, stage).total;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        decode_kernel<kQuantizeQ, kDense>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        decode_kernel<kQuantizeQ, kDense, kExactRecip>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const dim3 grid(hkv * kRanks, b);
-  decode_kernel<kQuantizeQ, kDense>
+  decode_kernel<kQuantizeQ, kDense, kExactRecip>
       <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
           q, static_cast<const int8_t*>(k_cache), static_cast<const int8_t*>(v_cache),
           static_cast<const int*>(table), static_cast<const float*>(m_z),
@@ -307,6 +310,19 @@ int launch(const void* q, const void* k_cache, const void* v_cache, const void* 
           static_cast<const int*>(recip_lut), static_cast<float*>(out), hq, hkv, d,
           block_k, extent, window, recip_bits, recip_frac_bits, stage);
   return static_cast<int>(cudaGetLastError());
+}
+
+// exact_recip != 0 launches the kExactRecip instance.
+template <bool kQuantizeQ, bool kDense>
+int launch(const void* q, const void* k_cache, const void* v_cache, const void* table,
+           const void* m_z, const void* s_q, const void* s_v, const void* cache_len,
+           const void* exp_lut, const void* recip_lut, void* out, int b, int hq, int hkv,
+           int d, int block_k, int extent, int window, int recip_bits,
+           int recip_frac_bits, int exact_recip, void* stream) {
+  return (exact_recip ? launch_one<kQuantizeQ, kDense, true>
+                      : launch_one<kQuantizeQ, kDense, false>)(
+      q, k_cache, v_cache, table, m_z, s_q, s_v, cache_len, exp_lut, recip_lut, out, b, hq,
+      hkv, d, block_k, extent, window, recip_bits, recip_frac_bits, stream);
 }
 
 }  // namespace
@@ -321,10 +337,10 @@ int splitmax_decode_fused_paged_launch(const void* q, const void* k_pages,
                                        const void* recip_lut, void* out, int b, int hq,
                                        int hkv, int d, int block_k, int max_blocks,
                                        int window, int recip_bits, int recip_frac_bits,
-                                       void* stream) {
+                                       int exact_recip, void* stream) {
   return launch<true, false>(q, k_pages, v_pages, table, m_z, s_q, s_v, cache_len,
                              exp_lut, recip_lut, out, b, hq, hkv, d, block_k, max_blocks,
-                             window, recip_bits, recip_frac_bits, stream);
+                             window, recip_bits, recip_frac_bits, exact_recip, stream);
 }
 
 int splitmax_decode_paged_launch(const void* q_q, const void* k_pages, const void* v_pages,
@@ -332,10 +348,11 @@ int splitmax_decode_paged_launch(const void* q_q, const void* k_pages, const voi
                                  const void* cache_len, const void* exp_lut,
                                  const void* recip_lut, void* out, int b, int hq, int hkv,
                                  int d, int block_k, int max_blocks, int window,
-                                 int recip_bits, int recip_frac_bits, void* stream) {
+                                 int recip_bits, int recip_frac_bits, int exact_recip,
+                                 void* stream) {
   return launch<false, false>(q_q, k_pages, v_pages, table, m_z, nullptr, s_v, cache_len,
                               exp_lut, recip_lut, out, b, hq, hkv, d, block_k, max_blocks,
-                              window, recip_bits, recip_frac_bits, stream);
+                              window, recip_bits, recip_frac_bits, exact_recip, stream);
 }
 
 int splitmax_decode_fused_dense_launch(const void* q, const void* k_cache,
@@ -344,10 +361,11 @@ int splitmax_decode_fused_dense_launch(const void* q, const void* k_cache,
                                        const void* cache_len, const void* exp_lut,
                                        const void* recip_lut, void* out, int b, int hq,
                                        int hkv, int d, int block_k, int s_max, int window,
-                                       int recip_bits, int recip_frac_bits, void* stream) {
+                                       int recip_bits, int recip_frac_bits, int exact_recip,
+                                       void* stream) {
   return launch<true, true>(q, k_cache, v_cache, nullptr, m_z, s_q, s_v, cache_len,
                             exp_lut, recip_lut, out, b, hq, hkv, d, block_k, s_max,
-                            window, recip_bits, recip_frac_bits, stream);
+                            window, recip_bits, recip_frac_bits, exact_recip, stream);
 }
 
 int splitmax_decode_dense_launch(const void* q_q, const void* k_cache, const void* v_cache,
@@ -355,10 +373,10 @@ int splitmax_decode_dense_launch(const void* q_q, const void* k_cache, const voi
                                  const void* exp_lut, const void* recip_lut, void* out,
                                  int b, int hq, int hkv, int d, int block_k, int s_max,
                                  int window, int recip_bits, int recip_frac_bits,
-                                 void* stream) {
+                                 int exact_recip, void* stream) {
   return launch<false, true>(q_q, k_cache, v_cache, nullptr, m_z, nullptr, s_v, cache_len,
                              exp_lut, recip_lut, out, b, hq, hkv, d, block_k, s_max,
-                             window, recip_bits, recip_frac_bits, stream);
+                             window, recip_bits, recip_frac_bits, exact_recip, stream);
 }
 
 const char* splitmax_decode_error_string(int code) {

@@ -1,7 +1,9 @@
 // Fused speculative verify: the T draft queries of every slot vs the int8
 // KV cache in one launch.  Two entries, one compile-time variant apart:
 //   paged (kDense = false): the pool, read through each slot's block table;
-//   dense (kDense = true):  the slot's rows of a (B, Hkv, S_max, D) cache.
+//   dense (kDense = true):  the slot's rows of a (B, Hkv, S_max, D) cache;
+// each with a kExactRecip instance (the exact_recip option: the finalize
+// divides in place of the reciprocal LUT).
 //
 // Replaces: repro/kernels/splitmax_decode.py::
 //           splitmax_decode_fused_verify_paged_pallas (_paged_verify_call,
@@ -134,7 +136,7 @@ __host__ __device__ inline Smem smem_layout(int rows, int d, int dp, int recip_b
 
 // ``extent`` is the table width (paged) or S_max (dense); ``table`` and the
 // pool's ``block_k`` are unused when dense.
-template <int kKSteps, bool kDense, int kBlocksPerSm>
+template <int kKSteps, bool kDense, int kBlocksPerSm, bool kExactRecip>
 __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kVerifyThreads, kBlocksPerSm)
 verify_kernel(const float* __restrict__ q, const int8_t* __restrict__ k_cache,
               const int8_t* __restrict__ v_cache, const int* __restrict__ table,
@@ -367,13 +369,14 @@ verify_kernel(const float* __restrict__ q, const int8_t* __restrict__ k_cache,
     const longlong2 a = cluster_sum_pair(cluster, part_acc, o);
     const long long st = s_tot[o / d - r_begin];
     *reinterpret_cast<float2*>(og + o) =
-        make_float2(finalize(a.x, st, s_v, recip_s, recip_bits, recip_frac_bits),
-                    finalize(a.y, st, s_v, recip_s, recip_bits, recip_frac_bits));
+        make_float2(
+            finalize<kExactRecip>(a.x, st, s_v, recip_s, recip_bits, recip_frac_bits),
+            finalize<kExactRecip>(a.y, st, s_v, recip_s, recip_bits, recip_frac_bits));
   }
   cluster.sync();  // no block exits while another still reads its partials
 }
 
-template <int kKSteps, bool kDense, int kBlocksPerSm>
+template <int kKSteps, bool kDense, int kBlocksPerSm, bool kExactRecip>
 int run(size_t smem, int stage, const void* q, const void* k_cache, const void* v_cache,
         const void* table, const void* m_z, const void* s_q, const void* s_v,
         const void* cache_len, const void* exp_lut, const void* recip_lut, void* out, int b,
@@ -382,13 +385,14 @@ int run(size_t smem, int stage, const void* q, const void* k_cache, const void* 
   static size_t allowed = 48 * 1024;  // raised once per size, never inside a capture
   if (smem > allowed) {
     const cudaError_t err = cudaFuncSetAttribute(
-        verify_kernel<kKSteps, kDense, kBlocksPerSm>,
+        verify_kernel<kKSteps, kDense, kBlocksPerSm, kExactRecip>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     allowed = smem;
   }
   const dim3 grid(hkv * kRanks, b);
-  verify_kernel<kKSteps, kDense, kBlocksPerSm><<<grid, kVerifyThreads, smem, stream>>>(
+  verify_kernel<kKSteps, kDense, kBlocksPerSm, kExactRecip>
+      <<<grid, kVerifyThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const int8_t*>(k_cache),
       static_cast<const int8_t*>(v_cache), static_cast<const int*>(table),
       static_cast<const float*>(m_z), static_cast<const float*>(s_q),
@@ -399,7 +403,7 @@ int run(size_t smem, int stage, const void* q, const void* k_cache, const void* 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int kKSteps, bool kDense>
+template <int kKSteps, bool kDense, bool kExactRecip>
 int launch(const void* q, const void* k_cache, const void* v_cache, const void* table,
            const void* m_z, const void* s_q, const void* s_v, const void* cache_len,
            const void* exp_lut, const void* recip_lut, void* out, int b, int hq, int hkv,
@@ -415,28 +419,29 @@ int launch(const void* q, const void* k_cache, const void* v_cache, const void* 
   while (stage < kMaxStage && one.total + stage * per_tile <= budget) ++stage;
   const size_t smem = smem_layout(rows, d, 32 * kKSteps, recip_bits, stage).total;
   if (smem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
-  return (three ? run<kKSteps, kDense, 3> : run<kKSteps, kDense, 2>)(
+  return (three ? run<kKSteps, kDense, 3, kExactRecip>
+                : run<kKSteps, kDense, 2, kExactRecip>)(
       smem, stage, q, k_cache, v_cache, table, m_z, s_q, s_v, cache_len, exp_lut, recip_lut,
       out, b, hq, hkv, n_tok, d, block_k, extent, window, recip_bits, recip_frac_bits,
       stream);
 }
 
 // D is a multiple of 16 up to kMaxD and T * group * D <= kMaxRowsD; the
-// wrapper checks both.
+// wrapper checks both.  exact_recip != 0 launches the kExactRecip instance.
 template <bool kDense>
 int launch_d(const void* q, const void* k_cache, const void* v_cache, const void* table,
              const void* m_z, const void* s_q, const void* s_v, const void* cache_len,
              const void* exp_lut, const void* recip_lut, void* out, int b, int hq, int hkv,
              int n_tok, int d, int block_k, int extent, int window, int recip_bits,
-             int recip_frac_bits, void* stream) {
+             int recip_frac_bits, int exact_recip, void* stream) {
   if (d % 16 || d > kMaxD || hq / hkv * n_tok * d > kMaxRowsD)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
 #define SPLITMAX_VERIFY_CASE(n)                                                          \
   case n:                                                                                \
-    return launch<n, kDense>(q, k_cache, v_cache, table, m_z, s_q, s_v, cache_len,       \
-                             exp_lut, recip_lut, out, b, hq, hkv, n_tok, d, block_k,     \
-                             extent, window, recip_bits, recip_frac_bits, st);
+    return (exact_recip ? launch<n, kDense, true> : launch<n, kDense, false>)(           \
+        q, k_cache, v_cache, table, m_z, s_q, s_v, cache_len, exp_lut, recip_lut, out, b,  \
+        hq, hkv, n_tok, d, block_k, extent, window, recip_bits, recip_frac_bits, st);
   switch ((d + 31) / 32) {
     SPLITMAX_VERIFY_CASE(1)
     SPLITMAX_VERIFY_CASE(2)
@@ -463,10 +468,10 @@ int splitmax_verify_paged_launch(const void* q, const void* k_pages, const void*
                                  const void* exp_lut, const void* recip_lut, void* out,
                                  int b, int hq, int hkv, int n_tok, int d, int block_k,
                                  int max_blocks, int window, int recip_bits,
-                                 int recip_frac_bits, void* stream) {
+                                 int recip_frac_bits, int exact_recip, void* stream) {
   return launch_d<false>(q, k_pages, v_pages, table, m_z, s_q, s_v, cache_len, exp_lut,
                          recip_lut, out, b, hq, hkv, n_tok, d, block_k, max_blocks, window,
-                         recip_bits, recip_frac_bits, stream);
+                         recip_bits, recip_frac_bits, exact_recip, stream);
 }
 
 int splitmax_verify_dense_launch(const void* q, const void* k_cache, const void* v_cache,
@@ -474,10 +479,11 @@ int splitmax_verify_dense_launch(const void* q, const void* k_cache, const void*
                                  const void* cache_len, const void* exp_lut,
                                  const void* recip_lut, void* out, int b, int hq, int hkv,
                                  int n_tok, int d, int block_k, int s_max, int window,
-                                 int recip_bits, int recip_frac_bits, void* stream) {
+                                 int recip_bits, int recip_frac_bits, int exact_recip,
+                                 void* stream) {
   return launch_d<true>(q, k_cache, v_cache, nullptr, m_z, s_q, s_v, cache_len, exp_lut,
                         recip_lut, out, b, hq, hkv, n_tok, d, block_k, s_max, window,
-                        recip_bits, recip_frac_bits, stream);
+                        recip_bits, recip_frac_bits, exact_recip, stream);
 }
 
 const char* splitmax_verify_error_string(int code) {

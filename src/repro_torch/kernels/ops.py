@@ -6,6 +6,12 @@ that sends a CUDA tensor to the plain version.
 
 ``m_z = s_q * s_k / (sqrt(f32(D)) * s_z)`` — the 32b->8b requant multiplier
 — is computed here in f32, in the reference's order, so it is bit-equal.
+
+Every split-softmax entry takes the reference's ``exact_recip`` (a
+division in place of the reciprocal LUT, a compile-time variant of each
+kernel).  Its ``lut_mode`` arrives as the ``exp_lut`` argument: the
+``"compute"`` mode's values form a second 256-entry table
+(``core.attention.luts_for``), which the same kernels read.
 """
 from __future__ import annotations
 
@@ -34,7 +40,8 @@ def requant_multiplier(s_q: torch.Tensor, s_k: torch.Tensor, d: int,
 def splitmax_attention(q_q, k_q, v_q, s_q, s_k, s_v, exp_lut, recip_lut, *,
                        cfg: LUTConfig, causal: bool = True,
                        window: Optional[int] = None,
-                       kv_valid_len: Optional[int] = None) -> torch.Tensor:
+                       kv_valid_len: Optional[int] = None,
+                       exact_recip: bool = False) -> torch.Tensor:
     """(B,Hq,Sq,D) int8 x (B,Hkv,Sk,D) int8 -> (B,Hq,Sq,D) f32; per-tensor
     scales."""
     m_z = requant_multiplier(s_q, s_k, q_q.shape[-1], cfg).reshape(())
@@ -43,7 +50,7 @@ def splitmax_attention(q_q, k_q, v_q, s_q, s_k, s_v, exp_lut, recip_lut, *,
     return fn(q_q.contiguous(), k_q.contiguous(), v_q.contiguous(), m_z,
               s_v.to(torch.float32).reshape(()),
               exp_lut, recip_lut, cfg=cfg, causal=causal, window=window,
-              kv_valid_len=kv_valid_len)
+              kv_valid_len=kv_valid_len, exact_recip=exact_recip)
 
 
 def _per_slot_scale(s_q: torch.Tensor, b: int) -> torch.Tensor:
@@ -62,7 +69,8 @@ def _per_token_scale(s_q: torch.Tensor, b: int, t: int) -> torch.Tensor:
 
 def splitmax_decode(q_q, k_cache, v_cache, s_q, s_k, s_v, cache_len, exp_lut,
                     recip_lut, *, cfg: LUTConfig,
-                    window: Optional[int] = None) -> torch.Tensor:
+                    window: Optional[int] = None,
+                    exact_recip: bool = False) -> torch.Tensor:
     """Composed dense decode: int8 q_q (B,Hq,D) x int8 (B,Hkv,S_max,D)
     cache -> (B,Hq,D) f32.  ``s_q`` is the scale ``q_q`` was quantized
     with, a scalar or one per slot; it enters only through ``m_z``."""
@@ -73,12 +81,13 @@ def splitmax_decode(q_q, k_cache, v_cache, s_q, s_k, s_v, cache_len, exp_lut,
           else decode_k.splitmax_decode_plain)
     return fn(q_q.contiguous(), k_cache.contiguous(), v_cache.contiguous(),
               m_z, s_v.to(torch.float32).reshape(()), cache_len, exp_lut,
-              recip_lut, cfg=cfg, window=window)
+              recip_lut, cfg=cfg, window=window, exact_recip=exact_recip)
 
 
 def splitmax_decode_fused(q, k_cache, v_cache, s_q, s_k, s_v, cache_len,
                           exp_lut, recip_lut, *, cfg: LUTConfig,
-                          window: Optional[int] = None) -> torch.Tensor:
+                          window: Optional[int] = None,
+                          exact_recip: bool = False) -> torch.Tensor:
     """Fused dense decode: f32-able q (B,Hq,D) + in-kernel quantize x int8
     (B,Hkv,S_max,D) cache -> (B,Hq,D) f32.  ``s_q`` is a scalar or one
     scale per slot."""
@@ -90,14 +99,14 @@ def splitmax_decode_fused(q, k_cache, v_cache, s_q, s_k, s_v, cache_len,
     return fn(q.to(torch.float32).contiguous(), k_cache.contiguous(),
               v_cache.contiguous(), m_z, s_q,
               s_v.to(torch.float32).reshape(()), cache_len, exp_lut,
-              recip_lut, cfg=cfg, window=window)
+              recip_lut, cfg=cfg, window=window, exact_recip=exact_recip)
 
 
 def splitmax_decode_fused_verify(q, k_cache, v_cache, s_q, s_k, s_v,
                                  cache_len, exp_lut, recip_lut, *,
                                  cfg: LUTConfig,
-                                 window: Optional[int] = None
-                                 ) -> torch.Tensor:
+                                 window: Optional[int] = None,
+                                 exact_recip: bool = False) -> torch.Tensor:
     """Dense fused verify: f32-able draft queries q (B,Hq,T,D) vs the dense
     cache -> (B,Hq,T,D) f32.  ``s_q`` is a scalar, (T,) or (B,T);
     ``cache_len`` counts all T tokens, and token t attends ``cache_len -
@@ -110,12 +119,13 @@ def splitmax_decode_fused_verify(q, k_cache, v_cache, s_q, s_k, s_v,
     return fn(q.to(torch.float32).contiguous(), k_cache.contiguous(),
               v_cache.contiguous(), m_z, s_q,
               s_v.to(torch.float32).reshape(()), cache_len, exp_lut,
-              recip_lut, cfg=cfg, window=window)
+              recip_lut, cfg=cfg, window=window, exact_recip=exact_recip)
 
 
 def splitmax_decode_paged(q_q, k_pages, v_pages, block_table, s_q, s_k, s_v,
                           cache_len, exp_lut, recip_lut, *, cfg: LUTConfig,
-                          window: Optional[int] = None) -> torch.Tensor:
+                          window: Optional[int] = None,
+                          exact_recip: bool = False) -> torch.Tensor:
     """Composed paged decode: int8 q_q (B,Hq,D) + block-table gather ->
     (B,Hq,D) f32.  ``s_q`` is the scale ``q_q`` was quantized with, a
     scalar or one per slot; it enters only through ``m_z``."""
@@ -126,13 +136,14 @@ def splitmax_decode_paged(q_q, k_pages, v_pages, block_table, s_q, s_k, s_v,
           else decode_k.splitmax_decode_paged_plain)
     return fn(q_q.contiguous(), k_pages, v_pages, block_table, m_z,
               s_v.to(torch.float32).reshape(()), cache_len, exp_lut,
-              recip_lut, cfg=cfg, window=window)
+              recip_lut, cfg=cfg, window=window, exact_recip=exact_recip)
 
 
 def splitmax_decode_fused_paged(q, k_pages, v_pages, block_table, s_q, s_k,
                                 s_v, cache_len, exp_lut, recip_lut, *,
                                 cfg: LUTConfig,
-                                window: Optional[int] = None) -> torch.Tensor:
+                                window: Optional[int] = None,
+                                exact_recip: bool = False) -> torch.Tensor:
     """Fused paged decode: f32-able q (B,Hq,D) + in-kernel quantize +
     block-table gather -> (B,Hq,D) f32.  ``s_q`` is a scalar or one scale
     per slot (any shape with B or 1 elements)."""
@@ -143,13 +154,15 @@ def splitmax_decode_fused_paged(q, k_pages, v_pages, block_table, s_q, s_k,
           else decode_k.splitmax_decode_fused_paged_plain)
     return fn(q.to(torch.float32).contiguous(), k_pages, v_pages,
               block_table, m_z, s_q, s_v.to(torch.float32).reshape(()),
-              cache_len, exp_lut, recip_lut, cfg=cfg, window=window)
+              cache_len, exp_lut, recip_lut, cfg=cfg, window=window,
+              exact_recip=exact_recip)
 
 
 def splitmax_decode_fused_verify_paged(q, k_pages, v_pages, block_table, s_q,
                                        s_k, s_v, cache_len, exp_lut,
                                        recip_lut, *, cfg: LUTConfig,
-                                       window: Optional[int] = None
+                                       window: Optional[int] = None,
+                                       exact_recip: bool = False
                                        ) -> torch.Tensor:
     """Paged fused verify: f32-able draft queries q (B,Hq,T,D) vs the pool
     -> (B,Hq,T,D) f32.  ``s_q`` is a scalar, (T,) or (B,T); ``cache_len``
@@ -162,7 +175,8 @@ def splitmax_decode_fused_verify_paged(q, k_pages, v_pages, block_table, s_q,
           else decode_k.splitmax_decode_fused_verify_paged_plain)
     return fn(q.to(torch.float32).contiguous(), k_pages, v_pages,
               block_table, m_z, s_q, s_v.to(torch.float32).reshape(()),
-              cache_len, exp_lut, recip_lut, cfg=cfg, window=window)
+              cache_len, exp_lut, recip_lut, cfg=cfg, window=window,
+              exact_recip=exact_recip)
 
 
 def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor,

@@ -14,6 +14,8 @@ The CUDA kernel sums ``e * v`` and ``e`` exactly in integers and converts
 each to f32 once (``csrc/splitmax_common.cuh``).  The plain version's
 default takes the f32 matmul of the reference; ``exact=True`` takes both
 sums in f64, exact for these integers, and so gives the kernel's bits.
+``exact_recip`` (both) divides by the denominator in place of the
+reciprocal LUT: a compile-time variant of the kernel.
 """
 from __future__ import annotations
 
@@ -44,7 +46,7 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = cuda_build.load("splitmax_attn")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.splitmax_attention_launch.argtypes = [p] * 8 + [i] * 11 + [p]
+        lib.splitmax_attention_launch.argtypes = [p] * 8 + [i] * 12 + [p]
         lib.splitmax_attention_launch.restype = i
         lib.splitmax_attention_error_string.argtypes = [i]
         lib.splitmax_attention_error_string.restype = ctypes.c_char_p
@@ -70,6 +72,7 @@ def splitmax_attention_plain(q_q, k_q, v_q, m_z, s_v, exp_lut, recip_lut, *,
                              cfg: LUTConfig, causal: bool = True,
                              window: Optional[int] = None,
                              kv_valid_len: Optional[int] = None,
+                             exact_recip: bool = False,
                              exact: bool = False) -> torch.Tensor:
     """The kernel's function in plain PyTorch (materializes the scores).
     ``exact`` takes ``e @ v`` and ``e.sum`` in f64 (every partial sum is an
@@ -92,9 +95,9 @@ def splitmax_attention_plain(q_q, k_q, v_q, m_z, s_v, exp_lut, recip_lut, *,
     dt = torch.float64 if exact else torch.float32
     e = e.to(dt)
     acc = (e @ v_q.to(dt)[:, :, None]).to(torch.float32)      # (B,Hkv,G,Sq,D)
-    s = torch.clamp_min(e.sum(-1, keepdim=True).to(torch.float32), 1.0)
-    r, ex = lut_lib.recip_lookup(s, recip_lut, cfg)
-    out = acc * (r.to(torch.float32) * lut_lib.exp2_int(ex)) * s_v
+    r = lut_lib.recip_factor(e.sum(-1, keepdim=True), recip_lut, cfg,
+                             exact_recip)
+    out = acc * r * s_v
     return out.reshape(b, hq, sq, d)
 
 
@@ -139,10 +142,10 @@ def _check(q_q, k_q, v_q, m_z, s_v, exp_lut, recip_lut, cfg, kv_valid):
 def splitmax_attention_cuda(q_q, k_q, v_q, m_z, s_v, exp_lut, recip_lut, *,
                             cfg: LUTConfig, causal: bool = True,
                             window: Optional[int] = None,
-                            kv_valid_len: Optional[int] = None
-                            ) -> torch.Tensor:
-    """Launch the CUDA kernel on PyTorch's current stream; raises on bad
-    input or a refused launch."""
+                            kv_valid_len: Optional[int] = None,
+                            exact_recip: bool = False) -> torch.Tensor:
+    """Launch the CUDA kernel (its ``exact_recip`` instance when asked) on
+    PyTorch's current stream; raises on bad input or a refused launch."""
     global launches
     if not q_q.is_cuda:
         raise ValueError("splitmax_attention_cuda takes CUDA tensors")
@@ -163,7 +166,7 @@ def splitmax_attention_cuda(q_q, k_q, v_q, m_z, s_v, exp_lut, recip_lut, *,
             s_v.data_ptr(), exp_lut.data_ptr(), recip_lut.data_ptr(),
             out.data_ptr(), b, hq, hkv, sq, sk, d, kv_valid,
             int(causal), window or 0, cfg.recip_index_bits,
-            cfg.recip_frac_bits, stream)
+            cfg.recip_frac_bits, int(exact_recip), stream)
     if err:
         raise RuntimeError("splitmax_attention launch failed: "
                            + lib.splitmax_attention_error_string(err).decode())

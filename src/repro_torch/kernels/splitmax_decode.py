@@ -27,7 +27,8 @@ The CUDA kernels sum ``e * v`` and ``e`` exactly in integers and convert
 each to f32 once (``csrc/splitmax_common.cuh``), so their bits do not depend
 on how the keys are split; every plain version takes ``exact=True`` for the
 same function (f64 sums of integers, rounded once), and by default the f32
-matmul of the reference.
+matmul of the reference.  Every entry takes ``exact_recip`` (a division in
+place of the reciprocal LUT; a compile-time variant of each kernel).
 
 Tiles whose table entry is the trash block (id 0) are dead.  A live slot
 never has one inside its length (the allocator never hands out block 0), so
@@ -75,13 +76,13 @@ def _lib(name: str) -> ctypes.CDLL:
         lib = cuda_build.load(name)
         p, i = ctypes.c_void_p, ctypes.c_int
         if name == "splitmax_decode":
-            sigs = {"splitmax_decode_fused_paged_launch": [p] * 11 + [i] * 9,
-                    "splitmax_decode_paged_launch": [p] * 10 + [i] * 9,
-                    "splitmax_decode_fused_dense_launch": [p] * 10 + [i] * 9,
-                    "splitmax_decode_dense_launch": [p] * 9 + [i] * 9}
+            sigs = {"splitmax_decode_fused_paged_launch": [p] * 11 + [i] * 10,
+                    "splitmax_decode_paged_launch": [p] * 10 + [i] * 10,
+                    "splitmax_decode_fused_dense_launch": [p] * 10 + [i] * 10,
+                    "splitmax_decode_dense_launch": [p] * 9 + [i] * 10}
         else:
-            sigs = {"splitmax_verify_paged_launch": [p] * 11 + [i] * 10,
-                    "splitmax_verify_dense_launch": [p] * 10 + [i] * 10}
+            sigs = {"splitmax_verify_paged_launch": [p] * 11 + [i] * 11,
+                    "splitmax_verify_dense_launch": [p] * 10 + [i] * 11}
         for fn_name, args in sigs.items():
             getattr(lib, fn_name).argtypes = args + [p]
             getattr(lib, fn_name).restype = i
@@ -115,12 +116,14 @@ def live_positions(block_table, cache_len, block_k: int,
 # ------------------------------------------------------------ plain versions --
 
 def _grouped_decode(q_q, k_c, v_c, live, m_z, s_v, exp_lut, recip_lut,
-                    cfg: LUTConfig, exact: bool = False) -> torch.Tensor:
+                    cfg: LUTConfig, exact_recip: bool = False,
+                    exact: bool = False) -> torch.Tensor:
     """The grouped int8 split-softmax decode of ``q_q (B, Hq, D)`` over a
     contiguous int8 cache ``(B, Hkv, S, D)`` at the ``live (B, S)``
     positions; ``m_z`` is per-slot ``(B,)``.  ``exact`` takes ``e @ v`` and
     ``e.sum`` in f64 (every partial sum is an integer below 2^53) and rounds
-    each to f32 once: the CUDA kernels' contract, bit for bit."""
+    each to f32 once: the CUDA kernels' contract, bit for bit.
+    ``exact_recip`` divides in place of the reciprocal LUT."""
     b, hq, d = q_q.shape
     hkv = k_c.shape[1]
     g = hq // hkv
@@ -132,15 +135,16 @@ def _grouped_decode(q_q, k_c, v_c, live, m_z, s_v, exp_lut, recip_lut,
     dt = torch.float64 if exact else torch.float32
     e = torch.where(live[:, None, None, :], e, 0.0).to(dt)
     acc = (e @ v_c.to(dt)).to(torch.float32)                 # (B,Hkv,G,D)
-    s = torch.clamp_min(e.sum(-1, keepdim=True).to(torch.float32), 1.0)
-    r, ex = lut_lib.recip_lookup(s, recip_lut, cfg)
-    out = acc * (r.to(torch.float32) * lut_lib.exp2_int(ex)) * s_v
+    r = lut_lib.recip_factor(e.sum(-1, keepdim=True), recip_lut, cfg,
+                             exact_recip)
+    out = acc * r * s_v
     return out.reshape(b, hq, d)
 
 
 def splitmax_decode_paged_plain(q_q, k_pages, v_pages, block_table, m_z, s_v,
                                 cache_len, exp_lut, recip_lut, *,
                                 cfg: LUTConfig, window: Optional[int] = None,
+                                exact_recip: bool = False,
                                 exact: bool = False) -> torch.Tensor:
     """The composed kernel's function in plain PyTorch: gather the cache
     through the table, then the grouped int8 split-softmax decode of the
@@ -148,20 +152,22 @@ def splitmax_decode_paged_plain(q_q, k_pages, v_pages, block_table, m_z, s_v,
     live = live_positions(block_table, cache_len, k_pages.shape[2], window)
     return _grouped_decode(q_q, paged_kv.gather_kv(k_pages, block_table),
                            paged_kv.gather_kv(v_pages, block_table), live,
-                           m_z, s_v, exp_lut, recip_lut, cfg, exact)
+                           m_z, s_v, exp_lut, recip_lut, cfg, exact_recip,
+                           exact)
 
 
 def splitmax_decode_fused_paged_plain(q, k_pages, v_pages, block_table, m_z,
                                       s_q, s_v, cache_len, exp_lut, recip_lut,
                                       *, cfg: LUTConfig,
                                       window: Optional[int] = None,
+                                      exact_recip: bool = False,
                                       exact: bool = False) -> torch.Tensor:
     """The fused kernel's function in plain PyTorch: quantize each slot's
     query with its own ``s_q (B,)``, then the composed decode."""
     return splitmax_decode_paged_plain(
         qlib.quantize(q, s_q[:, None, None]), k_pages, v_pages, block_table,
         m_z, s_v, cache_len, exp_lut, recip_lut, cfg=cfg, window=window,
-        exact=exact)
+        exact_recip=exact_recip, exact=exact)
 
 
 def splitmax_decode_fused_verify_paged_plain(q, k_pages, v_pages, block_table,
@@ -169,6 +175,7 @@ def splitmax_decode_fused_verify_paged_plain(q, k_pages, v_pages, block_table,
                                              exp_lut, recip_lut, *,
                                              cfg: LUTConfig,
                                              window: Optional[int] = None,
+                                             exact_recip: bool = False,
                                              exact: bool = False
                                              ) -> torch.Tensor:
     """The verify kernel's function in plain PyTorch, the reference's
@@ -179,36 +186,40 @@ def splitmax_decode_fused_verify_paged_plain(q, k_pages, v_pages, block_table,
         q[:, :, i].contiguous(), k_pages, v_pages, block_table,
         m_z[:, i].contiguous(), s_q[:, i].contiguous(), s_v,
         cache_len - (t - 1 - i), exp_lut, recip_lut, cfg=cfg, window=window,
-        exact=exact) for i in range(t)]
+        exact_recip=exact_recip, exact=exact) for i in range(t)]
     return torch.stack(outs, dim=2)
 
 
 def splitmax_decode_plain(q_q, k_cache, v_cache, m_z, s_v, cache_len,
                           exp_lut, recip_lut, *, cfg: LUTConfig,
                           window: Optional[int] = None,
+                          exact_recip: bool = False,
                           exact: bool = False) -> torch.Tensor:
     """The composed dense kernel's function in plain PyTorch: int8 ``q_q
     (B, Hq, D)`` against the dense cache ``(B, Hkv, S_max, D)``."""
     live = dense_live_positions(cache_len, k_cache.shape[2], window)
     return _grouped_decode(q_q, k_cache, v_cache, live, m_z, s_v, exp_lut,
-                           recip_lut, cfg, exact)
+                           recip_lut, cfg, exact_recip, exact)
 
 
 def splitmax_decode_fused_plain(q, k_cache, v_cache, m_z, s_q, s_v,
                                 cache_len, exp_lut, recip_lut, *,
                                 cfg: LUTConfig, window: Optional[int] = None,
+                                exact_recip: bool = False,
                                 exact: bool = False) -> torch.Tensor:
     """The fused dense kernel's function in plain PyTorch: quantize each
     slot's query with its own ``s_q (B,)``, then the composed decode."""
     return splitmax_decode_plain(
         qlib.quantize(q, s_q[:, None, None]), k_cache, v_cache, m_z, s_v,
-        cache_len, exp_lut, recip_lut, cfg=cfg, window=window, exact=exact)
+        cache_len, exp_lut, recip_lut, cfg=cfg, window=window,
+        exact_recip=exact_recip, exact=exact)
 
 
 def splitmax_decode_fused_verify_plain(q, k_cache, v_cache, m_z, s_q, s_v,
                                        cache_len, exp_lut, recip_lut, *,
                                        cfg: LUTConfig,
                                        window: Optional[int] = None,
+                                       exact_recip: bool = False,
                                        exact: bool = False) -> torch.Tensor:
     """The dense verify kernel's function in plain PyTorch, the reference's
     ``_verify_fallback``: token t is the fused dense decode at ``cache_len
@@ -217,7 +228,8 @@ def splitmax_decode_fused_verify_plain(q, k_cache, v_cache, m_z, s_q, s_v,
     outs = [splitmax_decode_fused_plain(
         q[:, :, i].contiguous(), k_cache, v_cache, m_z[:, i].contiguous(),
         s_q[:, i].contiguous(), s_v, cache_len - (t - 1 - i), exp_lut,
-        recip_lut, cfg=cfg, window=window, exact=exact) for i in range(t)]
+        recip_lut, cfg=cfg, window=window, exact_recip=exact_recip,
+        exact=exact) for i in range(t)]
     return torch.stack(outs, dim=2)
 
 
@@ -286,15 +298,18 @@ def _check(q, q_dtype, per_slot, k_pages, v_pages, block_table, s_v,
         raise ValueError(f"window {window} < 1")
 
 
-def _launch(name: str, fn_name: str, q, pointers, dims, cfg, window, out):
-    """Launch ``fn_name`` of ``csrc/<name>.cu`` on PyTorch's current stream;
-    raises on a refused launch."""
+def _launch(name: str, fn_name: str, q, pointers, dims, cfg, window,
+            exact_recip, out):
+    """Launch ``fn_name`` of ``csrc/<name>.cu`` (its ``exact_recip``
+    instance when asked) on PyTorch's current stream; raises on a refused
+    launch."""
     lib = _lib(name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, fn_name)(
             *(t.data_ptr() for t in pointers), out.data_ptr(), *dims,
-            window or 0, cfg.recip_index_bits, cfg.recip_frac_bits, stream)
+            window or 0, cfg.recip_index_bits, cfg.recip_frac_bits,
+            int(exact_recip), stream)
     if err:
         raise RuntimeError(f"{fn_name} failed: "
                            + getattr(lib, f"{name}_error_string")(err).decode())
@@ -303,7 +318,8 @@ def _launch(name: str, fn_name: str, q, pointers, dims, cfg, window, out):
 def splitmax_decode_fused_paged_cuda(q, k_pages, v_pages, block_table, m_z,
                                      s_q, s_v, cache_len, exp_lut, recip_lut,
                                      *, cfg: LUTConfig,
-                                     window: Optional[int] = None
+                                     window: Optional[int] = None,
+                                     exact_recip: bool = False
                                      ) -> torch.Tensor:
     """Launch the fused decode kernel; raises on bad input or a refused
     launch.  ``q`` is f32; table ids must lie in the pool (the scheduler's
@@ -324,7 +340,8 @@ def splitmax_decode_fused_paged_cuda(q, k_pages, v_pages, block_table, m_z,
     _launch("splitmax_decode", "splitmax_decode_fused_paged_launch", q,
             (q, k_pages, v_pages, block_table, m_z, s_q, s_v, cache_len,
              exp_lut, recip_lut),
-            (b, hq, hkv, d, bk, block_table.shape[1]), cfg, window, out)
+            (b, hq, hkv, d, bk, block_table.shape[1]), cfg, window,
+            exact_recip, out)
     launches += 1
     return out
 
@@ -332,7 +349,8 @@ def splitmax_decode_fused_paged_cuda(q, k_pages, v_pages, block_table, m_z,
 def splitmax_decode_paged_cuda(q_q, k_pages, v_pages, block_table, m_z, s_v,
                                cache_len, exp_lut, recip_lut, *,
                                cfg: LUTConfig,
-                               window: Optional[int] = None) -> torch.Tensor:
+                               window: Optional[int] = None,
+                               exact_recip: bool = False) -> torch.Tensor:
     """Launch the composed decode kernel (int8 ``q_q``, no in-kernel
     quantize); raises on bad input or a refused launch."""
     global composed_launches
@@ -351,7 +369,8 @@ def splitmax_decode_paged_cuda(q_q, k_pages, v_pages, block_table, m_z, s_v,
     _launch("splitmax_decode", "splitmax_decode_paged_launch", q_q,
             (q_q, k_pages, v_pages, block_table, m_z, s_v, cache_len,
              exp_lut, recip_lut),
-            (b, hq, hkv, d, bk, block_table.shape[1]), cfg, window, out)
+            (b, hq, hkv, d, bk, block_table.shape[1]), cfg, window,
+            exact_recip, out)
     composed_launches += 1
     return out
 
@@ -360,7 +379,8 @@ def splitmax_decode_fused_verify_paged_cuda(q, k_pages, v_pages, block_table,
                                             m_z, s_q, s_v, cache_len,
                                             exp_lut, recip_lut, *,
                                             cfg: LUTConfig,
-                                            window: Optional[int] = None
+                                            window: Optional[int] = None,
+                                            exact_recip: bool = False
                                             ) -> torch.Tensor:
     """Launch the fused verify kernel: f32 ``q (B, Hq, T, D)``, ``m_z`` and
     ``s_q`` per (slot, token) ``(B, T)``, ``cache_len`` counting all T
@@ -382,14 +402,16 @@ def splitmax_decode_fused_verify_paged_cuda(q, k_pages, v_pages, block_table,
     _launch("splitmax_verify", "splitmax_verify_paged_launch", q,
             (q, k_pages, v_pages, block_table, m_z, s_q, s_v, cache_len,
              exp_lut, recip_lut),
-            (b, hq, hkv, t, d, bk, block_table.shape[1]), cfg, window, out)
+            (b, hq, hkv, t, d, bk, block_table.shape[1]), cfg, window,
+            exact_recip, out)
     verify_launches += 1
     return out
 
 
 def splitmax_decode_fused_cuda(q, k_cache, v_cache, m_z, s_q, s_v, cache_len,
                                exp_lut, recip_lut, *, cfg: LUTConfig,
-                               window: Optional[int] = None) -> torch.Tensor:
+                               window: Optional[int] = None,
+                               exact_recip: bool = False) -> torch.Tensor:
     """Launch the fused dense decode kernel: f32 ``q (B, Hq, D)`` against
     the dense cache ``(B, Hkv, S_max, D)``; raises on bad input or a
     refused launch."""
@@ -409,14 +431,15 @@ def splitmax_decode_fused_cuda(q, k_cache, v_cache, m_z, s_q, s_v, cache_len,
     _launch("splitmax_decode", "splitmax_decode_fused_dense_launch", q,
             (q, k_cache, v_cache, m_z, s_q, s_v, cache_len, exp_lut,
              recip_lut), (b, hq, hkv, d, DENSE_BLOCK_K, s_max), cfg, window,
-            out)
+            exact_recip, out)
     dense_launches += 1
     return out
 
 
 def splitmax_decode_cuda(q_q, k_cache, v_cache, m_z, s_v, cache_len, exp_lut,
                          recip_lut, *, cfg: LUTConfig,
-                         window: Optional[int] = None) -> torch.Tensor:
+                         window: Optional[int] = None,
+                         exact_recip: bool = False) -> torch.Tensor:
     """Launch the composed dense decode kernel (int8 ``q_q``, no in-kernel
     quantize); raises on bad input or a refused launch."""
     global dense_composed_launches
@@ -434,7 +457,8 @@ def splitmax_decode_cuda(q_q, k_cache, v_cache, m_z, s_v, cache_len, exp_lut,
         return out
     _launch("splitmax_decode", "splitmax_decode_dense_launch", q_q,
             (q_q, k_cache, v_cache, m_z, s_v, cache_len, exp_lut, recip_lut),
-            (b, hq, hkv, d, DENSE_BLOCK_K, s_max), cfg, window, out)
+            (b, hq, hkv, d, DENSE_BLOCK_K, s_max), cfg, window,
+            exact_recip, out)
     dense_composed_launches += 1
     return out
 
@@ -442,7 +466,8 @@ def splitmax_decode_cuda(q_q, k_cache, v_cache, m_z, s_v, cache_len, exp_lut,
 def splitmax_decode_fused_verify_cuda(q, k_cache, v_cache, m_z, s_q, s_v,
                                       cache_len, exp_lut, recip_lut, *,
                                       cfg: LUTConfig,
-                                      window: Optional[int] = None
+                                      window: Optional[int] = None,
+                                      exact_recip: bool = False
                                       ) -> torch.Tensor:
     """Launch the dense verify kernel: f32 ``q (B, Hq, T, D)``, ``m_z`` and
     ``s_q`` per (slot, token) ``(B, T)``, ``cache_len`` counting all T
@@ -463,6 +488,6 @@ def splitmax_decode_fused_verify_cuda(q, k_cache, v_cache, m_z, s_q, s_v,
     _launch("splitmax_verify", "splitmax_verify_dense_launch", q,
             (q, k_cache, v_cache, m_z, s_q, s_v, cache_len, exp_lut,
              recip_lut), (b, hq, hkv, t, d, DENSE_BLOCK_K, s_max), cfg, window,
-            out)
+            exact_recip, out)
     dense_verify_launches += 1
     return out

@@ -1,9 +1,11 @@
 """Continuous-batching int8 serving (port of ``repro/launch/serve.py``:
 ``make_engine``, ``serve_paged``, ``serve_dense``, ``make_self_draft``,
 ``serve_speculative``, the ``serve`` dispatcher and the CLI, for the dense
-and MoE families: DeepSeekMoE-16B and Mixtral-8x22B go through the same
-paged engine and speculative loop as the dense decoder; the layer-prefix
-drafter stays dense-only).
+and MoE families: every dense config of the registry (TinyLlama-1.1B,
+OLMo-1B, Mistral-NeMo-12B, Chameleon-34B, DeepSeek-Coder-33B,
+DeepSeek-67B), and DeepSeekMoE-16B and Mixtral-8x22B through the same
+paged engine and speculative loop; the layer-prefix drafter stays
+dense-only).
 
 Paged (the default): every admission is a per-slot prefill that allocates
 only the blocks its prompt needs; a slot grows one block at a time as it
@@ -42,6 +44,8 @@ from the environment (``launch/faults.py``):
     python -m repro_torch.launch.serve --arch tinyllama_1p1b
     python -m repro_torch.launch.serve --arch tinyllama_1p1b --draft self:4
     python -m repro_torch.launch.serve --arch tinyllama_1p1b --cache dense
+    python -m repro_torch.launch.serve --arch mistral_nemo_12b
+    python -m repro_torch.launch.serve --arch olmo_1b --smoke --device cpu
     python -m repro_torch.launch.serve --arch deepseek_moe_16b --draft self
     python -m repro_torch.launch.serve --arch mixtral_8x22b --smoke \\
         --device cpu
@@ -258,7 +262,8 @@ def make_self_draft(params, cfg, n_layers: Optional[int] = None):
     """A drafter ``(params, cfg)`` derived from the target without new
     weights: ``None`` is the target itself (self-speculation, acceptance 1
     where verify and decode agree), an integer keeps the first ``n_layers``
-    decoder blocks and shares the embedding, final norm and head."""
+    decoder blocks and shares the embedding, final norm and head (a tied
+    head is the shared embedding table)."""
     if n_layers is None:
         return params, cfg
     if cfg.family != "dense" or not 0 < n_layers <= cfg.n_layers:

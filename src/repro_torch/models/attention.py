@@ -12,6 +12,7 @@ row per slot or paged into a block pool.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict
 
 import torch
@@ -25,16 +26,21 @@ from repro_torch.models.config import ModelConfig
 
 def attn_block_init(gen, cfg: ModelConfig, *, device,
                     dtype: torch.dtype = torch.float32) -> L.Params:
-    """QKV + output projections (``dtype``: see ``layers.normal_init``)."""
+    """QKV + output projections (``dtype``: see ``layers.normal_init``),
+    and the per-head q/k RMSNorms with ``cfg.qk_norm``."""
     hd, hq, hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     d = cfg.d_model
-    return {
+    p = {
         "wq": L.linear_init(gen, d, hq * hd, device=device, dtype=dtype),
         "wk": L.linear_init(gen, d, hkv * hd, device=device, dtype=dtype),
         "wv": L.linear_init(gen, d, hkv * hd, device=device, dtype=dtype),
         "wo": L.linear_init(gen, hq * hd, d, device=device, dtype=dtype,
                             std=(hq * hd) ** -0.5 / (2 * cfg.n_layers) ** 0.5),
     }
+    if cfg.qk_norm:
+        p["q_norm"] = L.rmsnorm_init(hd, device)
+        p["k_norm"] = L.rmsnorm_init(hd, device)
+    return p
 
 
 def attn_block_apply(params, x: torch.Tensor, cfg: ModelConfig
@@ -49,16 +55,30 @@ def attn_block_apply(params, x: torch.Tensor, cfg: ModelConfig
 
 
 def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig,
-                 positions: torch.Tensor):
-    """x: (B, S, d) -> q (B,Hq,S,hd), k/v (B,Hkv,S,hd), roped."""
+                 positions: torch.Tensor, *, tokenwise: bool = False):
+    """x: (B, S, d) -> q (B,Hq,S,hd), k/v (B,Hkv,S,hd), roped; with
+    ``cfg.qk_norm`` q and k are RMS-normed per head first.  The norms run
+    on the contiguous (B, S, H, hd) heads (each row's mean is the same
+    function as on the reference's transposed layout), and ``tokenwise``
+    (the verify step) runs them one token at a time, at the decode step's
+    shape (``layers.per_token``)."""
     b, s, _ = x.shape
     dt = cfg.compute_dtype
     hd = cfg.hd
     q = L.linear_apply(params["wq"], x, dtype=dt)
     k = L.linear_apply(params["wk"], x, dtype=dt)
     v = L.linear_apply(params["wv"], x, dtype=dt)
-    q = q.reshape(b, s, cfg.n_heads, hd).transpose(1, 2)
-    k = k.reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
+    q = q.reshape(b, s, cfg.n_heads, hd)
+    k = k.reshape(b, s, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        def norm(p, y):
+            if tokenwise:
+                return L.per_token(functools.partial(L.rmsnorm_apply, p), y)
+            return L.rmsnorm_apply(p, y)
+        q = norm(params["q_norm"], q)
+        k = norm(params["k_norm"], k)
+    q = q.transpose(1, 2)
+    k = k.transpose(1, 2)
     v = v.reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
@@ -188,7 +208,7 @@ def attn_block_verify_paged(params, x: torch.Tensor,
     base_len = layer_cache["length"]
     positions = (base_len.to(torch.int64)[:, None]
                  + torch.arange(t, device=x.device)[None, :])   # (B, T)
-    q, k, v = _project_qkv(params, x, cfg, positions)
+    q, k, v = _project_qkv(params, x, cfg, positions, tokenwise=True)
     s_k = layer_cache["scale_k"].reshape(())
     s_v = layer_cache["scale_v"].reshape(())
     k_pages, v_pages = layer_cache["k_pages"], layer_cache["v_pages"]

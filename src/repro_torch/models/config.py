@@ -1,10 +1,13 @@
 """Architecture configuration (port of ``repro/models/config.py``, the
 fields the dense and MoE decoders' training and int8 serving paths read).
 
-The port's block is the llama block: RMSNorm, SwiGLU, an f32 LM head; the
-reference's ``norm``, ``act`` and ``logits_dtype`` have one value in use
-and are not fields here.  ``tie_embeddings`` is stated by every config of
-the registry; the port implements the untied head only."""
+The block is the llama block with the reference's options: ``norm``
+(RMSNorm or OLMo's non-parametric LayerNorm), the per-head q/k RMSNorm
+(``qk_norm``) and the LM head tied to the embedding table
+(``tie_embeddings``, the reference's default) or untied, in f32.  The
+parametric ``layernorm`` and the ``gelu`` MLP, which only the
+encoder-decoder config uses, are not ported and raise at init;
+``logits_dtype`` is not a field (the head is f32)."""
 from __future__ import annotations
 
 import dataclasses
@@ -38,8 +41,11 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: Optional[int] = None
+    norm: str = "rmsnorm"     # rmsnorm | nonparam_ln (layernorm: not ported)
+    act: str = "silu"         # silu (gelu: not ported)
+    qk_norm: bool = False     # chameleon-style per-head q/k RMSNorm
     rope_theta: float = 1e4
-    tie_embeddings: bool = False      # True is not ported
+    tie_embeddings: bool = True
     dtype: str = "float32"    # compute dtype ("bfloat16" for production)
     vocab_pad_multiple: int = 256
     # attention datapath: train in attn_mode, serve in serve_attn_mode
@@ -53,6 +59,14 @@ class ModelConfig:
     attn_triangular: bool = False
     remat: bool = True                # checkpoint each block in training
     moe: Optional[MoEConfig] = None
+
+    def __post_init__(self):
+        if self.norm not in ("rmsnorm", "nonparam_ln") or self.act != "silu":
+            raise NotImplementedError(
+                f"{self.name}: norm {self.norm!r}, act {self.act!r}: the port "
+                f"has rmsnorm and nonparam_ln with silu; the parametric "
+                f"layernorm and gelu come with the encoder-decoder family "
+                f"(ROADMAP queue 1 item 4)")
 
     @property
     def hd(self) -> int:

@@ -63,6 +63,27 @@ def rmsnorm_apply(params: Params, x: torch.Tensor, eps: float = 1e-6
     return (y * params["scale"]).to(dt)
 
 
+def nonparam_layernorm_apply(params: Params, x: torch.Tensor,
+                             eps: float = 1e-5) -> torch.Tensor:
+    """OLMo's non-parametric LayerNorm: normalize only, no affine.  The
+    variance is the population variance (``jnp.var``), not torch's
+    default ``correction=1``."""
+    del params
+    dt = x.dtype
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(dt)
+
+
+# norm kind -> (init(dim, device), apply(params, x)); a non-parametric
+# norm's parameters are the empty dict
+NORM_INIT = {"rmsnorm": rmsnorm_init,
+             "nonparam_ln": lambda dim, device: {}}
+NORM_APPLY = {"rmsnorm": rmsnorm_apply,
+              "nonparam_ln": nonparam_layernorm_apply}
+
+
 def pad_vocab(vocab_size: int, multiple: int = 256) -> int:
     """Round the vocab up to a multiple (logits over padding are computed
     like any other lane)."""
@@ -98,9 +119,25 @@ class _EmbeddingGather(torch.autograd.Function):
         return onehot.T @ g.reshape(n, -1), None
 
 
+def _embed_table(params: Params) -> torch.Tensor:
+    """The embedding table (the reference's also returns the int8 table's
+    scale, which comes with the int8 serve weights)."""
+    return params["table"]
+
+
 def embedding_apply(params: Params, token_ids: torch.Tensor, *,
                     dtype: torch.dtype) -> torch.Tensor:
-    return _EmbeddingGather.apply(params["table"], token_ids.long()).to(dtype)
+    return _EmbeddingGather.apply(_embed_table(params),
+                                  token_ids.long()).to(dtype)
+
+
+def unembed_apply(params: Params, x: torch.Tensor, *,
+                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Tied unembedding: ``x (B, S, d)`` against the embedding table ->
+    logits over the padded vocab, in ``dtype`` (f32, the reference's
+    default: the table is multiplied as stored, f32 when served)."""
+    tab = _embed_table(params)
+    return x.to(dtype) @ tab.to(dtype).T
 
 
 def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:

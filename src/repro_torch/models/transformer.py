@@ -73,37 +73,39 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     (DeepSeekMoE-16B's f32 masters alone are 65.5 GB).
     """
     segments = layer_segments(cfg)
-    if cfg.tie_embeddings:
-        raise NotImplementedError(f"{cfg.name}: tied embeddings are not "
-                                  f"ported")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     wdt = cfg.compute_dtype if serving else torch.float32
     vp = L.pad_vocab(cfg.vocab_size, cfg.vocab_pad_multiple)
-    p: Params = {"embed": L.embedding_init(gen, vp, cfg.d_model, device=dev,
-                                           dtype=wdt)}
+    norm_init = L.NORM_INIT[cfg.norm]
+    # a tied table is also the f32 LM head: it stays f32 when served
+    p: Params = {"embed": L.embedding_init(
+        gen, vp, cfg.d_model, device=dev,
+        dtype=torch.float32 if cfg.tie_embeddings else wdt)}
     p["layers"] = []
     for kind in (kind for kind, n in segments for _ in range(n)):
-        lp = {"norm1": L.rmsnorm_init(cfg.d_model, dev),
+        lp = {"norm1": norm_init(cfg.d_model, dev),
               "attn": A.attn_block_init(gen, cfg, device=dev, dtype=wdt),
-              "norm2": L.rmsnorm_init(cfg.d_model, dev)}
+              "norm2": norm_init(cfg.d_model, dev)}
         if kind == "dense":
             lp["mlp"] = M.mlp_init(gen, cfg, device=dev, dtype=wdt)
         else:
             lp["moe"] = MOE.moe_init(gen, cfg, device=dev, dtype=wdt)
         p["layers"].append(lp)
-    p["final_norm"] = L.rmsnorm_init(cfg.d_model, dev)
-    p["lm_head"] = L.linear_init(gen, cfg.d_model, vp, device=dev)
+    p["final_norm"] = norm_init(cfg.d_model, dev)
+    if not cfg.tie_embeddings:
+        p["lm_head"] = L.linear_init(gen, cfg.d_model, vp, device=dev)
     return p
 
 
 def cast_for_serving(params: Params, cfg: ModelConfig) -> Params:
     """Cast the weights each layer casts at use (the linear weights, the
-    MoE expert stacks, the embedding table) to the compute dtype once, so a
-    step does not re-cast them.  Results are unchanged: casting once equals
-    casting at every use.  The MoE router (routing is computed from f32
-    weights), the f32 LM head and the norms stay f32; a leaf already in the
-    compute dtype is kept, not copied."""
+    MoE expert stacks, an untied embedding table) to the compute dtype
+    once, so a step does not re-cast them.  Results are unchanged: casting
+    once equals casting at every use.  The MoE router (routing is computed
+    from f32 weights), the f32 LM head, a tied table (it is the f32 head
+    too; its gathered rows are cast at use) and the norms stay f32; a leaf
+    already in the compute dtype is kept, not copied."""
     dt = cfg.compute_dtype
 
     def cast(tree, stacks=False):
@@ -112,10 +114,13 @@ def cast_for_serving(params: Params, cfg: ModelConfig) -> Params:
                     v.to(dt) if k == "w" or stacks else v)
                 for k, v in tree.items()}
 
-    return {"embed": {"table": params["embed"]["table"].to(dt)},
-            "layers": [cast(lp) for lp in params["layers"]],
-            "final_norm": params["final_norm"],
-            "lm_head": params["lm_head"]}
+    table = params["embed"]["table"]
+    out = {"embed": {"table": table if cfg.tie_embeddings else table.to(dt)},
+           "layers": [cast(lp) for lp in params["layers"]],
+           "final_norm": params["final_norm"]}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = params["lm_head"]
+    return out
 
 
 def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig
@@ -124,8 +129,11 @@ def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig
 
 
 def unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Final norm and the LM head, in f32 (the reference's default)."""
-    x = L.rmsnorm_apply(params["final_norm"], x)
+    """Final norm and the LM head (tied: the embedding table), in f32 (the
+    reference's default)."""
+    x = L.NORM_APPLY[cfg.norm](params["final_norm"], x)
+    if cfg.tie_embeddings:
+        return L.unembed_apply(params["embed"], x)
     return L.linear_apply(params["lm_head"], x, dtype=torch.float32)
 
 
@@ -148,9 +156,10 @@ def _block_apply(lp, x: torch.Tensor, cfg: ModelConfig):
     """One training-mode block (attention in ``cfg.attn_mode``): the new
     ``x`` and, for a MoE block, its (aux_loss, z_loss) stacked (None for a
     dense block)."""
-    h = L.rmsnorm_apply(lp["norm1"], x)
+    norm = L.NORM_APPLY[cfg.norm]
+    h = norm(lp["norm1"], x)
     x = x + A.attn_block_apply(lp["attn"], h, cfg)
-    h = L.rmsnorm_apply(lp["norm2"], x)
+    h = norm(lp["norm2"], x)
     if "mlp" in lp:
         return x + M.mlp_apply(lp["mlp"], h, cfg), None
     out, aux = MOE.moe_apply(lp["moe"], h, cfg)
@@ -162,12 +171,13 @@ def _block_apply_serve(lp, x: torch.Tensor, cfg: ModelConfig,
     """One serve-mode block (``cfg.serve_attn_mode``), returning this
     layer's raw (k, v) for the cache."""
     b, s, _ = x.shape
-    h = L.rmsnorm_apply(lp["norm1"], x)
+    norm = L.NORM_APPLY[cfg.norm]
+    h = norm(lp["norm1"], x)
     q, k, v = A._project_qkv(lp["attn"], h, cfg, positions)
     o = core_attn.attention(q, k, v, cfg.attn_spec(serve=True))
     o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd)
     x = x + L.linear_apply(lp["attn"]["wo"], o, dtype=cfg.compute_dtype)
-    h = L.rmsnorm_apply(lp["norm2"], x)
+    h = norm(lp["norm2"], x)
     return x + _ffn(lp, h, cfg), (k, v)
 
 
@@ -333,11 +343,12 @@ def decode_step(params, token: torch.Tensor, cfg: ModelConfig,
     writes its own row (a ring with a window)."""
     block = (A.attn_block_decode_paged if "k_pages" in cache
              else A.attn_block_decode)
+    norm = L.NORM_APPLY[cfg.norm]
     x = embed_tokens(params, token[:, None], cfg)       # (B, 1, d)
     for i, lp in enumerate(params["layers"]):
-        h = L.rmsnorm_apply(lp["norm1"], x)
+        h = norm(lp["norm1"], x)
         x = x + block(lp["attn"], h, _layer_cache(cache, i), cfg)
-        h = L.rmsnorm_apply(lp["norm2"], x)
+        h = norm(lp["norm2"], x)
         x = x + _ffn(lp, h, cfg)
     cache["length"] += 1
     return unembed(params, x, cfg)[:, 0], cache
@@ -354,7 +365,7 @@ def verify_step(params, tokens: torch.Tensor, cfg: ModelConfig,
     ``decode_step`` gives after accepting ``tokens[:, :t+1]``.  The
     attention projections run on all B * T rows at once (their bf16 GEMM
     rows do not depend on the row count, which ``chip_smoke.py`` checks on
-    the card); the norms, the MLP (its down projection's long K sums in a
+    the card); the norms (the q/k norms too), the MLP (its down projection's long K sums in a
     row-count-dependent order at DeepSeekMoE's d_ff 10944), the MoE
     router and shared experts and the f32 LM head run per token
     (``layers.per_token``).  The MoE expert GEMMs have the decode step's
@@ -364,36 +375,39 @@ def verify_step(params, tokens: torch.Tensor, cfg: ModelConfig,
     by T; the scheduler truncates it to the accepted prefix.
     """
     t = tokens.shape[1]
+    norm = L.NORM_APPLY[cfg.norm]
     x = embed_tokens(params, tokens, cfg)               # (B, T, d)
     for i, lp in enumerate(params["layers"]):
-        h = L.per_token(functools.partial(L.rmsnorm_apply, lp["norm1"]), x)
+        h = L.per_token(functools.partial(norm, lp["norm1"]), x)
         x = x + A.attn_block_verify_paged(lp["attn"], h, _layer_cache(cache, i),
                                           cfg)
-        h = L.per_token(functools.partial(L.rmsnorm_apply, lp["norm2"]), x)
+        h = L.per_token(functools.partial(norm, lp["norm2"]), x)
         x = x + _ffn(lp, h, cfg, tokenwise=True)
     cache["length"] += t
     return L.per_token(lambda y: unembed(params, y, cfg), x), cache
 
 
 def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
-    """Analytic parameter count (RMSNorm, SwiGLU, no vocab padding); MoE
-    ``active_only`` counts the shared and the top-k routed experts."""
+    """Analytic parameter count (SwiGLU, no vocab padding; norms by kind,
+    the q/k norms not counted, as in the reference); MoE ``active_only``
+    counts the shared and the top-k routed experts."""
     d, hd = cfg.d_model, cfg.hd
     attn_p = d * hd * (cfg.n_heads + 2 * cfg.n_kv_heads) + hd * cfg.n_heads * d
     mlp_p = 3 * d * cfg.d_ff
     embed = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
-    dense_layer = attn_p + mlp_p + 2 * d
+    norm_p = {"rmsnorm": d, "nonparam_ln": 0}[cfg.norm]
+    dense_layer = attn_p + mlp_p + 2 * norm_p
     if cfg.family == "dense":
-        return embed + cfg.n_layers * dense_layer + d
+        return embed + cfg.n_layers * dense_layer + norm_p
     if cfg.family == "moe":
         mc = cfg.moe
         routed = 3 * d * mc.d_ff_expert
         n_routed = mc.top_k if active_only else mc.n_experts
         shared = 3 * d * mc.d_ff_expert * mc.n_shared
         router = d * mc.n_experts
-        moe_layer = attn_p + routed * n_routed + shared + router + 2 * d
+        moe_layer = attn_p + routed * n_routed + shared + router + 2 * norm_p
         fd = mc.first_dense_layers
         return (embed + fd * dense_layer + (cfg.n_layers - fd) * moe_layer
-                + d)
+                + norm_p)
     raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is "
                               f"ROADMAP queue 1 item 9")

@@ -707,3 +707,114 @@ def test_decode_bits_do_not_depend_on_the_batch_or_the_table(rng, cuda):
     assert torch.equal(full[3], alone[0])
     assert torch.equal(full[3], pair[0])
     assert torch.equal(full[5], pair[1])
+
+
+# ------------------------------------- the options and the dense family's --
+
+def _option_luts(dev, option):
+    """The exp and recip tables an option reads: ``compute`` is the
+    reference's f32 recompute as a table, built on the CPU."""
+    from repro_torch.core.lut import build_exp_lut_compute
+    exp, recip = _luts(dev)
+    if option == "compute":
+        exp = build_exp_lut_compute(CFG).to(dev)
+    return exp, recip
+
+
+OPTION_ENTRIES = ["prefill", "paged fused", "paged composed", "dense fused",
+                  "dense composed", "paged verify", "dense verify"]
+
+
+@pytest.mark.parametrize("entry", OPTION_ENTRIES)
+@pytest.mark.parametrize("option", ["exact_recip", "compute"])
+def test_option_instances_equal_exact_oracle(rng, cuda, entry, option):
+    """Each kernel's ``kExactRecip`` instance, and each kernel reading the
+    compute table, bit for bit its plain version's ``exact=True`` with the
+    same option."""
+    luts = _option_luts(cuda, option)
+    kw = dict(cfg=CFG, window=48, exact_recip=option == "exact_recip")
+    s_v = torch.tensor(SCALES[2], device=cuda)
+    if entry == "prefill":
+        b, hq, hkv, s, d = 1, 32, 8, 250, 128
+        q, k, v = (_i8(rng, x, cuda) for x in
+                   ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d)))
+        m_z = ops.requant_multiplier(torch.tensor(SCALES[0], device=cuda),
+                                     torch.tensor(SCALES[1], device=cuda), d,
+                                     CFG).reshape(())
+        args = (q, k, v, m_z, s_v, *luts)
+        got = splitmax_attn.splitmax_attention_cuda(*args, **kw)
+        want = splitmax_attn.splitmax_attention_plain(*args, exact=True, **kw)
+    else:
+        layout, kind = entry.split()
+        lens = [4, 32, 33, 250, 282, 96, 1, 64]
+        gamma = 4 if kind == "verify" else None
+        hq, hkv, d = 32, 8, 128
+        if layout == "paged":
+            kp, vp, table, lens_t = _paged_case(rng, cuda, lens, hq, hkv, d, 32)
+            cache = [kp, vp, table]
+        else:
+            q, kc, vc, *_ = _dense_case(rng, cuda, lens, hq, hkv, 290, d)
+            cache = [kc, vc]
+            lens_t = torch.tensor(lens, dtype=torch.int32, device=cuda)
+        shape = (len(lens), hq, d) if gamma is None else (len(lens), hq, gamma,
+                                                          d)
+        q = torch.from_numpy(rng.normal(size=shape).astype(np.float32)
+                             ).to(cuda)
+        s_q = (qlib.absmax_scale(q, axis=(1, 2)).reshape(-1) if gamma is None
+               else qlib.absmax_scale(q, axis=(1, 3))[:, 0, :, 0].contiguous())
+        m_z = ops.requant_multiplier(s_q, torch.tensor(SCALES[1],
+                                                       device=cuda), d, CFG)
+        name = "splitmax_decode" + ("_fused" if kind != "composed" else "") \
+            + ("_verify" if gamma else "") \
+            + ("_paged" if layout == "paged" else "")
+        if kind == "composed":
+            args = [qlib.quantize(q, s_q[:, None, None]), *cache, m_z, s_v,
+                    lens_t, *luts]
+        else:
+            args = [q, *cache, m_z, s_q, s_v, lens_t, *luts]
+        got = getattr(splitmax_decode, name + "_cuda")(*args, **kw)
+        want = getattr(splitmax_decode, name + "_plain")(*args, exact=True,
+                                                         **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("hq", [32, 56])
+def test_kernels_at_the_dense_configs_gqa_groups(rng, cuda, hq):
+    """Kernels 1-3 at Mistral-NeMo-12B's heads (32/8, group 4) and
+    DeepSeek-Coder-33B's (56/8, group 7, the first odd group), D 128: the
+    250-token prefill, the 8-slot decode and verify at gamma 4, each bit
+    for bit its ``exact=True`` plain version."""
+    hkv, d, bk = 8, 128, 32
+    luts = _luts(cuda)
+    s_v = torch.tensor(SCALES[2], device=cuda)
+    q, k, v = (_i8(rng, x, cuda) for x in
+               ((1, hq, 250, d), (1, hkv, 250, d), (1, hkv, 250, d)))
+    m_z = ops.requant_multiplier(torch.tensor(SCALES[0], device=cuda),
+                                 torch.tensor(SCALES[1], device=cuda), d,
+                                 CFG).reshape(())
+    args = (q, k, v, m_z, s_v, *luts)
+    assert torch.equal(
+        splitmax_attn.splitmax_attention_cuda(*args, cfg=CFG),
+        splitmax_attn.splitmax_attention_plain(*args, cfg=CFG, exact=True))
+    lens = [int(n) for n in rng.integers(251, 283, 8)]
+    lens[0] = 4
+    kp, vp, table, lens_t = _paged_case(rng, cuda, lens, hq, hkv, d, bk)
+    for gamma in (None, 4):
+        shape = (8, hq, d) if gamma is None else (8, hq, gamma, d)
+        q = torch.from_numpy(rng.normal(size=shape).astype(np.float32)
+                             ).to(cuda)
+        s_q = (qlib.absmax_scale(q, axis=(1, 2)).reshape(-1) if gamma is None
+               else qlib.absmax_scale(q, axis=(1, 3))[:, 0, :, 0].contiguous())
+        m_z = ops.requant_multiplier(s_q, torch.tensor(SCALES[1],
+                                                       device=cuda), d, CFG)
+        args = [q, kp, vp, table, m_z, s_q, s_v, lens_t, *luts]
+        fn = ("splitmax_decode_fused_paged" if gamma is None
+              else "splitmax_decode_fused_verify_paged")
+        for window in (None, 48):
+            got = getattr(splitmax_decode, fn + "_cuda")(*args, cfg=CFG,
+                                                         window=window)
+            want = getattr(splitmax_decode, fn + "_plain")(
+                *args, cfg=CFG, window=window, exact=True)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (fn, window)

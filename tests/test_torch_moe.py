@@ -162,17 +162,18 @@ def test_param_counts_equal_reference(arch):
         assert tcfg.param_count() == 16_375_728_128
 
 
-@pytest.mark.parametrize("arch", MOE_ARCHS)
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_configs_equal_reference(arch):
     """Every field the port's config has, and the smoke twin's, equal the
-    reference's, letter for letter; the source tags too."""
+    reference's, letter for letter, for every config of the port's
+    registry; the source tags too."""
     for which in ("config", "smoke"):
         jcfg = getattr(jget_arch(arch), which)
         tcfg = getattr(tget_arch(arch), which)
         for f in tcfg.__dataclass_fields__:
             want = getattr(jcfg, f)
             got = getattr(tcfg, f)
-            if f == "moe":
+            if f == "moe" and want is not None:
                 want, got = vars(want), vars(got)
             assert got == want, (which, f)
     assert tget_arch(arch).source == jget_arch(arch).source
