@@ -110,6 +110,22 @@ Phases, each fatal on failure:
      those of the plain churn where the row check says they must be); and
      OLMo-1B at full width (non-parametric LayerNorm, the tied f32 head):
      the plain churn.  Each prints its seconds.
+ 10. the encoder-decoder family: SeamlessM4T-medium's smoke config in f32 on
+     the card against the CPU (paged, with the carved cross bank, and
+     dense-cache prefill + 8 decode steps within 2e-3 of the logits' scale;
+     a 6-request churn's tokens equal, fused and composed); then
+     SeamlessM4T-medium at full width (12 encoder + 12 decoder layers,
+     d_model 1024, 16/16 heads of 64, d_ff 4096, GELU, LayerNorm, vocab
+     256206 tied; seeded random bf16 weights drawn leaf by leaf, the table
+     f32): the churn with 250 x 1024 encoder frames a request through
+     ``serve_paged`` with ``warmup=True`` (kernel 1 three times a layer an
+     admission, kernel 2 twice a layer a step: counted), the composed churn
+     and a pressure churn over a 51-block dynamic pool with the carved bank
+     on top (both the plain tokens; every pool ends empty), one profiled
+     batch, and kernel 1 at its encoder (bidirectional), self (causal) and
+     cross (250 x 250 and 250 x 1024) shapes and kernels 2 and 5 over the
+     8-slot carved bank, each bit for bit its exact plain version and timed
+     beside its bound and SDPA (``"seamless"`` in the JSON line).
 
 Kernels 7 (dense verify) and 8 (int8 GEMM) have no caller in any model, as
 in the reference: they are checked and timed in phases 3 and 4 and stand in the
@@ -197,6 +213,16 @@ DENSE_SMOKE_ARCHS = ("olmo_1b", "mistral_nemo_12b", "chameleon_34b",
                      "deepseek_coder_33b", "deepseek_67b")
 NEMO_ARCH = "mistral_nemo_12b"
 OLMO_ARCH = "olmo_1b"
+# the encoder-decoder family: SeamlessM4T-medium at full width (16/16 heads
+# of 64), its encoder frames drawn as the serving CLI draws them; kernel 1
+# at its three attentions (encoder bidirectional, decoder self causal,
+# cross non-causal over the encoder's keys, also over a 1024-frame stream
+# longer than the prompt), kernels 2 and 5 over the 8-slot carved bank
+SEAMLESS_ARCH = "seamless_m4t_medium"
+SEAMLESS_HEADS = dict(hq=16, hkv=16, d=64)
+SEAMLESS_PREFILL = (("encoder", 250, 250, False), ("self", 250, 250, True),
+                    ("cross", 250, 250, False), ("cross 1024", 250, 1024,
+                                                 False))
 # the reference's bound on the reciprocal LUT's error against the division
 # (tests/test_fused_decode.py::test_fused_recip_lut_error_bounded)
 RECIP_LUT_REL_ERR = 2 ** -8
@@ -503,7 +529,9 @@ def prefill_phase(torch, F, dev):
     return {"name": "splitmax_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/splitmax_attn.cu",
             "replaces": "src/repro/kernels/splitmax_attn.py:181",
-            "path": "paged admissions and resumes, dense re-prefills, the "
+            "path": "paged admissions and resumes (the encoder-decoder's "
+                    "encoder, self and cross attentions too), dense "
+                    "re-prefills, the "
                     "fakequant->int8 check's int8 forward, MoE and dense-"
                     "family admissions",
             "max_abs_err": max(err, rerr, cerr, merr), "exact_equal": True,
@@ -676,7 +704,8 @@ def decode_phase(torch, F, dev):
     return {"name": "splitmax_decode_fused_paged", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/splitmax_decode.cu",
             "replaces": "src/repro/kernels/splitmax_decode.py:747",
-            "path": "paged decode steps, draft steps",
+            "path": "paged decode steps (self and, encoder-decoder, cross "
+                    "over the carved bank), draft steps",
             "max_abs_err": max(err, m_err), "exact_equal": True,
             "graph": "decode", "library_graph": "decode sdpa", "host_ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
@@ -955,7 +984,7 @@ def composed_phase(torch, dev, decode_args):
     return {"name": "splitmax_decode_paged", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/splitmax_decode.cu",
             "replaces": "src/repro/kernels/splitmax_decode.py:709",
-            "path": "paged decode steps, --fused off",
+            "path": "paged decode steps, --fused off (self and cross)",
             "max_abs_err": max(errs), "exact_equal": True,
             "graph": "composed", "library_graph": "decode sdpa",
             "host_ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
@@ -2686,9 +2715,11 @@ def dense_full_phase(torch, dev, arch: str, *, speculative: bool):
             "splitmax_decode_fused_verify_paged": n_ver}
 
 
-def profile_serving(torch, srv, params, cfg, prompts, gen: int = 8):
+def profile_serving(torch, srv, params, cfg, prompts, gen: int = 8,
+                    frames=None):
     """Where the time goes: one full batch (8 admissions, then decode steps)
-    under torch.profiler; device busy share and the top kernels."""
+    under torch.profiler; device busy share and the top kernels.
+    ``frames``: the encoder inputs of an encoder-decoder config."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2696,7 +2727,8 @@ def profile_serving(torch, srv, params, cfg, prompts, gen: int = 8):
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         stats = srv.serve_paged(params, cfg, prompts, slots=len(prompts),
-                                gen=gen, block_k=SERVE["block_k"])
+                                gen=gen, block_k=SERVE["block_k"],
+                                frames=frames)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side kernel and memcpy events only: a CPU op's device time is
@@ -2725,6 +2757,401 @@ def profile_serving(torch, srv, params, cfg, prompts, gen: int = 8):
           f"{mine['decode'][1]:.3f} ms over {mine['decode'][0]} launches, "
           f"together {both:.3f} ms ({100 * both / busy_ms:.1f}% of device "
           f"busy)")
+
+
+# ------------------------------------------------------- encoder-decoder --
+
+def encdec_churn(cfg):
+    """The churn workload with encoder inputs: SERVE's prompts, then one
+    (prompt_len, d_model) frame array a request drawn as the serving CLI
+    draws them (normal x 0.02, f32, after the prompts from the same
+    generator), then the staggered gens."""
+    import numpy as np
+    rng = np.random.default_rng(SERVE["seed"])
+    n, s = SERVE["requests"], SERVE["prompt_len"]
+    prompts = [rng.integers(0, cfg.vocab_size, s, dtype=np.int32)
+               for _ in range(n)]
+    frames = [np.asarray(rng.normal(size=(s, cfg.d_model)), np.float32) * 0.02
+              for _ in range(n)]
+    gens = [int(g) for g in rng.integers(SERVE["gen"] // 2, SERVE["gen"] + 1,
+                                         n)]
+    return prompts, frames, gens
+
+
+def encdec_smoke_logits(torch, params, cfg, tokens, frames, device,
+                        steps: int = 8):
+    """Paged (the carved bank) and dense-cache prefill of ``tokens (1, S)``
+    over ``frames (1, S_enc, d)`` and ``steps`` greedy decode steps on
+    ``device``: both runs' stacked logits, on the CPU."""
+    from repro_torch.models import encdec as E
+    p = tree_to(params, device)
+    tok = torch.as_tensor(tokens, device=device)
+    fr = torch.as_tensor(frames, device=device)
+    enc = fr.shape[1]
+    cbps = -(-enc // 8)
+    cache = E.make_paged_cache(cfg, 1, 40, block_k=8, num_blocks=6 + cbps,
+                               cross_table=[list(range(1, 1 + cbps))],
+                               enc_len=enc, device=device)
+    row = torch.arange(1 + cbps, 6 + cbps, dtype=torch.int32,
+                       device=device)[None]
+    sid = torch.zeros(1, dtype=torch.int32, device=device)
+    last, cache = E.prefill_paged(p, fr, tok, cfg, cache, sid, row,
+                                  calibrate=True)
+    dense = E.make_cache(cfg, 1, 40, enc, device=device)
+    d_last, dense = E.prefill(p, fr, tok, cfg, dense)
+    outs, d_outs = [last], [d_last]
+    nxt = torch.argmax(last, -1)
+    for _ in range(steps):
+        logits, cache = E.decode_step_paged(p, nxt, cfg, cache)
+        d_logits, dense = E.decode_step(p, nxt, cfg, dense)
+        outs.append(logits)
+        d_outs.append(d_logits)
+        nxt = torch.argmax(logits, -1)
+    return torch.stack(outs).cpu(), torch.stack(d_outs).cpu()
+
+
+def encdec_smoke_check(torch, dev) -> None:
+    """The encoder-decoder smoke config in f32, kernels on the card vs
+    plain versions on the CPU, same weights: paged and dense-cache prefill
+    logits and 8 decode steps within 2e-3 of the logits' scale, and the
+    tokens of a 6-request churn (fused and composed) equal."""
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve as srv
+    from repro_torch.models import encdec as E
+
+    cpu = torch.device("cpu")
+    cfg = get_arch(SEAMLESS_ARCH).smoke.replace(dtype="float32")
+    params = E.init_params(cfg, seed=0, device=cpu)
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab_size, (1, 20))
+    frames = np.asarray(rng.normal(size=(1, 24, cfg.d_model)),
+                        np.float32) * 0.02
+    errs = []
+    for gpu, ref, what in zip(
+            encdec_smoke_logits(torch, params, cfg, tokens, frames, dev),
+            encdec_smoke_logits(torch, params, cfg, tokens, frames, cpu),
+            ("paged", "dense cache")):
+        err = float((gpu - ref).abs().max())
+        scale = float(ref.abs().max())
+        check(bool(torch.isfinite(gpu).all()), f"encdec smoke {what}: "
+              f"non-finite")
+        check(err <= 2e-3 * scale, f"encdec smoke {what}: max|gpu-cpu| "
+              f"logits {err:.3g} > 2e-3 * {scale:.3g}")
+        errs.append(f"{what} {err:.3g} of {scale:.3g}")
+    prompts = [rng.integers(0, cfg.vocab_size, 24, dtype=np.int32)
+               for _ in range(6)]
+    fr = [np.asarray(rng.normal(size=(24, cfg.d_model)), np.float32) * 0.02
+          for _ in range(6)]
+    gens = [int(g) for g in rng.integers(8, 17, 6)]
+    kw = dict(slots=3, gen=16, gens=gens, block_k=8, frames=fr)
+    for fused in (True, False):
+        c = cfg.replace(attn_fused=fused)
+        on_card = srv.serve_paged(tree_to(params, dev), c, prompts, **kw)
+        on_cpu = srv.serve_paged(params, c, prompts, **kw)
+        check_served(on_card, gens, cfg.vocab_size, "encdec smoke churn")
+        check(on_card["finished"] == on_cpu["finished"],
+              f"encdec smoke churn (fused={fused}): card tokens differ from "
+              f"the CPU's")
+    print(f"[encdec-smoke] {cfg.name} (f32), card vs CPU plain path: "
+          f"prefill + 8 decode steps max|logit diff| {', '.join(errs)} (tol "
+          f"2e-3 of the scale); 6-request churn (24 frames, fused and "
+          f"composed) tokens == CPU tokens")
+
+
+def seamless_kernel_shapes(torch, F, dev, params, cfg, prompts, frames):
+    """Kernel 1 at SeamlessM4T's three attentions (16/16 heads of 64) and
+    kernels 2 and 5 over the 8-slot carved cross bank of a full-width
+    engine (full pool) with every slot admitted, each bit for bit its
+    ``exact=True``
+    plain version and within ``tolerance`` of the default one; kernels 2
+    and 5 also over a bank whose slots were never written (idle slots:
+    finite).  Each is timed by graph replay beside its bound and SDPA's
+    bf16 kernel (non-causal where the kernel is).  Returns each kernel's
+    sub-entry for the JSON line."""
+    from repro_torch.core import paged_kv
+    from repro_torch.core import quantization as qlib
+    from repro_torch.core.attention import luts_for
+    from repro_torch.core.lut import LUTConfig
+    from repro_torch.kernels import ops, splitmax_attn as KA
+    from repro_torch.kernels import splitmax_decode as KD
+    from repro_torch.launch import serve as srv
+
+    lcfg = LUTConfig(scale_z=8.0 / 127)
+    exp_lut, recip_lut = luts_for(lcfg.scale_z, dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    hq, hkv, d = (SEAMLESS_HEADS[k] for k in ("hq", "hkv", "d"))
+    fns, entries, errs = {}, {}, {}
+    for key, sq, sk, causal in SEAMLESS_PREFILL:
+        q = torch.randn((1, hq, sq, d), generator=gen, device=dev)
+        k = torch.randn((1, hkv, sk, d), generator=gen, device=dev)
+        v = torch.randn((1, hkv, sk, d), generator=gen, device=dev)
+        s_q, s_k, s_v = (qlib.absmax_scale(x) for x in (q, k, v))
+        args = (qlib.quantize(q, s_q), qlib.quantize(k, s_k),
+                qlib.quantize(v, s_v),
+                ops.requant_multiplier(s_q, s_k, d, lcfg).reshape(()), s_v,
+                exp_lut, recip_lut)
+        kw = dict(cfg=lcfg, causal=causal)
+        ker = KA.splitmax_attention_cuda(*args, **kw)
+        exact = KA.splitmax_attention_plain(*args, exact=True, **kw)
+        plain = KA.splitmax_attention_plain(*args, **kw)
+        torch.cuda.synchronize()
+        err, tol = float((ker - plain).abs().max()), tolerance(float(s_v))
+        check(torch.equal(ker, exact), f"seamless prefill {key} {sq}x{sk}: "
+              f"kernel != the exact=True plain version")
+        check(err <= tol, f"seamless prefill {key}: max|kernel-plain| "
+              f"{err:.3g} > {tol:.3g}")
+        fns[f"prefill {key}"] = (lambda a=args, w=kw:
+                                 KA.splitmax_attention_cuda(*a, **w))
+        qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+        fns[f"prefill {key} sdpa"] = (
+            lambda a=(qb, kb, vb), c=causal:
+            F.scaled_dot_product_attention(*a, is_causal=c))
+        pairs = hq * (sq * (sq + 1) // 2 if causal else sq * sk)
+        n_bytes = (hq * sq * d + 2 * hkv * sk * d + 4 * hq * sq * d
+                   + 4 * (256 + lcfg.recip_table_size))
+        bms, by = bound_ms(n_bytes, pairs * 6 * d)
+        plain_ms = time_ms(torch, lambda a=args, w=kw:
+                           KA.splitmax_attention_plain(*a, **w), iters=5)
+        entries[f"prefill {key}"] = {
+            "shape": dict(b=1, sq=sq, sk=sk, causal=causal, **SEAMLESS_HEADS),
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "max_abs_err": err}
+        errs["splitmax_attention"] = max(errs.get("splitmax_attention", 0),
+                                         err)
+        print(f"[seamless-kernels] prefill {key} 1 x {hq}/{hkv} x {sq} x "
+              f"{sk} d{d} causal={causal}: == exact oracle, max_abs_err "
+              f"{err:.3g} (tol {tol:.3g}), plain {plain_ms:.4f} ms, bound "
+              f"{bms:.5f} ms ({by})")
+
+    # the carved bank as the churn leaves it: every slot admitted
+    engine = srv.make_engine(params, cfg, prompts, slots=SERVE["slots"],
+                             max_len=SERVE["prompt_len"] + SERVE["gen"] + 8,
+                             block_k=SERVE["block_k"], frames=frames)
+    cache = engine.start_run()
+    for slot in range(engine.slots):
+        engine.admit(cache, slot, slot)
+    kvc = cache["kv"]
+    layer = engine.cfg.n_layers // 2
+    table, lens = cache["cross_table"], cache["cross_len"]
+    s_k = cache["cross_scale_k"][layer].reshape(())
+    s_v = cache["cross_scale_v"][layer].reshape(())
+    b = engine.slots
+    q = torch.randn((b, hq, d), generator=gen, device=dev)
+    s_q = qlib.absmax_scale(q, axis=(1, 2)).reshape(-1)
+    m_z = ops.requant_multiplier(s_q, s_k, d, lcfg)
+    kp, vp = kvc["k_pages"][layer], kvc["v_pages"][layer]
+    fused = [q, kp, vp, table, m_z, s_q, s_v, lens, exp_lut, recip_lut]
+    composed = [qlib.quantize(q, s_q[:, None, None]), kp, vp, table, m_z,
+                s_v, lens, exp_lut, recip_lut]
+    tol = tolerance(float(s_v))
+    outs = {}
+    for name, kern, plain, args in (
+            ("decode", KD.splitmax_decode_fused_paged_cuda,
+             KD.splitmax_decode_fused_paged_plain, fused),
+            ("composed", KD.splitmax_decode_paged_cuda,
+             KD.splitmax_decode_paged_plain, composed)):
+        ker = kern(*args, cfg=lcfg)
+        exact = plain(*args, cfg=lcfg, exact=True)
+        default = plain(*args, cfg=lcfg)
+        torch.cuda.synchronize()
+        err = float((ker - default).abs().max())
+        check(torch.equal(ker, exact), f"seamless {name} over the cross "
+              f"bank: kernel != the exact=True plain version")
+        check(err <= tol, f"seamless {name} over the cross bank: "
+              f"max|kernel-plain| {err:.3g} > {tol:.3g}")
+        # never-written bank rows (idle slots): zeros, finite output
+        idle = torch.zeros_like(kp)
+        z = kern(*[idle if a is kp or a is vp else a for a in args],
+                 cfg=lcfg)
+        check(bool(torch.isfinite(z).all()), f"seamless {name} over an "
+              f"unwritten bank: non-finite")
+        outs[name] = ker
+        fns[f"{name} cross"] = (lambda f=kern, a=args: f(*a, cfg=lcfg))
+        plain_ms = time_ms(torch, lambda f=plain, a=args: f(*a, cfg=lcfg),
+                           iters=10)
+        total = int(lens.sum())
+        tiles = b * table.shape[1]
+        q_bytes = 4 if name == "decode" else 1
+        n_bytes = (q_bytes * b * hq * d + 2 * hkv * d * total + 4 * tiles
+                   + 4 * b * 3 + 4 * b * hq * d
+                   + 4 * (256 + lcfg.recip_table_size))
+        bms, by = bound_ms(n_bytes, total * hq * 6 * d)
+        entries[f"{name} cross"] = {
+            "shape": dict(b=b, lens=lens.tolist(), cross_bps=table.shape[1],
+                          **SEAMLESS_HEADS),
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "max_abs_err": err}
+        errs[name] = err
+        print(f"[seamless-kernels] {name} over the carved bank ({b} slots x "
+              f"{table.shape[1]} blocks, len {lens.tolist()[0]}, layer "
+              f"{layer}): == exact oracle, max_abs_err {err:.3g} (tol "
+              f"{tol:.3g}), unwritten bank finite, plain {plain_ms:.4f} ms, "
+              f"bound {bms:.5f} ms ({by})")
+    check(torch.equal(outs["decode"], outs["composed"]), "seamless composed "
+          "over the cross bank differs from the fused kernel")
+    qb = torch.randn((b, hq, 1, d), generator=gen, device=dev,
+                     dtype=torch.bfloat16)
+    kb, vb = (torch.randn((b, hq, int(lens[0]), d), generator=gen,
+                          device=dev, dtype=torch.bfloat16) for _ in range(2))
+    fns["decode cross sdpa"] = lambda: F.scaled_dot_product_attention(qb, kb,
+                                                                      vb)
+    del cache, engine
+    one = torch.zeros(1, device=dev)
+    fns["launch floor"] = lambda: one.add_(1)
+    times = graph_rounds(torch, fns)
+    floor = times.pop("launch floor")[0]
+    for key, e in entries.items():
+        yard = "decode cross sdpa" if "cross" in key and "prefill" not in key \
+            else f"{key} sdpa"
+        e["ms"], lo, hi = times[key]
+        e["ms_range"] = [lo, hi]
+        e["library_ms"] = times[yard][0]
+        e["launch_floor_ms"] = floor
+        print(f"[seamless-kernels] {key}: kernel {e['ms']:.5f} ms ({lo:.5f}-"
+              f"{hi:.5f}), bound {e['bound_ms']:.5f} ms ({e['bound_by']}), "
+              f"SDPA bf16 {e['library_ms']:.5f} ms, launch floor "
+              f"{floor:.5f} ms")
+    return {"splitmax_attention": {k[len("prefill "):]: v for k, v in
+                                   entries.items() if k.startswith("prefill")},
+            "splitmax_decode_fused_paged": entries["decode cross"],
+            "splitmax_decode_paged": entries["composed cross"]}, errs
+
+
+def encdec_full_phase(torch, F, dev):
+    """SeamlessM4T-medium at full width on the card, drawn leaf by leaf in
+    bf16 (the tied f32 embedding table is the LM head): the churn through
+    ``serve_paged`` with frames and its warm-up, the composed churn
+    (``--fused off``) and a pressure churn over a 51-block dynamic pool
+    with the carved bank on top (both the plain tokens), one profiled
+    batch, and the kernel shapes (:func:`seamless_kernel_shapes`).  Returns
+    the main paths' launches of kernels 1, 2 and 5 and the kernels'
+    sub-entries."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import paged_kv
+    from repro_torch.kernels import splitmax_attn, splitmax_decode as K
+    from repro_torch.launch import scheduler as sched
+    from repro_torch.launch import serve as srv
+    from repro_torch.models import encdec as E
+    from repro_torch.models import layers as L
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_arch(SEAMLESS_ARCH).config
+    name = cfg.name
+    n_enc = cfg.n_encoder_layers or cfg.n_layers
+    t0 = time.perf_counter()
+    params = E.init_params(cfg, seed=SERVE["seed"], device=dev, serving=True)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    w_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(params))
+    init_peak = torch.cuda.max_memory_allocated()
+    f32_draw = 4 * L.pad_vocab(cfg.vocab_size,
+                               cfg.vocab_pad_multiple) * cfg.d_model
+    check(init_peak <= w_bytes + 2 * f32_draw, f"{name} init: peak "
+          f"{init_peak / 1e9:.2f} GB for {w_bytes / 1e9:.2f} GB of weights")
+    print(f"[encdec] {name} at full width: {n_enc} encoder + {cfg.n_layers} "
+          f"decoder layers, d_model {cfg.d_model}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads of {cfg.hd}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, norm {cfg.norm}, act {cfg.act}, tied "
+          f"{cfg.tie_embeddings}; {cfg.param_count():,} parameters, seeded "
+          f"random weights drawn leaf by leaf in {init_s:.2f} s: "
+          f"{w_bytes / 1e9:.2f} GB, peak {init_peak / 1e9:.2f} GB")
+
+    prompts, frames, gens = encdec_churn(cfg)
+    kw = dict(slots=SERVE["slots"], gen=SERVE["gen"], gens=gens,
+              block_k=SERVE["block_k"], frames=frames)
+    per_admit = n_enc + 2 * cfg.n_layers       # encoder, self, cross
+    splitmax_attn.launches = K.launches = 0
+    stats = srv.serve_paged(params, cfg, prompts, warmup=True, **kw)
+    torch.cuda.synchronize()
+    n_prefill, n_decode = splitmax_attn.launches, K.launches
+    check_served(stats, gens, cfg.vocab_size, f"{name} churn")
+    n_warm = (stats["warmup_prefills"], stats["warmup_decode_steps"])
+    check(n_warm == (2, 1), f"{name} warm-up ran {n_warm} prefills and "
+          f"decodes")
+    check(n_prefill == (stats["slot_prefills"] + n_warm[0]) * per_admit,
+          f"{name} prefill launches {n_prefill} != ({stats['slot_prefills']} "
+          f"admissions + {n_warm[0]} warm-up) x {per_admit} attentions")
+    check(n_decode == (stats["decode_steps"] + n_warm[1]) * 2 * cfg.n_layers,
+          f"{name} decode launches {n_decode} != ({stats['decode_steps']} "
+          f"steps + {n_warm[1]} warm-up) x 2 x {cfg.n_layers} layers")
+    bps = paged_kv.blocks_per_seq(SERVE["prompt_len"] + SERVE["gen"] + 8,
+                                  SERVE["block_k"])
+    cross_bps = paged_kv.blocks_per_seq(SERVE["prompt_len"], SERVE["block_k"])
+    pool = stats["health"]["pools"]["kv"]
+    carved = pool["num_blocks"] - (1 + SERVE["slots"] * bps)
+    check(carved == SERVE["slots"] * cross_bps, f"{name}: pool of "
+          f"{pool['num_blocks']} blocks, {carved} beyond the dynamic region")
+    print(f"[encdec] {name} churn {SERVE} with {SERVE['prompt_len']} x "
+          f"{cfg.d_model} frames: served {stats['served']}, "
+          f"{stats['total_tokens']} tokens in {stats['wall_s']:.3f} s, "
+          f"{stats['tok_s']:.1f} tok/s, {stats['decode_steps']} decode steps, "
+          f"{stats['slot_prefills']} slot prefills, p50/p99 step "
+          f"{stats['p50_step_ms']:.2f}/{stats['p99_step_ms']:.2f} ms, leaked "
+          f"{stats['leaked_blocks']}, pool {pool['num_blocks']} blocks "
+          f"(carved bank {carved} = {SERVE['slots']} slots x {cross_bps}), "
+          f"high water {pool['high_water']}, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, launches "
+          f"prefill {n_prefill} decode {n_decode} (warm-up included)")
+
+    K.launches = K.composed_launches = 0
+    comp = srv.serve_paged(params, cfg.replace(attn_fused=False), prompts,
+                           **kw)
+    torch.cuda.synchronize()
+    n_comp = K.composed_launches
+    check_served(comp, gens, cfg.vocab_size, f"{name} composed churn")
+    check(n_comp == comp["decode_steps"] * 2 * cfg.n_layers and K.launches == 0,
+          f"{name} composed launches {n_comp} (fused {K.launches}) != "
+          f"{comp['decode_steps']} steps x 2 x {cfg.n_layers}")
+    check(comp["finished"] == stats["finished"], f"{name} composed churn: "
+          f"tokens differ from the fused churn's")
+    print(f"[encdec] {name} composed churn: {comp['tok_s']:.1f} tok/s, p50 "
+          f"step {comp['p50_step_ms']:.2f} ms, tokens == fused, composed "
+          f"launches {n_comp}")
+
+    dyn = 1 + PRESSURE_POOL_SEQS * bps
+    engine = srv.make_engine(params, cfg, prompts, slots=SERVE["slots"],
+                             max_len=SERVE["prompt_len"] + SERVE["gen"] + 8,
+                             block_k=SERVE["block_k"], pool_blocks=dyn,
+                             frames=frames)
+    press = sched.run_schedule(engine, prompts, gens=gens)
+    torch.cuda.synchronize()
+    what = f"{name} pressure churn (dynamic pool {dyn})"
+    check_served(press, gens, cfg.vocab_size, what)
+    check(press["preemptions"] >= 1
+          and press["resumes"] == press["preemptions"],
+          f"{what}: {press['preemptions']} preemptions, {press['resumes']} "
+          f"resumes")
+    check(press["finished"] == stats["finished"], f"{what}: tokens differ "
+          f"from the plain churn's")
+    a = engine.alloc
+    check(a.live_count == 0 and a.carved_count == SERVE["slots"] * cross_bps
+          and a.free_count == a.num_blocks - 1 - a.carved_count,
+          f"{what}: the pool does not end empty ({a.live_count} live, "
+          f"{a.carved_count} carved, {a.free_count} free of {a.num_blocks})")
+    print(f"[encdec] {what}: served {press['served']}, {press['tok_s']:.1f} "
+          f"tok/s (plain {stats['tok_s']:.1f}), {press['decode_steps']} "
+          f"decode steps, {press['preemptions']} preemptions, "
+          f"{press['resumes']} resumes, tokens == plain, pool ends empty "
+          f"(carved_count {a.carved_count})")
+
+    profile_serving(torch, srv, params, cfg, prompts[:SERVE["slots"]],
+                    frames=frames[:SERVE["slots"]])
+    del engine
+    subs, errs = seamless_kernel_shapes(torch, F, dev, params, cfg, prompts,
+                                        frames)
+    print(f"[encdec] {name} phase wall time "
+          f"{time.perf_counter() - t_phase:.1f} s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del params
+    torch.cuda.empty_cache()
+    return ({"splitmax_attention": n_prefill,
+             "splitmax_decode_fused_paged": n_decode,
+             "splitmax_decode_paged": n_comp}, subs, errs)
+
+
 
 
 def main() -> int:
@@ -2801,6 +3228,8 @@ def main() -> int:
     dense_smoke_phase(torch, dev)
     nemo = dense_full_phase(torch, dev, NEMO_ARCH, speculative=True)
     olmo = dense_full_phase(torch, dev, OLMO_ARCH, speculative=False)
+    encdec_smoke_check(torch, dev)
+    seamless, seamless_subs, seamless_errs = encdec_full_phase(torch, F, dev)
     by_path = {"paged churn": launches["splitmax_attention"],
                "dense churn": dense.pop("splitmax_attention"),
                "pressure churn": n_pressure,
@@ -2808,12 +3237,14 @@ def main() -> int:
                "fakequant->int8 check, full width": n_fq_full,
                "moe churn": moe["splitmax_attention"],
                "mistral-nemo churn": nemo["splitmax_attention"],
-               "olmo churn": olmo["splitmax_attention"]}
+               "olmo churn": olmo["splitmax_attention"],
+               "seamless churn": seamless["splitmax_attention"]}
     decode_by_path = {
         "paged churn": launches["splitmax_decode_fused_paged"],
         "moe churn": moe["splitmax_decode_fused_paged"],
         "mistral-nemo churn": nemo["splitmax_decode_fused_paged"],
-        "olmo churn": olmo["splitmax_decode_fused_paged"]}
+        "olmo churn": olmo["splitmax_decode_fused_paged"],
+        "seamless churn": seamless["splitmax_decode_fused_paged"]}
     verify_by_path = {
         "speculative churn (self, self:4)":
             launches["splitmax_decode_fused_verify_paged"],
@@ -2827,6 +3258,9 @@ def main() -> int:
     launches["splitmax_decode_fused_verify_paged"] = sum(
         verify_by_path.values())
     launches["splitmax_attention"] = sum(by_path.values())
+    check(seamless["splitmax_decode_paged"] > 0, "no composed decode launch "
+          "on the seamless composed churn")
+    launches["splitmax_decode_paged"] += seamless["splitmax_decode_paged"]
     launches.update(dense)
     launches["splitmax_decode_fused_verify"] = (
         splitmax_decode.dense_verify_launches)
@@ -2839,6 +3273,15 @@ def main() -> int:
         "pre_pass_launches"] = launches["int8_matmul pre-pass"]
     for k, paths in zip(kernels, (by_path, decode_by_path, verify_by_path)):
         k["launches_by_path"] = paths
+    for k in kernels:
+        if k["name"] in seamless_subs:
+            k["seamless"] = seamless_subs[k["name"]]
+    err_of = {"splitmax_attention": seamless_errs["splitmax_attention"],
+              "splitmax_decode_fused_paged": seamless_errs["decode"],
+              "splitmax_decode_paged": seamless_errs["composed"]}
+    for k in kernels:
+        if k["name"] in err_of:
+            k["max_abs_err"] = max(k["max_abs_err"], err_of[k["name"]])
     for name in ("splitmax_attention", "splitmax_decode_fused_paged",
                  "splitmax_decode_fused_verify_paged", "splitmax_decode_paged",
                  "splitmax_decode_fused", "splitmax_decode"):

@@ -10,7 +10,9 @@ Layouts carry over unchanged (a linear weight is ``(d_in, d_out)`` in both
 packages); the one structural change is that the reference scans stacked
 layer segments, ``params["segments"]``, each homogeneous (a MoE config's
 leading dense layers, then its MoE layers) with a leading layer axis on
-every leaf, which become the port's one list ``params["layers"]``.
+every leaf, which become the port's one list ``params["layers"]``; an
+encoder-decoder's stacked ``encoder`` and ``decoder`` become one list
+each.
 :func:`to_jax_layout` is the inverse map, which the trainer's checkpoints
 use so that the reference restores them.  A non-parametric norm is the
 empty dict in both layouts, and a tied config has no ``lm_head`` in
@@ -46,10 +48,29 @@ def _kind(layer: Dict) -> str:
     return "moe" if "moe" in layer else "dense"
 
 
+def _unstack(stacked: Dict, n: int, what: str, dev) -> list:
+    m = np.shape(next(iter(tu.leaves(stacked))))[0]
+    if m != n:
+        raise ValueError(f"{m} stacked {what} layers where the config has "
+                         f"{n}")
+    return [_to_torch(_layer(stacked, i), dev) for i in range(n)]
+
+
 def from_jax_params(np_params: Dict, cfg: ModelConfig, *, device="cuda"
                     ) -> Dict:
-    """JAX dense- or MoE-family parameters (numpy leaves) -> the port's
-    layout: every segment's layers, in order, into ``layers``."""
+    """JAX parameters (numpy leaves) -> the port's layout: a dense or MoE
+    model's segments' layers, in order, into ``layers``; an encoder-decoder's
+    stacked ``encoder`` and ``decoder`` into one list each."""
+    dev = resolve_device(device)
+    if cfg.family == "encdec":
+        out = {k: _to_torch(v, dev) for k, v in np_params.items()
+               if k not in ("encoder", "decoder")}
+        out["encoder"] = _unstack(np_params["encoder"],
+                                  cfg.n_encoder_layers or cfg.n_layers,
+                                  "encoder", dev)
+        out["decoder"] = _unstack(np_params["decoder"], cfg.n_layers,
+                                  "decoder", dev)
+        return out
     segments = layer_segments(cfg)
     segs = np_params["segments"]
     if len(segs) != len(segments):
@@ -60,7 +81,6 @@ def from_jax_params(np_params: Dict, cfg: ModelConfig, *, device="cuda"
                          f"but the parameters "
                          f"{'have' if cfg.tie_embeddings else 'lack'} an "
                          f"lm_head")
-    dev = resolve_device(device)
     out = {k: _to_torch(v, dev) for k, v in np_params.items()
            if k != "segments"}
     out["layers"] = []
@@ -87,8 +107,16 @@ def from_jax_opt_state(np_state, cfg: ModelConfig, *, device="cuda"
 def to_jax_layout(params: Dict) -> Dict:
     """The port's parameter tree -> the reference's, as numpy copies: each
     run of consecutive layers of one kind in the list ``layers`` becomes
-    one stacked segment of ``segments``, each leaf with a leading layer
+    one stacked segment of ``segments``, and the lists ``encoder`` and
+    ``decoder`` one stacked tree each, each leaf with a leading layer
     axis."""
+    def stack(run):
+        return tu.tree_map(
+            lambda *xs: np.stack([tu.host_copy(x) for x in xs]), *run)
+
+    if "encoder" in params:
+        return {k: stack(v) if k in ("encoder", "decoder") else
+                tu.tree_map(tu.host_copy, v) for k, v in params.items()}
     runs = []
     for layer in params["layers"]:
         if runs and _kind(runs[-1][-1]) == _kind(layer):
@@ -97,7 +125,5 @@ def to_jax_layout(params: Dict) -> Dict:
             runs.append([layer])
     out = {k: tu.tree_map(tu.host_copy, v) for k, v in params.items()
            if k != "layers"}
-    out["segments"] = [tu.tree_map(
-        lambda *xs: np.stack([tu.host_copy(x) for x in xs]), *run)
-        for run in runs]
+    out["segments"] = [stack(run) for run in runs]
     return out

@@ -1,5 +1,5 @@
-"""Architecture registry (port of ``repro/configs``: the dense and MoE
-configs; the SSM, encoder-decoder and hybrid ones are not ported)."""
+"""Architecture registry (port of ``repro/configs``: the dense, MoE and
+encoder-decoder configs; the SSM and hybrid ones are not ported)."""
 from __future__ import annotations
 
 import importlib
@@ -15,6 +15,7 @@ ARCH_IDS: List[str] = [
     "deepseek_67b",
     "mixtral_8x22b",
     "deepseek_moe_16b",
+    "seamless_m4t_medium",
     # the paper's own evaluation model
     "tinyllama_1p1b",
 ]

@@ -49,6 +49,7 @@ class AttentionSpec:
     mode: str = "fakequant"            # float | fakequant | int8
     scale_z: float = 8.0 / 127         # score quant scale (clip ~ +-8)
     window: Optional[int] = None       # sliding-window size, None = full
+    causal: bool = True                # full-sequence attention only
     fused: bool = True                 # decode: in-kernel quantize of q
     lut_mode: str = "onehot"           # onehot | compute: the int8 exp table
     exact_recip: bool = False          # int8 finalize: 1/s, not the LUT
@@ -89,21 +90,30 @@ def luts_for(scale_z: float, device: torch.device, lut_mode: str = "onehot"
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              spec: AttentionSpec) -> torch.Tensor:
-    """Causal (B,Hq,Sq,D) x (B,Hkv,Sk,D) -> (B,Hq,Sq,D), dtype of q, in the
-    mode ``spec.mode``.  Float inputs; int8 calibrates q, k and v with
-    per-tensor absmax scales (constants: the int8 path takes no gradient).
-    Fakequant runs over k chunks of ``FAKEQUANT_BLOCK_K`` (the reference's
-    ``max(spec.block_k, 512)`` with its one ``block_k``), which must divide
-    Sk when Sk is longer."""
+              spec: AttentionSpec, *, kv_valid_len: Optional[int] = None
+              ) -> torch.Tensor:
+    """(B,Hq,Sq,D) x (B,Hkv,Sk,D) -> (B,Hq,Sq,D), dtype of q, in the mode
+    ``spec.mode``: causal unless ``spec.causal`` is False (the encoder and
+    cross attention), keys at or past ``kv_valid_len`` masked.  Float
+    inputs; int8 calibrates q, k and v with per-tensor absmax scales
+    (constants: the int8 path takes no gradient).  Fakequant runs over k
+    chunks of ``FAKEQUANT_BLOCK_K`` (the reference's ``max(spec.block_k,
+    512)`` with its one ``block_k``), which must divide Sk when Sk is
+    longer.  The float mode honours ``kv_valid_len`` too, which the
+    reference's drops (no caller passes it; ROADMAP queue 3)."""
+    causal = spec.causal
     if spec.mode == "float":
-        out = ref_lib.safe_softmax_attention_ref(q, k, v, causal=True,
-                                                 window=spec.window)
+        mask = None
+        if kv_valid_len is not None:
+            mask = torch.arange(k.shape[2], device=q.device) < kv_valid_len
+        out = ref_lib.safe_softmax_attention_ref(q, k, v, causal=causal,
+                                                 window=spec.window,
+                                                 mask=mask)
         return out.to(q.dtype)
     if spec.mode == "fakequant":
         out = blocked_lib.blocked_fakequant_attention(
-            q, k, v, spec.lut_config, causal=True, window=spec.window,
-            block_k=FAKEQUANT_BLOCK_K,
+            q, k, v, spec.lut_config, causal=causal, window=spec.window,
+            kv_valid_len=kv_valid_len, block_k=FAKEQUANT_BLOCK_K,
             score_dtype=getattr(torch, spec.score_dtype),
             triangular=spec.triangular)
         return out.to(q.dtype)
@@ -115,7 +125,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = ops.splitmax_attention(
         qlib.quantize(q, s_q), qlib.quantize(k, s_k), qlib.quantize(v, s_v),
         s_q, s_k, s_v, exp_lut, recip_lut, cfg=spec.lut_config,
-        causal=True, window=spec.window, exact_recip=spec.exact_recip)
+        causal=causal, window=spec.window, kv_valid_len=kv_valid_len,
+        exact_recip=spec.exact_recip)
     return out.to(q.dtype)
 
 

@@ -51,8 +51,9 @@ class BlockAllocator:
     """Free-list allocator over ``num_blocks`` block ids.
 
     Reserved ids (by default the trash block) are never handed out; frees
-    recycle ids FIFO; double frees, foreign ids and exhaustion raise
-    :class:`BlockAllocationError`.  ``high_water`` is the peak live count.
+    recycle ids FIFO; double frees, foreign ids, frees of carved ids and
+    exhaustion raise :class:`BlockAllocationError`.  ``high_water`` is the
+    peak live count.
     """
 
     def __init__(self, num_blocks: int,
@@ -65,6 +66,7 @@ class BlockAllocator:
         self._free = deque(i for i in range(num_blocks)
                            if i not in self._reserved)
         self._live: set = set()
+        self._carved: set = set()
         self.high_water = 0
 
     @property
@@ -75,11 +77,31 @@ class BlockAllocator:
     def live_count(self) -> int:
         return len(self._live)
 
+    @property
+    def carved_count(self) -> int:
+        return len(self._carved)
+
     def _error(self, msg: str, requested: Optional[int] = None):
         return BlockAllocationError(
             msg, requested=requested, free=len(self._free),
             live=len(self._live), high_water=self.high_water,
             num_blocks=self.num_blocks)
+
+    def carve(self, n: int) -> List[int]:
+        """Take ``n`` ids off the free list for good, for a static region
+        (the encoder-decoder engine's write-once cross-KV bank).  Carved
+        ids are not live: they never return to the free list, cannot be
+        freed and are not leaks.  All-or-nothing, as :meth:`alloc`."""
+        if n < 0:
+            raise ValueError(n)
+        if n > len(self._free):
+            raise self._error(
+                f"carving {n} blocks, only {len(self._free)} free "
+                f"({len(self._live)} live of {self.num_blocks}, "
+                f"high water {self.high_water})", requested=n)
+        ids = [self._free.popleft() for _ in range(n)]
+        self._carved.update(ids)
+        return ids
 
     def alloc(self, n: int) -> List[int]:
         """Allocate ``n`` block ids; all-or-nothing."""
@@ -101,6 +123,8 @@ class BlockAllocator:
         for i in ids:
             if i in self._reserved:
                 raise self._error(f"freeing reserved block {i}")
+            if i in self._carved:
+                raise self._error(f"freeing carved static block {i}")
             if i not in self._live:
                 raise self._error(f"freeing block {i} that is not allocated "
                                   f"(double free or foreign id)")
@@ -135,6 +159,23 @@ def init_kv_pages(n_layers: int, num_blocks: int, n_kv_heads: int,
                                   dtype=torch.int32, device=device),
         "length": torch.zeros((slots,), dtype=torch.int32, device=device),
     }
+
+
+def write_blocks(pages: torch.Tensor, block_ids: torch.Tensor,
+                 x_q: torch.Tensor) -> None:
+    """Write int8 ``x_q (L, B, H, S, d)`` into every layer's pool ``pages
+    (L, num_blocks, H, block_k, d)`` in place: position ``p`` of row ``b``
+    lands at ``pages[:, block_ids[b, p // block_k], :, p % block_k]``, the
+    last block zero-padded.  ``block_ids (B, nb)`` holds exactly the
+    ``ceil(S / block_k)`` blocks of each row."""
+    nl, b, h, s, d = x_q.shape
+    bk = pages.shape[3]
+    nb = block_ids.shape[1]
+    if nb != blocks_per_seq(s, bk):
+        raise ValueError(f"{nb} blocks for {s} positions of block_k {bk}")
+    x_q = torch.nn.functional.pad(x_q, (0, 0, 0, nb * bk - s))
+    x_q = x_q.reshape(nl, b, h, nb, bk, d).permute(0, 1, 3, 2, 4, 5)
+    pages[:, block_ids.reshape(-1).long()] = x_q.reshape(nl, b * nb, h, bk, d)
 
 
 def gather_kv(pages: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:

@@ -29,8 +29,8 @@ class PagedKVEngine(base.CacheEngine):
         if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
                 f"family {cfg.family!r}: the paged engine serves the dense "
-                f"and MoE families; the SSM, encoder-decoder and hybrid "
-                f"engines are ROADMAP queue 1 item 9")
+                f"and MoE families (encdec: EncDecEngine; the SSM engine is "
+                f"not ported, ROADMAP queue 1 item 4)")
         self.params = T.cast_for_serving(params, cfg)
         self.device = params["embed"]["table"].device
         self.cfg = cfg

@@ -498,10 +498,9 @@ def run_speculative(params, cfg, prompts: List[np.ndarray], *, slots: int,
     draft_params, dcfg = draft if draft is not None else (params, cfg)
     for c in (cfg, dcfg):
         if c.family not in ("dense", "moe"):
-            raise NotImplementedError(
-                f"speculative serving of family {c.family!r}: the port "
-                f"serves the dense and MoE families; the others are ROADMAP "
-                f"queue 1 item 9")
+            raise ValueError(
+                f"speculative serving of family {c.family!r}: speculation "
+                f"is decoder-only (dense and MoE), as in the reference")
     if dcfg.vocab_size != cfg.vocab_size:
         raise ValueError("the drafter must share the target's vocab")
     _check_policy(preempt_policy)

@@ -1,11 +1,15 @@
 """Continuous-batching int8 serving (port of ``repro/launch/serve.py``:
 ``make_engine``, ``serve_paged``, ``serve_dense``, ``make_self_draft``,
-``serve_speculative``, the ``serve`` dispatcher and the CLI, for the dense
-and MoE families: every dense config of the registry (TinyLlama-1.1B,
-OLMo-1B, Mistral-NeMo-12B, Chameleon-34B, DeepSeek-Coder-33B,
-DeepSeek-67B), and DeepSeekMoE-16B and Mixtral-8x22B through the same
-paged engine and speculative loop; the layer-prefix drafter stays
-dense-only).
+``serve_speculative``, the ``serve`` dispatcher and the CLI, for the dense,
+MoE and encoder-decoder families: every dense config of the registry
+(TinyLlama-1.1B, OLMo-1B, Mistral-NeMo-12B, Chameleon-34B,
+DeepSeek-Coder-33B, DeepSeek-67B), and DeepSeekMoE-16B and Mixtral-8x22B
+through the same paged engine and speculative loop (the layer-prefix
+drafter stays dense-only); SeamlessM4T-medium through the encoder-decoder
+engine, whose encoder cross K/V live in a write-once region carved out of
+the same pool (``frames`` carries each request's encoder input; it is
+served paged, plainly or composed, never speculatively or through the
+dense cache).
 
 Paged (the default): every admission is a per-slot prefill that allocates
 only the blocks its prompt needs; a slot grows one block at a time as it
@@ -49,6 +53,8 @@ from the environment (``launch/faults.py``):
     python -m repro_torch.launch.serve --arch deepseek_moe_16b --draft self
     python -m repro_torch.launch.serve --arch mixtral_8x22b --smoke \\
         --device cpu
+    python -m repro_torch.launch.serve --arch seamless_m4t_medium --smoke \\
+        --device cpu --requests 6 --slots 3 --prompt-len 12 --gen 10
     python -m repro_torch.launch.serve --arch tinyllama_1p1b --smoke \\
         --device cpu --requests 8 --slots 4 --prompt-len 32 --gen 24 \\
         --pool-blocks 12 --temperature 0.8 --top-p 0.95 \\
@@ -69,22 +75,32 @@ from repro_torch.configs import get_arch
 from repro_torch.launch import faults as faults_mod
 from repro_torch.launch import scheduler as sched
 from repro_torch.launch import steps as st
-from repro_torch.launch.engines import PagedKVEngine
+from repro_torch.launch.engines import EncDecEngine, PagedKVEngine
 from repro_torch.models import transformer as T
 
 
 def make_engine(params, cfg, prompts: List[np.ndarray], *, slots: int,
                 max_len: int, block_k: int = 32,
-                pool_blocks: Optional[int] = None):
-    """Family -> cache engine; the only family switch in serving."""
+                pool_blocks: Optional[int] = None,
+                frames: Optional[List[np.ndarray]] = None):
+    """Family -> cache engine; the only family switch in serving.
+    ``frames`` are the encdec family's per-request encoder inputs, one
+    ``(S_enc, d_model)`` array each."""
     if cfg.family in ("dense", "moe"):
         return PagedKVEngine(params, cfg, prompts, slots=slots,
                              max_len=max_len, block_k=block_k,
                              pool_blocks=pool_blocks)
-    raise NotImplementedError(
-        f"family {cfg.family!r}: the port serves the dense and MoE families; "
-        f"the SSM, encoder-decoder and hybrid engines are ROADMAP queue 1 "
-        f"item 9")
+    if cfg.family == "encdec":
+        if frames is None:
+            raise ValueError("encdec serving needs per-request encoder "
+                             "frames (frames=[(S_enc, d_model) arrays])")
+        return EncDecEngine(params, cfg, prompts, frames=frames, slots=slots,
+                            max_len=max_len, block_k=block_k,
+                            pool_blocks=pool_blocks)
+    if cfg.family == "ssm":
+        raise NotImplementedError("the SSM engine is not ported (ROADMAP "
+                                  "queue 1 item 4)")
+    raise ValueError(f"no cache engine for family {cfg.family!r}")
 
 
 def serve_paged(params, cfg, prompts: List[np.ndarray], *, slots: int,
@@ -97,6 +113,7 @@ def serve_paged(params, cfg, prompts: List[np.ndarray], *, slots: int,
                 deadline_steps: Optional[int] = None,
                 deadline_ms: Optional[float] = None,
                 fault_plan: Optional[faults_mod.FaultPlan] = None,
+                frames: Optional[List[np.ndarray]] = None,
                 warmup: bool = False, repeats: int = 1,
                 verbose: bool = False) -> Dict:
     """Demand-paged serving on the device ``params`` live on; returns the
@@ -108,6 +125,7 @@ def serve_paged(params, cfg, prompts: List[np.ndarray], *, slots: int,
     ``pool_blocks`` sizes the pool below the full ``1 + slots *
     blocks_per_seq(max_len)`` reservation; exhaustion preempts a
     ``preempt_policy`` victim and resumes it later with the same tokens.
+    ``frames`` carries the encdec family's per-request encoder inputs.
     """
     requests = len(prompts)
     slots = min(slots, requests)
@@ -115,7 +133,8 @@ def serve_paged(params, cfg, prompts: List[np.ndarray], *, slots: int,
     if max_len is None:
         max_len = max(len(p) for p in prompts) + max(gens) + 8
     engine = make_engine(params, cfg, prompts, slots=slots, max_len=max_len,
-                         block_k=block_k, pool_blocks=pool_blocks)
+                         block_k=block_k, pool_blocks=pool_blocks,
+                         frames=frames)
     return sched.run_schedule(
         engine, prompts, gens=gens, temperature=temperature, top_p=top_p,
         sample_seed=sample_seed, preempt_policy=preempt_policy,
@@ -146,7 +165,15 @@ def serve_dense(params, cfg, prompts: List[np.ndarray], *, slots: int,
     Every cache write stays inside ``max_len`` at its default: a live slot
     writes at most at ``prompt_len + gens - 2`` and an idle one at most
     ``max(gens)`` positions past its re-prefilled length 1.
+
+    The decoder-only families only: its batches carry no encoder frames
+    (the reference's ``serve_dense`` raises a ``KeyError`` on ``frames``
+    for the encdec family at its first prefill).
     """
+    if cfg.family == "encdec":
+        raise ValueError("serve_dense serves the decoder-only families; the "
+                         "encdec family serves paged (its batches need "
+                         "encoder frames)")
     requests = len(prompts)
     prompt_len = len(prompts[0])
     if any(len(p) != prompt_len for p in prompts):
@@ -334,6 +361,7 @@ def serve(params, cfg, prompts: List[np.ndarray], *, slots: int, gen: int,
           deadline_steps: Optional[int] = None,
           deadline_ms: Optional[float] = None,
           fault_plan: Optional[faults_mod.FaultPlan] = None,
+          frames: Optional[List[np.ndarray]] = None,
           metrics_json: Optional[str] = None,
           warmup: bool = False, repeats: int = 1,
           verbose: bool = False) -> Dict:
@@ -343,8 +371,9 @@ def serve(params, cfg, prompts: List[np.ndarray], *, slots: int, gen: int,
     ``"self"`` or a ``(draft_params, draft_cfg)`` pair.  As in the
     reference, speculation is greedy and paged only and takes no
     ``deadline_ms``, and the pool, deadline and fault options are paged-path
-    options.  ``metrics_json`` writes the run's health record and a summary
-    of the run as one JSON document."""
+    options; ``frames`` carries the encdec family's encoder inputs (paged
+    serving only).  ``metrics_json`` writes the run's health record and a
+    summary of the run as one JSON document."""
     if cache_kind not in ("paged", "dense"):
         raise ValueError(f"cache_kind {cache_kind!r}: 'paged' or 'dense'")
     if draft is not None:
@@ -368,8 +397,8 @@ def serve(params, cfg, prompts: List[np.ndarray], *, slots: int, gen: int,
             max_len=max_len, gens=gens, temperature=temperature,
             top_p=top_p, sample_seed=sample_seed, pool_blocks=pool_blocks,
             preempt_policy=preempt_policy, deadline_steps=deadline_steps,
-            deadline_ms=deadline_ms, fault_plan=fault_plan, warmup=warmup,
-            repeats=repeats, verbose=verbose)
+            deadline_ms=deadline_ms, fault_plan=fault_plan, frames=frames,
+            warmup=warmup, repeats=repeats, verbose=verbose)
     else:
         if pool_blocks is not None or deadline_steps is not None or (
                 deadline_ms is not None) or (
@@ -457,11 +486,18 @@ def main(argv=None) -> None:
     # weights drawn already cast for serving: the f32 masters of a full
     # width MoE would not fit beside them
     cfg = config(args.arch)
-    params = T.init_params(cfg, seed=args.seed, device=args.device,
-                           serving=True)
+    params = st.init_params_fn(cfg)(seed=args.seed, device=args.device,
+                                    serving=True)
     rng = np.random.default_rng(args.seed)
     prompts = [rng.integers(0, cfg.vocab_size, args.prompt_len,
                             dtype=np.int32) for _ in range(args.requests)]
+    frames = None
+    if cfg.family == "encdec":
+        # stand-ins for the speech frontend's frame embeddings, drawn after
+        # the prompts from the same generator, one encoder length a run
+        frames = [np.asarray(rng.normal(size=(args.prompt_len, cfg.d_model)),
+                             np.float32) * 0.02
+                  for _ in range(args.requests)]
     draft = args.draft
     if draft is not None and draft != "self":
         if draft.startswith("self:"):
@@ -480,7 +516,8 @@ def main(argv=None) -> None:
                   deadline_steps=args.deadline_steps,
                   deadline_ms=args.deadline_ms,
                   fault_plan=fault_plan if fault_plan.armed else None,
-                  metrics_json=args.metrics_json, verbose=True)
+                  frames=frames, metrics_json=args.metrics_json,
+                  verbose=True)
     mode = args.cache + ("+spec" if args.draft else "")
     steps = (f"{stats['verify_steps']} verify rounds" if args.draft
              else f"{stats['decode_steps']} decode steps")

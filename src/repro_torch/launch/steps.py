@@ -1,7 +1,9 @@
 """Train and serve steps shared by the trainer, the engines and the
 schedulers (port of ``repro/launch/steps.py``: the loss, the plain,
 compressed and gradient-accumulation train steps, and the dense and paged
-prefill steps, the decode and verify steps and the draft loop).
+prefill steps, the decode and verify steps and the draft loop; each serve
+step dispatches the encoder-decoder family to ``models.encdec``, which has
+no speculative steps).
 
 A train step computes the loss and its gradients with autograd and
 updates the parameters and the optimizer state **in place** (the port's
@@ -17,6 +19,7 @@ import torch
 
 from repro_torch import tree as tu
 from repro_torch.dist import compression as comp
+from repro_torch.models import encdec as E
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
@@ -43,7 +46,10 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 def loss_fn(params, batch: Dict, cfg: ModelConfig
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    logits, aux = T.forward(params, batch["tokens"], cfg)
+    if cfg.family == "encdec":
+        logits, aux = E.forward(params, batch, cfg)
+    else:
+        logits, aux = T.forward(params, batch["tokens"], cfg)
     ce = cross_entropy(logits, batch["labels"], cfg.vocab_size)
     loss = ce + aux["aux_loss"] + aux["z_loss"]
     return loss, {"loss": loss, "ce": ce, "aux_loss": aux["aux_loss"],
@@ -142,8 +148,17 @@ def make_grad_accum_train_step(cfg: ModelConfig,
 
 
 def init_params_fn(cfg: ModelConfig):
-    """``fn(seed=..., device=...)`` -> random parameters of ``cfg``."""
+    """``fn(seed=..., device=..., serving=...)`` -> random parameters of
+    ``cfg``."""
+    if cfg.family == "encdec":
+        return functools.partial(E.init_params, cfg)
     return functools.partial(T.init_params, cfg)
+
+
+def _no_speculation(cfg: ModelConfig) -> None:
+    if cfg.family == "encdec":
+        raise ValueError("speculative serving is decoder-only: the encdec "
+                         "family has no verify step or draft loop")
 
 
 # ---------------------------------------------------------------------------
@@ -152,8 +167,17 @@ def init_params_fn(cfg: ModelConfig):
 
 
 def make_prefill_step(cfg: ModelConfig, cache_len: int):
-    """(params, {"tokens": (B,S)}) -> (last_logits, cache): a fresh dense
-    cache of ``cache_len`` positions, filled and calibrated by the batch."""
+    """(params, {"tokens": (B,S)} [+ "frames"]) -> (last_logits, cache): a
+    fresh dense cache of ``cache_len`` positions, filled and calibrated by
+    the batch."""
+
+    if cfg.family == "encdec":
+        def prefill_step(params, batch):
+            tokens, frames = batch["tokens"], batch["frames"]
+            cache = E.make_cache(cfg, tokens.shape[0], cache_len,
+                                 frames.shape[1], device=tokens.device)
+            return E.prefill(params, frames, tokens, cfg, cache)
+        return prefill_step
 
     def prefill_step(params, batch):
         tokens = batch["tokens"]
@@ -167,7 +191,15 @@ def make_prefill_step(cfg: ModelConfig, cache_len: int):
 def make_paged_prefill_step(cfg: ModelConfig, *, calibrate: bool):
     """(params, tokens (B,S), cache, slot_ids (B,), block_ids (B, mb))
     -> (last_logits, cache).  Writes only the named slots' blocks and table
-    rows; ``calibrate`` fixes the pool's per-layer scales (first admission)."""
+    rows; ``calibrate`` fixes the pool's per-layer scales (first admission).
+    The encdec step takes the encoder frames too: (params, frames (B, S_enc,
+    d), tokens, cache, slot_ids, block_ids)."""
+
+    if cfg.family == "encdec":
+        def prefill_step(params, frames, tokens, cache, slot_ids, block_ids):
+            return E.prefill_paged(params, frames, tokens, cfg, cache,
+                                   slot_ids, block_ids, calibrate=calibrate)
+        return prefill_step
 
     def prefill_step(params, tokens, cache, slot_ids, block_ids):
         return T.prefill_paged(params, tokens, cfg, cache, slot_ids,
@@ -178,7 +210,15 @@ def make_paged_prefill_step(cfg: ModelConfig, *, calibrate: bool):
 
 def make_decode_step(cfg: ModelConfig):
     """(params, token (B,), cache) -> (logits (B, V), cache), on a paged or
-    a dense cache (``transformer.decode_step`` tells them apart)."""
+    a dense cache (``transformer.decode_step`` tells them apart; an encdec
+    paged cache carries the carved bank's ``cross_table``)."""
+
+    if cfg.family == "encdec":
+        def decode_step(params, token, cache):
+            if "cross_table" in cache:
+                return E.decode_step_paged(params, token, cfg, cache)
+            return E.decode_step(params, token, cfg, cache)
+        return decode_step
 
     def decode_step(params, token, cache):
         return T.decode_step(params, token, cfg, cache)
@@ -191,6 +231,7 @@ def make_verify_step(cfg: ModelConfig):
     speculative target step, one verify launch per layer, whose
     ``logits[:, t]`` is what the decode step gives after accepting
     ``tokens[:, :t+1]``."""
+    _no_speculation(cfg)
 
     def verify_step(params, tokens, cache):
         return T.verify_step(params, tokens, cfg, cache)
@@ -207,6 +248,7 @@ def make_draft_loop(cfg: ModelConfig, gamma: int):
     ``token``; the cache comes back ``gamma`` tokens longer and is
     truncated by the scheduler after verification.
     """
+    _no_speculation(cfg)
 
     def draft_loop(params, token, cache):
         drafts = []

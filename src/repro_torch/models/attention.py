@@ -1,8 +1,9 @@
 """Multi-head attention block wired to the CIMple datapath (port of
 ``repro/models/attention.py``: projections, the full-sequence block of
-training, the dense cache and its decode block with the sliding-window ring
-buffer, the paged pool, the paged decode block and the paged
-speculative-verify block).
+training and of the encoder, the encoder-decoder's cross attention, the
+dense cache and its decode block with the sliding-window ring buffer, the
+paged pool, the paged decode block and the paged speculative-verify
+block).
 
 Projections run in the model's compute dtype; the score -> LUT softmax ->
 PV epilogue runs through :mod:`repro_torch.core.attention`.  The KV cache
@@ -13,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -43,15 +44,51 @@ def attn_block_init(gen, cfg: ModelConfig, *, device,
     return p
 
 
-def attn_block_apply(params, x: torch.Tensor, cfg: ModelConfig
-                     ) -> torch.Tensor:
-    """Full-sequence causal attention block of training: x (B, S, d) ->
-    (B, S, d), attention in ``cfg.attn_mode``."""
+def attn_block_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
+                     spec: Optional[core_attn.AttentionSpec] = None,
+                     causal: bool = True) -> torch.Tensor:
+    """Full-sequence attention block (training, the encoder): x (B, S, d)
+    -> (B, S, d), attention in ``spec`` (default ``cfg.attn_spec()``, the
+    training mode), bidirectional with ``causal=False``."""
     b, s, _ = x.shape
+    spec = spec or cfg.attn_spec()
+    if not causal:
+        spec = dataclasses.replace(spec, causal=False)
     q, k, v = _project_qkv(params, x, cfg, torch.arange(s, device=x.device))
-    out = core_attn.attention(q, k, v, cfg.attn_spec())
+    out = core_attn.attention(q, k, v, spec)
     out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd)
     return L.linear_apply(params["wo"], out, dtype=cfg.compute_dtype)
+
+
+def cross_kv(params, memory: torch.Tensor, cfg: ModelConfig):
+    """The encoder memory (B, S_enc, d) -> cross K, V (B, Hkv, S_enc, hd):
+    projected, no RoPE."""
+    b, sm, _ = memory.shape
+    dt = cfg.compute_dtype
+    k = L.linear_apply(params["wk"], memory, dtype=dt)
+    v = L.linear_apply(params["wv"], memory, dtype=dt)
+    return (k.reshape(b, sm, cfg.n_kv_heads, cfg.hd).transpose(1, 2),
+            v.reshape(b, sm, cfg.n_kv_heads, cfg.hd).transpose(1, 2))
+
+
+def cross_attn_apply(params, x: torch.Tensor, memory: torch.Tensor,
+                     cfg: ModelConfig, *,
+                     spec: Optional[core_attn.AttentionSpec] = None,
+                     memory_valid_len: Optional[int] = None,
+                     kv=None) -> torch.Tensor:
+    """Cross attention of the decoder's x (B, S, d) over the encoder memory
+    (B, S_enc, d): non-causal, no RoPE, keys past ``memory_valid_len``
+    masked.  ``kv`` passes :func:`cross_kv`'s K and V when the caller has
+    already computed them from ``memory``."""
+    b, s, _ = x.shape
+    dt = cfg.compute_dtype
+    spec = dataclasses.replace(spec or cfg.attn_spec(), causal=False)
+    q = L.linear_apply(params["wq"], x, dtype=dt)
+    q = q.reshape(b, s, cfg.n_heads, cfg.hd).transpose(1, 2)
+    k, v = kv if kv is not None else cross_kv(params, memory, cfg)
+    out = core_attn.attention(q, k, v, spec, kv_valid_len=memory_valid_len)
+    out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd)
+    return L.linear_apply(params["wo"], out, dtype=dt)
 
 
 def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig,

@@ -1,13 +1,14 @@
 """Architecture configuration (port of ``repro/models/config.py``, the
-fields the dense and MoE decoders' training and int8 serving paths read).
+fields the dense, MoE and encoder-decoder models' training and int8 serving
+paths read).
 
 The block is the llama block with the reference's options: ``norm``
-(RMSNorm or OLMo's non-parametric LayerNorm), the per-head q/k RMSNorm
+(RMSNorm, the parametric LayerNorm or OLMo's non-parametric one), ``act``
+(the SwiGLU or the non-gated GELU MLP), the per-head q/k RMSNorm
 (``qk_norm``) and the LM head tied to the embedding table
 (``tie_embeddings``, the reference's default) or untied, in f32.  The
-parametric ``layernorm`` and the ``gelu`` MLP, which only the
-encoder-decoder config uses, are not ported and raise at init;
-``logits_dtype`` is not a field (the head is f32)."""
+encoder-decoder family adds ``n_encoder_layers``.  ``logits_dtype`` is not
+a field (the head is f32)."""
 from __future__ import annotations
 
 import dataclasses
@@ -16,6 +17,9 @@ from typing import Optional
 import torch
 
 from repro_torch.core.attention import AttentionSpec
+
+NORMS = ("rmsnorm", "layernorm", "nonparam_ln")
+ACTS = ("silu", "gelu")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,7 +37,7 @@ class MoEConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str               # "dense" | "moe" (ssm, encdec, hybrid: not ported)
+    family: str               # "dense" | "moe" | "encdec" (ssm, hybrid: not ported)
     n_layers: int
     d_model: int
     n_heads: int
@@ -41,8 +45,8 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: Optional[int] = None
-    norm: str = "rmsnorm"     # rmsnorm | nonparam_ln (layernorm: not ported)
-    act: str = "silu"         # silu (gelu: not ported)
+    norm: str = "rmsnorm"     # rmsnorm | layernorm | nonparam_ln
+    act: str = "silu"         # silu (SwiGLU) | gelu (non-gated, tanh approx.)
     qk_norm: bool = False     # chameleon-style per-head q/k RMSNorm
     rope_theta: float = 1e4
     tie_embeddings: bool = True
@@ -59,14 +63,12 @@ class ModelConfig:
     attn_triangular: bool = False
     remat: bool = True                # checkpoint each block in training
     moe: Optional[MoEConfig] = None
+    n_encoder_layers: int = 0         # encdec only (0: n_layers)
 
     def __post_init__(self):
-        if self.norm not in ("rmsnorm", "nonparam_ln") or self.act != "silu":
-            raise NotImplementedError(
-                f"{self.name}: norm {self.norm!r}, act {self.act!r}: the port "
-                f"has rmsnorm and nonparam_ln with silu; the parametric "
-                f"layernorm and gelu come with the encoder-decoder family "
-                f"(ROADMAP queue 1 item 4)")
+        if self.norm not in NORMS or self.act not in ACTS:
+            raise ValueError(f"{self.name}: norm {self.norm!r}, act "
+                             f"{self.act!r}: not in {NORMS}, {ACTS}")
 
     @property
     def hd(self) -> int:
@@ -81,7 +83,7 @@ class ModelConfig:
         serving one (``serve_attn_mode``)."""
         return AttentionSpec(
             mode=self.serve_attn_mode if serve else self.attn_mode,
-            scale_z=self.scale_z, window=self.window,
+            scale_z=self.scale_z, window=self.window, causal=True,
             fused=self.attn_fused, score_dtype=self.attn_score_dtype,
             triangular=self.attn_triangular)
 

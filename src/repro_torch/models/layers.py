@@ -63,6 +63,23 @@ def rmsnorm_apply(params: Params, x: torch.Tensor, eps: float = 1e-6
     return (y * params["scale"]).to(dt)
 
 
+def layernorm_init(dim: int, device) -> Params:
+    return {"scale": torch.ones(dim, dtype=torch.float32, device=device),
+            "bias": torch.zeros(dim, dtype=torch.float32, device=device)}
+
+
+def layernorm_apply(params: Params, x: torch.Tensor, eps: float = 1e-5
+                    ) -> torch.Tensor:
+    """LayerNorm with an f32 affine.  The variance is the population
+    variance (``jnp.var``), not torch's default ``correction=1``."""
+    dt = x.dtype
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * params["scale"] + params["bias"]).to(dt)
+
+
 def nonparam_layernorm_apply(params: Params, x: torch.Tensor,
                              eps: float = 1e-5) -> torch.Tensor:
     """OLMo's non-parametric LayerNorm: normalize only, no affine.  The
@@ -78,9 +95,9 @@ def nonparam_layernorm_apply(params: Params, x: torch.Tensor,
 
 # norm kind -> (init(dim, device), apply(params, x)); a non-parametric
 # norm's parameters are the empty dict
-NORM_INIT = {"rmsnorm": rmsnorm_init,
+NORM_INIT = {"rmsnorm": rmsnorm_init, "layernorm": layernorm_init,
              "nonparam_ln": lambda dim, device: {}}
-NORM_APPLY = {"rmsnorm": rmsnorm_apply,
+NORM_APPLY = {"rmsnorm": rmsnorm_apply, "layernorm": layernorm_apply,
               "nonparam_ln": nonparam_layernorm_apply}
 
 

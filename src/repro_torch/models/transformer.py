@@ -55,8 +55,9 @@ def layer_segments(cfg: ModelConfig) -> List[Tuple[str, int]]:
         fd = cfg.moe.first_dense_layers
         return ([("dense", fd)] if fd else []) + [("moe", cfg.n_layers - fd)]
     raise NotImplementedError(
-        f"{cfg.name}: the port has the dense and MoE families; the "
-        f"{cfg.family} family is ROADMAP queue 1 item 9")
+        f"{cfg.name}: this decoder holds the dense and MoE families; the "
+        f"{cfg.family} family is models.encdec or not ported (ROADMAP "
+        f"queue 1 item 4)")
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
@@ -301,30 +302,28 @@ def prefill_paged(params, tokens: torch.Tensor, cfg: ModelConfig,
         raise ValueError(f"prompt of {s} tokens needs {n_blk} blocks > {mb}")
     k_all = torch.stack([k for k, _ in kvs])        # (L, B, Hkv, S, hd)
     v_all = torch.stack([v for _, v in kvs])
-    pad = n_blk * block_k - s
-    if pad:
-        k_all = torch.nn.functional.pad(k_all, (0, 0, 0, pad))
-        v_all = torch.nn.functional.pad(v_all, (0, 0, 0, pad))
-    if calibrate:
-        cache["scale_k"].copy_(qlib.absmax_scale(k_all, axis=(1, 2, 3, 4)))
-        cache["scale_v"].copy_(qlib.absmax_scale(v_all, axis=(1, 2, 3, 4)))
-
-    def to_blocks(x_q):
-        # (L, B, Hkv, n_blk*bk, hd) -> (L, B*n_blk, Hkv, bk, hd)
-        nl, _, hkv, _, hd = x_q.shape
-        x_q = x_q.reshape(nl, b, hkv, n_blk, block_k, hd)
-        return x_q.permute(0, 1, 3, 2, 4, 5).reshape(
-            nl, b * n_blk, hkv, block_k, hd)
-
-    flat_ids = block_ids[:, :n_blk].reshape(-1).long()
-    cache["k_pages"][:, flat_ids] = to_blocks(
-        qlib.quantize(k_all, cache["scale_k"]))
-    cache["v_pages"][:, flat_ids] = to_blocks(
-        qlib.quantize(v_all, cache["scale_v"]))
+    write_prompt_kv(cache, k_all, v_all, block_ids[:, :n_blk],
+                    calibrate=calibrate)
     slots = slot_ids.long()
     cache["block_table"][slots] = block_ids.to(torch.int32)
     cache["length"][slots] = s
     return logits[:, s - 1], cache
+
+
+def write_prompt_kv(pool: Dict[str, torch.Tensor], k_all: torch.Tensor,
+                    v_all: torch.Tensor, block_ids: torch.Tensor, *,
+                    calibrate: bool) -> None:
+    """Quantize a prompt's K/V ``(L, B, Hkv, S, hd)`` with the pool's
+    per-layer ``scale_k``/``scale_v`` (first, with ``calibrate``, set them
+    to the absmax of each layer: the padding to whole blocks is zeros and
+    moves no absmax) and write them into ``k_pages``/``v_pages`` at the
+    blocks ``block_ids (B, ceil(S / block_k))``, in place."""
+    s_k, s_v = pool["scale_k"], pool["scale_v"]
+    if calibrate:
+        s_k.copy_(qlib.absmax_scale(k_all, axis=(1, 2, 3, 4)))
+        s_v.copy_(qlib.absmax_scale(v_all, axis=(1, 2, 3, 4)))
+    paged_kv.write_blocks(pool["k_pages"], block_ids, qlib.quantize(k_all, s_k))
+    paged_kv.write_blocks(pool["v_pages"], block_ids, qlib.quantize(v_all, s_v))
 
 
 def _layer_cache(cache: Dict[str, torch.Tensor], i: int
@@ -388,14 +387,14 @@ def verify_step(params, tokens: torch.Tensor, cfg: ModelConfig,
 
 
 def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
-    """Analytic parameter count (SwiGLU, no vocab padding; norms by kind,
-    the q/k norms not counted, as in the reference); MoE ``active_only``
-    counts the shared and the top-k routed experts."""
+    """Analytic parameter count (no vocab padding; the MLP by ``act``,
+    norms by kind, the q/k norms not counted, as in the reference); MoE
+    ``active_only`` counts the shared and the top-k routed experts."""
     d, hd = cfg.d_model, cfg.hd
     attn_p = d * hd * (cfg.n_heads + 2 * cfg.n_kv_heads) + hd * cfg.n_heads * d
-    mlp_p = 3 * d * cfg.d_ff
+    mlp_p = d * cfg.d_ff * (3 if cfg.act == "silu" else 2)
     embed = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
-    norm_p = {"rmsnorm": d, "nonparam_ln": 0}[cfg.norm]
+    norm_p = {"rmsnorm": d, "layernorm": 2 * d, "nonparam_ln": 0}[cfg.norm]
     dense_layer = attn_p + mlp_p + 2 * norm_p
     if cfg.family == "dense":
         return embed + cfg.n_layers * dense_layer + norm_p
@@ -409,5 +408,10 @@ def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
         fd = mc.first_dense_layers
         return (embed + fd * dense_layer + (cfg.n_layers - fd) * moe_layer
                 + norm_p)
+    if cfg.family == "encdec":
+        n_enc = cfg.n_encoder_layers or cfg.n_layers
+        dec_layer = 2 * attn_p + mlp_p + 3 * norm_p
+        return embed + n_enc * dense_layer + cfg.n_layers * dec_layer \
+            + 2 * norm_p
     raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is "
-                              f"ROADMAP queue 1 item 9")
+                              f"ROADMAP queue 1 item 4")

@@ -81,9 +81,13 @@ def test_tie_embeddings_default_equals_reference():
 
 
 def test_unported_norm_and_act_raise():
+    """The parametric LayerNorm and the GELU MLP are ported (the
+    encoder-decoder config uses them); a norm or an activation that neither
+    package has raises at construction."""
     cfg = tget_arch("olmo_1b").smoke
-    for kw in (dict(norm="layernorm"), dict(act="gelu")):
-        with pytest.raises(NotImplementedError, match="encoder-decoder"):
+    assert cfg.replace(norm="layernorm", act="gelu").act == "gelu"
+    for kw in (dict(norm="batchnorm"), dict(act="relu")):
+        with pytest.raises(ValueError, match="not in"):
             cfg.replace(**kw)
 
 

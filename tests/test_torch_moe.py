@@ -332,9 +332,9 @@ def test_verify_step_equals_decode_and_reference(models):
 
 def test_other_families_and_moe_training_are_refused(models):
     _, _, tcfg, tparams = models
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="not ported"):
         TT.init_params(tcfg.replace(family="ssm"), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    with pytest.raises(ValueError, match="no cache engine"):
         tserve.make_engine(tparams, tcfg.replace(family="hybrid"),
                            [np.zeros(4, np.int32)], slots=1, max_len=16)
     with pytest.raises(NotImplementedError, match="item 8"):

@@ -91,7 +91,7 @@ def test_make_engine_serves_the_dense_family_only(rig):
     """The paged engine serves the dense and (since the MoE slice) the MoE
     family; the SSM family's engine is not ported and is refused."""
     _, _, tcfg, tparams, prompts, _, _ = rig
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="not ported"):
         tserve.make_engine(tparams, tcfg.replace(family="ssm"), prompts,
                            slots=2, max_len=40)
 
