@@ -126,6 +126,25 @@ Phases, each fatal on failure:
      cross (250 x 250 and 250 x 1024) shapes and kernels 2 and 5 over the
      8-slot carved bank, each bit for bit its exact plain version and timed
      beside its bound and SDPA (``"seamless"`` in the JSON line).
+ 11. the SSM and hybrid families: both smoke configs in f32 on the card
+     against the CPU (dense-cache prefill + 8 decode steps within 2e-3 of
+     the logits' scale, Falcon-Mamba's also through the int8 state-slab
+     engine; a 6-request churn's tokens equal: Falcon-Mamba paged and
+     dense, Zamba2 dense fused and composed); then Falcon-Mamba-7B at full
+     width (64 Mamba-1 layers, d_model 4096, d_inner 8192, d_state 16;
+     seeded random bf16 weights drawn leaf by leaf, the untied LM head
+     f32): the churn through the state-slab engine with ``warmup=True``
+     (no split-softmax launch: an SSM has no softmax), under a forced
+     preemption (the plain tokens, 1 preemption and 1 resume), through
+     ``--cache dense``, and one profiled batch, with peak memory and the
+     slabs' bytes; and Zamba2-2.7B at full width (54 Mamba-2 layers,
+     d_model 2560, one shared attention block of 32/32 heads of 80 nine
+     times a token, the tied f32 table): the churn through ``serve_dense``
+     with ``warmup=True``, fused (kernels 1 and 4) and composed (kernels 1
+     and 6; the fused tokens), one profiled batch, and kernel 1 at B 8 x
+     250 and B 8 x 282 and kernels 4 and 6 over the B 8 x 290 dense cache
+     at D 80, each bit for bit its exact plain version and timed beside
+     its bound and SDPA (``"zamba2"`` in the JSON line).
 
 Kernels 7 (dense verify) and 8 (int8 GEMM) have no caller in any model, as
 in the reference: they are checked and timed in phases 3 and 4 and stand in the
@@ -223,6 +242,14 @@ SEAMLESS_HEADS = dict(hq=16, hkv=16, d=64)
 SEAMLESS_PREFILL = (("encoder", 250, 250, False), ("self", 250, 250, True),
                     ("cross", 250, 250, False), ("cross 1024", 250, 1024,
                                                  False))
+# the SSM and hybrid families at full width: Falcon-Mamba-7B (Mamba-1,
+# served through the int8 state-slab engine and the dense cache, forced
+# preemption at step 10 of slot 3) and Zamba2-2.7B (Mamba-2 with one shared
+# attention block of 32/32 heads of 80, served through the dense cache)
+SSM_ARCH = "falcon_mamba_7b"
+HYBRID_ARCH = "zamba2_2p7b"
+HYBRID_HEADS = dict(hq=32, hkv=32, d=80)
+FORCED_PREEMPT = dict(preempt_step=10, preempt_slot=3)
 # the reference's bound on the reciprocal LUT's error against the division
 # (tests/test_fused_decode.py::test_fused_recip_lut_error_bounded)
 RECIP_LUT_REL_ERR = 2 ** -8
@@ -2716,19 +2743,20 @@ def dense_full_phase(torch, dev, arch: str, *, speculative: bool):
 
 
 def profile_serving(torch, srv, params, cfg, prompts, gen: int = 8,
-                    frames=None):
-    """Where the time goes: one full batch (8 admissions, then decode steps)
-    under torch.profiler; device busy share and the top kernels.
-    ``frames``: the encoder inputs of an encoder-decoder config."""
+                    frames=None, cache_kind: str = "paged"):
+    """Where the time goes: one full batch (8 admissions, or one batch
+    prefill with ``cache_kind="dense"``, then decode steps) under
+    torch.profiler; device busy share and the top kernels.  ``frames``:
+    the encoder inputs of an encoder-decoder config."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        stats = srv.serve_paged(params, cfg, prompts, slots=len(prompts),
-                                gen=gen, block_k=SERVE["block_k"],
-                                frames=frames)
+        stats = srv.serve(params, cfg, prompts, slots=len(prompts), gen=gen,
+                          block_k=SERVE["block_k"], frames=frames,
+                          cache_kind=cache_kind)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side kernel and memcpy events only: a CPU op's device time is
@@ -2740,9 +2768,12 @@ def profile_serving(torch, srv, params, cfg, prompts, gen: int = 8,
     busy_ms = sum(ms for _, _, ms in rows)
     check(busy_ms > 0, "profiler saw no device time")
     rows.sort(key=lambda r: -r[2])
-    print(f"[profile] {len(prompts)} admissions + {stats['decode_steps']} "
-          f"decode steps under the profiler: wall {wall_ms:.1f} ms, device "
-          f"busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%)")
+    print(f"[profile] {cfg.name}: {len(prompts)} requests "
+          f"({stats['slot_prefills']} slot prefills, "
+          f"{stats['batch_prefills']} batch prefills) + "
+          f"{stats['decode_steps']} decode steps under the profiler: wall "
+          f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}%)")
     for key, count, ms in rows[:10]:
         print(f"[profile]   {ms:9.3f} ms {100 * ms / busy_ms:5.1f}%  "
               f"x{count:<5d} {key[:90]}")
@@ -3154,7 +3185,385 @@ def encdec_full_phase(torch, F, dev):
 
 
 
+# ------------------------------------------------------- SSM and hybrid --
+
+def ssm_smoke_logits(torch, params, cfg, tokens, device, steps: int = 8):
+    """Dense-cache prefill of ``tokens (1, S)`` and ``steps`` greedy decode
+    steps on ``device``, and for the SSM family the same through the int8
+    state-slab engine (admission, then decode steps of its one slot): the
+    stacked logits of each run, on the CPU."""
+    from repro_torch.launch.engines import SSMStateEngine
+    from repro_torch.models import transformer as T
+    p = tree_to(params, device)
+    tok = torch.as_tensor(tokens, device=device)
+    cache = T.make_cache(cfg, 1, 40, device=device)
+    last, cache = T.prefill(p, tok, cfg, cache)
+    outs = [last]
+    nxt = torch.argmax(last, -1)
+    for _ in range(steps):
+        logits, cache = T.decode_step(p, nxt, cfg, cache)
+        outs.append(logits)
+        nxt = torch.argmax(logits, -1)
+    runs = [torch.stack(outs).cpu()]
+    if cfg.family == "ssm":
+        eng = SSMStateEngine(p, cfg, [tokens[0]], slots=1, max_len=40)
+        last, cache = eng.admit(eng.start_run(), 0, 0)
+        outs = [last]
+        nxt = torch.argmax(last, -1)
+        for _ in range(steps):
+            logits, cache = eng.decode(nxt, cache)
+            outs.append(logits)
+            nxt = torch.argmax(logits, -1)
+        runs.append(torch.stack(outs).cpu())
+    return runs
+
+
+def ssm_smoke_check(torch, dev) -> None:
+    """Both smoke configs of the SSM and hybrid families in f32, kernels on
+    the card vs plain versions on the CPU, same weights: prefill + 8 decode
+    steps within 2e-3 of the logits' scale (dense cache; Falcon-Mamba also
+    through the state-slab engine), and a 6-request churn's tokens equal:
+    Falcon-Mamba paged (the engine) and dense, Zamba2 dense fused and
+    composed."""
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve as srv
+    from repro_torch.models import transformer as T
+
+    cpu = torch.device("cpu")
+    for arch in (SSM_ARCH, HYBRID_ARCH):
+        cfg = get_arch(arch).smoke.replace(dtype="float32")
+        params = T.init_params(cfg, seed=0, device=cpu)
+        rng = np.random.default_rng(0)
+        tokens = rng.integers(0, cfg.vocab_size, (1, 20))
+        errs = []
+        for gpu, ref, what in zip(
+                ssm_smoke_logits(torch, params, cfg, tokens, dev),
+                ssm_smoke_logits(torch, params, cfg, tokens, cpu),
+                ("dense cache", "state slabs")):
+            err = float((gpu - ref).abs().max())
+            scale = float(ref.abs().max())
+            check(bool(torch.isfinite(gpu).all()), f"{arch} smoke {what}: "
+                  f"non-finite")
+            check(err <= 2e-3 * scale, f"{arch} smoke {what}: max|gpu-cpu| "
+                  f"logits {err:.3g} > 2e-3 * {scale:.3g}")
+            errs.append(f"{what} {err:.3g} of {scale:.3g}")
+        prompts = [rng.integers(0, cfg.vocab_size, 24, dtype=np.int32)
+                   for _ in range(6)]
+        gens = [int(g) for g in rng.integers(8, 17, 6)]
+        runs = ([("paged", cfg), ("dense", cfg)] if cfg.family == "ssm" else
+                [("dense", cfg), ("dense", cfg.replace(attn_fused=False))])
+        for kind, c in runs:
+            kw = dict(slots=3, gen=16, gens=gens, cache_kind=kind)
+            on_card = srv.serve(tree_to(params, dev), c, prompts, **kw)
+            on_cpu = srv.serve(params, c, prompts, **kw)
+            what = f"{arch} smoke {kind} churn (fused={c.attn_fused})"
+            check_served(on_card, gens, cfg.vocab_size, what,
+                         overshoot=int(kind == "dense"))
+            check(on_card["finished"] == on_cpu["finished"],
+                  f"{what}: card tokens differ from the CPU's")
+        churns = ", ".join(f"{k} fused={c.attn_fused}" for k, c in runs)
+        print(f"[ssm-smoke] {cfg.name} (f32), card vs CPU plain path: "
+              f"prefill + 8 decode steps max|logit diff| {', '.join(errs)} "
+              f"(tol 2e-3 of the scale); 6-request churn tokens == CPU "
+              f"tokens ({churns})")
+
+
+def init_full(torch, dev, arch: str, tag: str):
+    """``arch``'s full-width config and its seeded random weights, drawn
+    leaf by leaf already cast for serving; checks that the draw never held
+    more than the largest f32 leaf beyond the weights."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_arch(arch).config
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=SERVE["seed"], device=dev, serving=True)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    w_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(params))
+    init_peak = torch.cuda.max_memory_allocated()
+    f32_draw = 4 * L.pad_vocab(cfg.vocab_size,
+                               cfg.vocab_pad_multiple) * cfg.d_model
+    check(init_peak <= w_bytes + 2 * f32_draw, f"{cfg.name} init: peak "
+          f"{init_peak / 1e9:.2f} GB for {w_bytes / 1e9:.2f} GB of weights")
+    print(f"[{tag}] {cfg.name} at full width: {cfg.n_layers} layers "
+          f"({cfg.ssm.kind}), d_model {cfg.d_model}, d_inner {cfg.d_inner}, "
+          f"d_state {cfg.ssm.d_state}, vocab {cfg.vocab_size}, tied "
+          f"{cfg.tie_embeddings}; {cfg.param_count():,} parameters, seeded "
+          f"random weights drawn leaf by leaf in {init_s:.2f} s: "
+          f"{w_bytes / 1e9:.2f} GB, peak {init_peak / 1e9:.2f} GB")
+    return cfg, params
+
+
+def served_line(stats, torch) -> str:
+    return (f"served {stats['served']}, {stats['total_tokens']} tokens in "
+            f"{stats['wall_s']:.3f} s, {stats['tok_s']:.1f} tok/s, "
+            f"{stats['decode_steps']} decode steps, p50/p99 step "
+            f"{stats['p50_step_ms']:.2f}/{stats['p99_step_ms']:.2f} ms, "
+            f"peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+
+def falcon_full_phase(torch, dev) -> None:
+    """Falcon-Mamba-7B at full width on the card (bf16, the untied f32 LM
+    head): the churn through ``serve_paged`` (the int8 state-slab engine)
+    with its warm-up; again under a forced preemption (``FaultPlan``:
+    tokens those of the plain churn, 1 preemption, 1 resume); through
+    ``--cache dense``; and one profiled batch.  No split-softmax kernel
+    runs on these paths (an SSM has no softmax): their counts stay 0."""
+    from repro_torch.kernels import splitmax_attn, splitmax_decode as K
+    from repro_torch.launch import serve as srv
+    from repro_torch.launch.faults import FaultPlan
+
+    t_phase = time.perf_counter()
+    cfg, params = init_full(torch, dev, SSM_ARCH, "ssm")
+    name = cfg.name
+    prompts, gens = churn(cfg)
+    kw = dict(slots=SERVE["slots"], gen=SERVE["gen"], gens=gens)
+    splitmax_attn.launches = K.launches = K.dense_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    stats = srv.serve_paged(params, cfg, prompts, warmup=True, **kw)
+    torch.cuda.synchronize()
+    check_served(stats, gens, cfg.vocab_size, f"{name} churn")
+    n_warm = (stats["warmup_prefills"], stats["warmup_decode_steps"])
+    check(n_warm == (1, 1), f"{name} warm-up ran {n_warm} prefills and "
+          f"decodes")
+    check(stats["health"]["pools"] == {}, f"{name}: a pool record "
+          f"{stats['health']['pools']} for an engine without a pool")
+    n_kernels = splitmax_attn.launches + K.launches + K.dense_launches
+    check(n_kernels == 0, f"{name}: {n_kernels} split-softmax launches on "
+          f"an attention-free path")
+    slab = stats["kv_bytes_per_step"]
+    print(f"[ssm] {name} churn {SERVE} through the state-slab engine: "
+          f"{served_line(stats, torch)}, {stats['slot_prefills']} slot "
+          f"prefills, leaked {stats['leaked_blocks']}, int8 state slabs "
+          f"{slab / 1e6:.2f} MB ({cfg.n_layers} layers x {SERVE['slots']} "
+          f"slots), split-softmax launches 0")
+
+    plan = FaultPlan(**FORCED_PREEMPT)
+    forced = srv.serve_paged(params, cfg, prompts, fault_plan=plan, **kw)
+    torch.cuda.synchronize()
+    what = f"{name} forced preemption {FORCED_PREEMPT}"
+    check_served(forced, gens, cfg.vocab_size, what)
+    check((forced["preemptions"], forced["resumes"]) == (1, 1),
+          f"{what}: {forced['preemptions']} preemptions, "
+          f"{forced['resumes']} resumes")
+    same = sum(forced["finished"][r] == stats["finished"][r]
+               for r in stats["finished"])
+    check(same == len(stats["finished"]), f"{what}: tokens differ from the "
+          f"plain churn's in {len(stats['finished']) - same} requests")
+    print(f"[ssm] {what}: {served_line(forced, torch)}, 1 preemption, 1 "
+          f"resume, {forced['slot_prefills']} slot prefills, tokens == "
+          f"plain")
+
+    torch.cuda.reset_peak_memory_stats()
+    dense = srv.serve_dense(params, cfg, prompts, **kw)
+    torch.cuda.synchronize()
+    check_served(dense, gens, cfg.vocab_size, f"{name} dense churn",
+                 overshoot=1)
+    print(f"[ssm] {name} dense churn: {served_line(dense, torch)}, "
+          f"{dense['batch_prefills']} batch prefills (B {SERVE['slots']} x "
+          f"{SERVE['prompt_len'] + SERVE['gen']})")
+    profile_serving(torch, srv, params, cfg, prompts[:SERVE["slots"]])
+    print(f"[ssm] {name} phase wall time {time.perf_counter() - t_phase:.1f} "
+          f"s")
+    del params
+    torch.cuda.empty_cache()
+
+
+def hybrid_kernel_shapes(torch, F, dev):
+    """Kernel 1 at Zamba2's prefills (32/32 heads of 80, causal: the first
+    batch's B 8 x 250 and a re-prefill's B 8 x 282) and kernels 4 and 6
+    over its dense cache (B 8, S_max 290, the churn's lengths 251..282),
+    each bit for bit its ``exact=True`` plain version and within
+    ``tolerance`` of the default one, kernels 4 and 6 also bit for bit each
+    other and the paged kernel on the same K/V; each timed by graph replay
+    beside its bound and SDPA's bf16 kernel.  Returns each kernel's
+    sub-entry for the JSON line and its largest error."""
+    from repro_torch.core import quantization as qlib
+    from repro_torch.core.attention import luts_for
+    from repro_torch.core.lut import LUTConfig
+    from repro_torch.kernels import ops, splitmax_attn as KA
+    from repro_torch.kernels import splitmax_decode as KD
+
+    lcfg = LUTConfig(scale_z=8.0 / 127)
+    exp_lut, recip_lut = luts_for(lcfg.scale_z, dev)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    hq, hkv, d = (HYBRID_HEADS[k] for k in ("hq", "hkv", "d"))
+    b = SERVE["slots"]
+    fns, entries, errs = {}, {}, {}
+    for s in (SERVE["prompt_len"], SERVE["prompt_len"] + SERVE["gen"]):
+        key = f"prefill B {b} x {s}"
+        q = torch.randn((b, hq, s, d), generator=gen, device=dev)
+        k = torch.randn((b, hkv, s, d), generator=gen, device=dev)
+        v = torch.randn((b, hkv, s, d), generator=gen, device=dev)
+        s_q, s_k, s_v = (qlib.absmax_scale(x) for x in (q, k, v))
+        args = (qlib.quantize(q, s_q), qlib.quantize(k, s_k),
+                qlib.quantize(v, s_v),
+                ops.requant_multiplier(s_q, s_k, d, lcfg).reshape(()), s_v,
+                exp_lut, recip_lut)
+        kw = dict(cfg=lcfg)
+        ker = KA.splitmax_attention_cuda(*args, **kw)
+        exact = KA.splitmax_attention_plain(*args, exact=True, **kw)
+        plain = KA.splitmax_attention_plain(*args, **kw)
+        torch.cuda.synchronize()
+        err, tol = float((ker - plain).abs().max()), tolerance(float(s_v))
+        check(torch.equal(ker, exact), f"zamba2 {key} d{d}: kernel != the "
+              f"exact=True plain version")
+        check(err <= tol, f"zamba2 {key}: max|kernel-plain| {err:.3g} > "
+              f"{tol:.3g}")
+        fns[key] = lambda a=args, w=kw: KA.splitmax_attention_cuda(*a, **w)
+        qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+        fns[f"{key} sdpa"] = (lambda a=(qb, kb, vb):
+                              F.scaled_dot_product_attention(*a,
+                                                             is_causal=True))
+        n_bytes = b * (hq * s * d + 2 * hkv * s * d + 4 * hq * s * d) + 4 * (
+            256 + lcfg.recip_table_size)
+        bms, by = bound_ms(n_bytes, b * hq * s * (s + 1) // 2 * 6 * d)
+        plain_ms = time_ms(torch, lambda a=args, w=kw:
+                           KA.splitmax_attention_plain(*a, **w), iters=3,
+                           warm=1)
+        entries[key] = {"shape": dict(b=b, s=s, causal=True, **HYBRID_HEADS),
+                        "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                        "max_abs_err": err}
+        errs["splitmax_attention"] = max(errs.get("splitmax_attention", 0),
+                                         err)
+        print(f"[hybrid-kernels] {key} {hq}/{hkv} d{d} causal: == exact "
+              f"oracle, max_abs_err {err:.3g} (tol {tol:.3g}), plain "
+              f"{plain_ms:.4f} ms, bound {bms:.5f} ms ({by})")
+
+    s_max = SERVE["prompt_len"] + SERVE["gen"] + 8
+    lens = torch.randint(SERVE["prompt_len"] + 1,
+                         SERVE["prompt_len"] + SERVE["gen"] + 1, (b,),
+                         generator=gen, device=dev).tolist()
+    args = dense_case(torch, gen, dev, lcfg, exp_lut, recip_lut, lens, hq,
+                      hkv, s_max, d)
+    q, k, v, m_z, s_q, s_v, lens_t, el, rl = args
+    cargs = [qlib.quantize(q, s_q[:, None, None]), k, v, m_z, s_v, lens_t,
+             el, rl]
+    kp, vp, table = dense_to_pool(torch, gen, k, v, KD.DENSE_BLOCK_K)
+    paged = KD.splitmax_decode_fused_paged_cuda(q, kp, vp, table, m_z, s_q,
+                                                s_v, lens_t, el, rl, cfg=lcfg)
+    outs = {}
+    for name, kern, plain, a, q_bytes in (
+            ("splitmax_decode_fused", KD.splitmax_decode_fused_cuda,
+             KD.splitmax_decode_fused_plain, args, 4),
+            ("splitmax_decode", KD.splitmax_decode_cuda,
+             KD.splitmax_decode_plain, cargs, 1)):
+        ker = kern(*a, cfg=lcfg)
+        exact = plain(*a, cfg=lcfg, exact=True)
+        default = plain(*a, cfg=lcfg)
+        torch.cuda.synchronize()
+        err, tol = float((ker - default).abs().max()), tolerance(float(s_v))
+        check(torch.equal(ker, exact), f"zamba2 {name} D {d}: kernel != the "
+              f"exact=True plain version")
+        check(err <= tol, f"zamba2 {name} D {d}: max|kernel-plain| "
+              f"{err:.3g} > {tol:.3g}")
+        outs[name] = ker
+        key = f"{name} dense"
+        fns[key] = lambda f=kern, a=a: f(*a, cfg=lcfg)
+        plain_ms = time_ms(torch, lambda f=plain, a=a: f(*a, cfg=lcfg),
+                           iters=10)
+        bms, by = bound_ms(dense_decode_bytes(b, hq, hkv, d, lens, q_bytes,
+                                              lcfg), sum(lens) * hq * 6 * d)
+        entries[key] = {"shape": dict(b=b, s_max=s_max, lens=lens,
+                                      **HYBRID_HEADS),
+                        "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                        "max_abs_err": err}
+        errs[name] = err
+        print(f"[hybrid-kernels] {name} over the dense cache B {b} x S_max "
+              f"{s_max}, {hq}/{hkv} d{d}, lens {lens}: == exact oracle, "
+              f"max_abs_err {err:.3g} (tol {tol:.3g}), plain {plain_ms:.4f} "
+              f"ms, bound {bms:.5f} ms ({by})")
+    check(torch.equal(outs["splitmax_decode"], outs["splitmax_decode_fused"])
+          and torch.equal(outs["splitmax_decode_fused"], paged),
+          f"zamba2 D {d}: composed, fused and paged decodes differ")
+    fns["dense sdpa"] = sdpa_decode_yardstick(torch, F, gen, dev, b, hq, d,
+                                              [[n] for n in lens])
+    one = torch.zeros(1, device=dev)
+    fns["launch floor"] = lambda: one.add_(1)
+    times = graph_rounds(torch, fns)
+    floor = times.pop("launch floor")[0]
+    for key, e in entries.items():
+        yard = f"{key} sdpa" if key.startswith("prefill") else "dense sdpa"
+        e["ms"], lo, hi = times[key]
+        e["ms_range"] = [lo, hi]
+        e["library_ms"] = times[yard][0]
+        e["launch_floor_ms"] = floor
+        print(f"[hybrid-kernels] {key}: kernel {e['ms']:.5f} ms ({lo:.5f}-"
+              f"{hi:.5f}), bound {e['bound_ms']:.5f} ms ({e['bound_by']}), "
+              f"SDPA bf16 {e['library_ms']:.5f} ms, launch floor "
+              f"{floor:.5f} ms")
+    subs = {"splitmax_attention": {k: v for k, v in entries.items()
+                                   if k.startswith("prefill")},
+            "splitmax_decode_fused": entries["splitmax_decode_fused dense"],
+            "splitmax_decode": entries["splitmax_decode dense"]}
+    return subs, errs
+
+
+def hybrid_full_phase(torch, F, dev):
+    """Zamba2-2.7B at full width on the card (bf16, the tied f32 table is
+    the LM head): the churn through ``serve_dense`` with its warm-up, fused
+    (kernels 1 and 4) and composed (kernels 1 and 6; the fused churn's
+    tokens), each kernel's launches counted (9 shared-attention calls a
+    prefill and a step), one profiled batch, and the kernels at its D 80
+    shapes (:func:`hybrid_kernel_shapes`).  Returns the launches and the
+    kernels' sub-entries and errors."""
+    from repro_torch.kernels import splitmax_attn, splitmax_decode as K
+    from repro_torch.launch import serve as srv
+
+    t_phase = time.perf_counter()
+    cfg, params = init_full(torch, dev, HYBRID_ARCH, "hybrid")
+    name = cfg.name
+    calls = cfg.n_layers // cfg.hybrid_attn_every
+    prompts, gens = churn(cfg)
+    kw = dict(slots=SERVE["slots"], gen=SERVE["gen"], gens=gens)
+    runs = {}
+    for fused in (True, False):
+        c = cfg.replace(attn_fused=fused)
+        splitmax_attn.launches = 0
+        K.launches = K.dense_launches = K.dense_composed_launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        stats = srv.serve_dense(params, c, prompts, warmup=True, **kw)
+        torch.cuda.synchronize()
+        n = (splitmax_attn.launches, K.dense_launches,
+             K.dense_composed_launches, K.launches)
+        what = f"{name} dense churn (fused={fused})"
+        check_served(stats, gens, cfg.vocab_size, what, overshoot=1)
+        n_dec = n[1] if fused else n[2]
+        # the warm-up: the first prefill, a re-prefill and one decode step
+        check(n[0] == (stats["batch_prefills"] + 2) * calls,
+              f"{what}: prefill launches {n[0]} != ({stats['batch_prefills']} "
+              f"batch prefills + 2 warm-up) x {calls}")
+        check(n_dec == (stats["decode_steps"] + 1) * calls
+              and n[1] + n[2] == n_dec and n[3] == 0,
+              f"{what}: dense decode launches {n[1:3]} (paged {n[3]}) != "
+              f"({stats['decode_steps']} steps + 1 warm-up) x {calls}")
+        runs[fused] = (stats, n[0], n_dec)
+        print(f"[hybrid] {what}: {served_line(stats, torch)}, "
+              f"{stats['batch_prefills']} batch prefills, launches prefill "
+              f"{n[0]} dense decode {n_dec} (warm-up included)")
+    check(runs[False][0]["finished"] == runs[True][0]["finished"],
+          f"{name}: composed tokens differ from the fused churn's")
+    print(f"[hybrid] {name}: composed tokens == fused tokens")
+    profile_serving(torch, srv, params, cfg, prompts[:SERVE["slots"]],
+                    cache_kind="dense")
+    del params
+    torch.cuda.empty_cache()
+    subs, errs = hybrid_kernel_shapes(torch, F, dev)
+    print(f"[hybrid] {name} phase wall time "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return ({"splitmax_attention": runs[True][1],
+             "splitmax_decode_fused": runs[True][2],
+             "splitmax_decode": runs[False][2]}, subs, errs)
+
+
 def main() -> int:
+    t_script = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -3230,6 +3639,9 @@ def main() -> int:
     olmo = dense_full_phase(torch, dev, OLMO_ARCH, speculative=False)
     encdec_smoke_check(torch, dev)
     seamless, seamless_subs, seamless_errs = encdec_full_phase(torch, F, dev)
+    ssm_smoke_check(torch, dev)
+    falcon_full_phase(torch, dev)
+    hybrid, hybrid_subs, hybrid_errs = hybrid_full_phase(torch, F, dev)
     by_path = {"paged churn": launches["splitmax_attention"],
                "dense churn": dense.pop("splitmax_attention"),
                "pressure churn": n_pressure,
@@ -3238,7 +3650,8 @@ def main() -> int:
                "moe churn": moe["splitmax_attention"],
                "mistral-nemo churn": nemo["splitmax_attention"],
                "olmo churn": olmo["splitmax_attention"],
-               "seamless churn": seamless["splitmax_attention"]}
+               "seamless churn": seamless["splitmax_attention"],
+               "zamba2 dense churn": hybrid["splitmax_attention"]}
     decode_by_path = {
         "paged churn": launches["splitmax_decode_fused_paged"],
         "moe churn": moe["splitmax_decode_fused_paged"],
@@ -3262,6 +3675,10 @@ def main() -> int:
           "on the seamless composed churn")
     launches["splitmax_decode_paged"] += seamless["splitmax_decode_paged"]
     launches.update(dense)
+    for name, what in (("splitmax_decode_fused", "zamba2 dense churn"),
+                       ("splitmax_decode", "zamba2 composed dense churn")):
+        check(hybrid[name] > 0, f"no {name} launch on the {what}")
+        launches[name] += hybrid[name]
     launches["splitmax_decode_fused_verify"] = (
         splitmax_decode.dense_verify_launches)
     # kernel 8's body and its K-major pre-pass, each counted at its launch
@@ -3276,12 +3693,15 @@ def main() -> int:
     for k in kernels:
         if k["name"] in seamless_subs:
             k["seamless"] = seamless_subs[k["name"]]
+        if k["name"] in hybrid_subs:
+            k["zamba2"] = hybrid_subs[k["name"]]
     err_of = {"splitmax_attention": seamless_errs["splitmax_attention"],
               "splitmax_decode_fused_paged": seamless_errs["decode"],
               "splitmax_decode_paged": seamless_errs["composed"]}
     for k in kernels:
-        if k["name"] in err_of:
-            k["max_abs_err"] = max(k["max_abs_err"], err_of[k["name"]])
+        for errs in (err_of, hybrid_errs):
+            if k["name"] in errs:
+                k["max_abs_err"] = max(k["max_abs_err"], errs[k["name"]])
     for name in ("splitmax_attention", "splitmax_decode_fused_paged",
                  "splitmax_decode_fused_verify_paged", "splitmax_decode_paged",
                  "splitmax_decode_fused", "splitmax_decode"):
@@ -3291,6 +3711,8 @@ def main() -> int:
         check(launches[name] == 0, f"{name} launched {launches[name]} times "
               f"on a main path, which no model of the reference does")
 
+    print(f"[wall] chip_smoke.py {time.perf_counter() - t_script:.1f} s, "
+          f"the kernels' build included")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

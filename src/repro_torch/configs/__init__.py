@@ -1,5 +1,5 @@
-"""Architecture registry (port of ``repro/configs``: the dense, MoE and
-encoder-decoder configs; the SSM and hybrid ones are not ported)."""
+"""Architecture registry (port of ``repro/configs``: every config of the
+reference, dense, MoE, SSM, hybrid and encoder-decoder)."""
 from __future__ import annotations
 
 import importlib
@@ -15,6 +15,8 @@ ARCH_IDS: List[str] = [
     "deepseek_67b",
     "mixtral_8x22b",
     "deepseek_moe_16b",
+    "falcon_mamba_7b",
+    "zamba2_2p7b",
     "seamless_m4t_medium",
     # the paper's own evaluation model
     "tinyllama_1p1b",

@@ -14,6 +14,11 @@ The scheduler contract (see :func:`repro_torch.launch.scheduler.run_schedule`):
     engine.finalize(health, inj)        # drain faults, record pool stats
     engine.leaked()                     # live blocks after the run (== 0)
 
+An engine whose per-slot footprint is fixed (the SSM state slabs) keeps
+``alloc`` None: the scheduler then skips every pool call, as the
+reference's does, and the base class's ``admission_need``, ``short`` and
+``leaked`` (0) and ``finalize`` (nothing) stand.
+
 ``engine.warmup()`` runs every step once on throwaway inputs before the
 clock starts (``warmup_prefills`` prefills and ``warmup_decodes`` decode
 steps) and returns ``(admit_logits, decode_logits)`` for the scheduler to
@@ -93,13 +98,13 @@ class CacheEngine:
         return None
 
     def admission_need(self, rid: int) -> int:
-        raise NotImplementedError
+        return 0
 
     def admit(self, cache, slot: int, rid: int):
         raise NotImplementedError
 
     def short(self, slot: int, upto: int) -> int:
-        raise NotImplementedError
+        return 0
 
     def grow_blocks(self, slot: int, n: int):
         raise NotImplementedError
@@ -117,7 +122,7 @@ class CacheEngine:
         pass
 
     def leaked(self) -> int:
-        raise NotImplementedError
+        return 0
 
     def kv_bytes_per_step(self, gens) -> int:
         return 0

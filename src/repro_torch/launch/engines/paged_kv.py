@@ -27,10 +27,10 @@ class PagedKVEngine(base.CacheEngine):
                  slots: int, max_len: int, block_k: int = 32,
                  pool_blocks: Optional[int] = None):
         if cfg.family not in ("dense", "moe"):
-            raise NotImplementedError(
+            raise ValueError(
                 f"family {cfg.family!r}: the paged engine serves the dense "
-                f"and MoE families (encdec: EncDecEngine; the SSM engine is "
-                f"not ported, ROADMAP queue 1 item 4)")
+                f"and MoE families (ssm: SSMStateEngine; encdec: "
+                f"EncDecEngine)")
         self.params = T.cast_for_serving(params, cfg)
         self.device = params["embed"]["table"].device
         self.cfg = cfg

@@ -236,6 +236,7 @@ def run_schedule(engine: engines_base.CacheEngine,
         # fresh scheduler state per run; the engine's steps are shared
         cache = engine.start_run()
         alloc = engine.alloc
+        paged = alloc is not None       # fixed-footprint engines: no pool
         device = engine.device
         health = ServeHealth()
         inj = faults_mod.FaultInjector(fault_plan, health)
@@ -301,39 +302,45 @@ def run_schedule(engine: engines_base.CacheEngine,
             prefills0 = stats["slot_prefills"]
             preempts0 = health.counters["preemptions"]
             inj.on_step(step)
-            inj.squeeze_pool(step, alloc)
+            if paged:
+                inj.squeeze_pool(step, alloc)
             fslot = inj.force_preempt(step)
             if fslot is not None and fslot in active:
                 preempt(fslot, reason="fault")
 
             # ---- growth: cover this step's write position for every
-            # slot; on exhaustion preempt a victim and retry --------------
-            for slot in sorted(active):
-                if slot not in active:
-                    continue                # preempted by an earlier grower
-                rid = active[slot]
-                upto = len(prompts[rid]) + len(generated[rid])
-                while engine.short(slot, upto) > 0:
-                    try:
-                        start, ids = engine.grow_blocks(
-                            slot, engine.short(slot, upto))
-                    except paged_kv.BlockAllocationError as e:
-                        health.event("pool_pressure", step, slot=slot,
-                                     requested=e.requested, free=e.free,
-                                     live=e.live, high_water=e.high_water)
-                        victim = pick_victim(
-                            active, slot, preempt_policy, admit_seq,
-                            lambda s: gens[active[s]]
-                            - len(generated[active[s]]))
-                        if victim is None:
-                            # the sole active slot: park it in the queue
-                            # until the pool (a fault hold) drains
-                            preempt(slot, reason="self")
-                            break
-                        preempt(victim, reason="growth")
-                        continue
-                    for j, blk in enumerate(ids):
-                        cache = engine.grow_write(cache, slot, start + j, blk)
+            # slot; on exhaustion preempt a victim and retry (an engine
+            # without a pool has nothing to grow) -------------------------
+            if paged:
+                for slot in sorted(active):
+                    if slot not in active:
+                        continue            # preempted by an earlier grower
+                    rid = active[slot]
+                    upto = len(prompts[rid]) + len(generated[rid])
+                    while engine.short(slot, upto) > 0:
+                        try:
+                            start, ids = engine.grow_blocks(
+                                slot, engine.short(slot, upto))
+                        except paged_kv.BlockAllocationError as e:
+                            health.event("pool_pressure", step, slot=slot,
+                                         requested=e.requested, free=e.free,
+                                         live=e.live,
+                                         high_water=e.high_water)
+                            victim = pick_victim(
+                                active, slot, preempt_policy, admit_seq,
+                                lambda s: gens[active[s]]
+                                - len(generated[active[s]]))
+                            if victim is None:
+                                # the sole active slot: park it in the
+                                # queue until the pool (a fault hold)
+                                # drains
+                                preempt(slot, reason="self")
+                                break
+                            preempt(victim, reason="growth")
+                            continue
+                        for j, blk in enumerate(ids):
+                            cache = engine.grow_write(cache, slot,
+                                                      start + j, blk)
 
             # ---- admission: fill idle slots from the queue --------------
             idle = [s for s in range(slots) if s not in active]
@@ -347,7 +354,7 @@ def run_schedule(engine: engines_base.CacheEngine,
                              key=lambda i: (budget_ms(queue[i], now), i))
                 rid = queue[qi]
                 need = engine.admission_need(rid)
-                if alloc.free_count < need:
+                if paged and alloc.free_count < need:
                     health.count("admission_stalls")
                     health.event("admission_stall", step, rid=rid,
                                  need=need, free=alloc.free_count)

@@ -1,15 +1,19 @@
 """Continuous-batching int8 serving (port of ``repro/launch/serve.py``:
 ``make_engine``, ``serve_paged``, ``serve_dense``, ``make_self_draft``,
-``serve_speculative``, the ``serve`` dispatcher and the CLI, for the dense,
-MoE and encoder-decoder families: every dense config of the registry
+``serve_speculative``, the ``serve`` dispatcher and the CLI, for every
+family of the reference: every dense config of the registry
 (TinyLlama-1.1B, OLMo-1B, Mistral-NeMo-12B, Chameleon-34B,
 DeepSeek-Coder-33B, DeepSeek-67B), and DeepSeekMoE-16B and Mixtral-8x22B
 through the same paged engine and speculative loop (the layer-prefix
-drafter stays dense-only); SeamlessM4T-medium through the encoder-decoder
-engine, whose encoder cross K/V live in a write-once region carved out of
-the same pool (``frames`` carries each request's encoder input; it is
-served paged, plainly or composed, never speculatively or through the
-dense cache).
+drafter stays dense-only); Falcon-Mamba-7B through the SSM engine's int8
+state slabs (``--cache dense``: the float state in the dense cache);
+Zamba2-2.7B, the hybrid, through the dense cache only (as in the
+reference, no engine pages it); SeamlessM4T-medium through the
+encoder-decoder engine, whose encoder cross K/V live in a write-once
+region carved out of the same pool (``frames`` carries each request's
+encoder input; it is served paged, plainly or composed, never
+speculatively or through the dense cache).  Speculation is for the dense
+and MoE families, as in the reference.
 
 Paged (the default): every admission is a per-slot prefill that allocates
 only the blocks its prompt needs; a slot grows one block at a time as it
@@ -55,6 +59,10 @@ from the environment (``launch/faults.py``):
         --device cpu
     python -m repro_torch.launch.serve --arch seamless_m4t_medium --smoke \\
         --device cpu --requests 6 --slots 3 --prompt-len 12 --gen 10
+    python -m repro_torch.launch.serve --arch falcon_mamba_7b --smoke \\
+        --device cpu --requests 6 --slots 3 --prompt-len 14 --gen 10
+    python -m repro_torch.launch.serve --arch zamba2_2p7b --smoke \\
+        --device cpu --cache dense
     python -m repro_torch.launch.serve --arch tinyllama_1p1b --smoke \\
         --device cpu --requests 8 --slots 4 --prompt-len 32 --gen 24 \\
         --pool-blocks 12 --temperature 0.8 --top-p 0.95 \\
@@ -75,7 +83,8 @@ from repro_torch.configs import get_arch
 from repro_torch.launch import faults as faults_mod
 from repro_torch.launch import scheduler as sched
 from repro_torch.launch import steps as st
-from repro_torch.launch.engines import EncDecEngine, PagedKVEngine
+from repro_torch.launch.engines import (EncDecEngine, PagedKVEngine,
+                                       SSMStateEngine)
 from repro_torch.models import transformer as T
 
 
@@ -98,8 +107,9 @@ def make_engine(params, cfg, prompts: List[np.ndarray], *, slots: int,
                             max_len=max_len, block_k=block_k,
                             pool_blocks=pool_blocks)
     if cfg.family == "ssm":
-        raise NotImplementedError("the SSM engine is not ported (ROADMAP "
-                                  "queue 1 item 4)")
+        return SSMStateEngine(params, cfg, prompts, slots=slots,
+                              max_len=max_len, block_k=block_k,
+                              pool_blocks=pool_blocks)
     raise ValueError(f"no cache engine for family {cfg.family!r}")
 
 
@@ -168,7 +178,13 @@ def serve_dense(params, cfg, prompts: List[np.ndarray], *, slots: int,
 
     The decoder-only families only: its batches carry no encoder frames
     (the reference's ``serve_dense`` raises a ``KeyError`` on ``frames``
-    for the encdec family at its first prefill).
+    for the encdec family at its first prefill).  Two faults of the
+    reference are copied for the SSM and hybrid families, so that their
+    tokens compare (ROADMAP queue 3): a re-prefilled row shorter than the
+    re-prefill width continues from the state after its zero padding (see
+    ``transformer.prefill``), and ``kv_bytes_per_step`` counts
+    ``n_layers`` attention layers of ``n_kv_heads x hd`` whatever the
+    family.
     """
     if cfg.family == "encdec":
         raise ValueError("serve_dense serves the decoder-only families; the "

@@ -3,7 +3,8 @@ schedulers (port of ``repro/launch/steps.py``: the loss, the plain,
 compressed and gradient-accumulation train steps, and the dense and paged
 prefill steps, the decode and verify steps and the draft loop; each serve
 step dispatches the encoder-decoder family to ``models.encdec``, which has
-no speculative steps).
+no speculative steps; the SSM and hybrid families go through
+``models.transformer``, and have none either).
 
 A train step computes the loss and its gradients with autograd and
 updates the parameters and the optimizer state **in place** (the port's
@@ -156,9 +157,10 @@ def init_params_fn(cfg: ModelConfig):
 
 
 def _no_speculation(cfg: ModelConfig) -> None:
-    if cfg.family == "encdec":
-        raise ValueError("speculative serving is decoder-only: the encdec "
-                         "family has no verify step or draft loop")
+    if cfg.family not in ("dense", "moe"):
+        raise ValueError(f"speculative serving is decoder-only (the dense "
+                         f"and MoE families): the {cfg.family} family has no "
+                         f"verify step or draft loop, as in the reference")
 
 
 # ---------------------------------------------------------------------------

@@ -74,10 +74,11 @@ def main(argv=None) -> Dict:
     if args.smoke:
         cfg = cfg.replace(dtype="float32")
     if cfg.family != "dense":
+        item = {"moe": "5, the open half of the MoE family"}.get(
+            cfg.family, "4")
         raise NotImplementedError(
             f"{cfg.name}: the port trains the dense family only; training "
-            f"the {cfg.family} family (its aux losses in the train step) is "
-            f"the open half of ROADMAP queue 1 item 8")
+            f"the {cfg.family} family is ROADMAP queue 1 item {item}")
 
     opt_cfg = adamw.OptimizerConfig(peak_lr=args.lr,
                                     warmup_steps=args.warmup,

@@ -26,16 +26,21 @@ from repro_torch.models.config import ModelConfig
 
 
 def attn_block_init(gen, cfg: ModelConfig, *, device,
-                    dtype: torch.dtype = torch.float32) -> L.Params:
+                    dtype: torch.dtype = torch.float32,
+                    d_input: Optional[int] = None) -> L.Params:
     """QKV + output projections (``dtype``: see ``layers.normal_init``),
-    and the per-head q/k RMSNorms with ``cfg.qk_norm``."""
+    and the per-head q/k RMSNorms with ``cfg.qk_norm``.  The projections
+    take ``d_input`` features (default ``d_model``; the hybrid's shared
+    block reads concat(hidden, embeddings), 2 x d_model) and the output
+    projection returns ``d_model``."""
     hd, hq, hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    d = cfg.d_model
+    d = d_input or cfg.d_model
     p = {
         "wq": L.linear_init(gen, d, hq * hd, device=device, dtype=dtype),
         "wk": L.linear_init(gen, d, hkv * hd, device=device, dtype=dtype),
         "wv": L.linear_init(gen, d, hkv * hd, device=device, dtype=dtype),
-        "wo": L.linear_init(gen, hq * hd, d, device=device, dtype=dtype,
+        "wo": L.linear_init(gen, hq * hd, cfg.d_model, device=device,
+                            dtype=dtype,
                             std=(hq * hd) ** -0.5 / (2 * cfg.n_layers) ** 0.5),
     }
     if cfg.qk_norm:
@@ -122,12 +127,13 @@ def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig,
     return q, k, v
 
 
-def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, *, device
-                  ) -> Dict[str, torch.Tensor]:
-    """Stacked-by-layer dense int8 cache ``(L, B, Hkv, max_len, hd)``.
-    ``scale_k``/``scale_v`` are static per-layer scales, fixed at prefill
-    (calibration) time."""
-    nl = cfg.n_layers
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
+                  n_layers: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """Stacked-by-layer dense int8 cache ``(L, B, Hkv, max_len, hd)`` of
+    ``n_layers`` attention layers (default ``cfg.n_layers``; the hybrid's
+    shared block has one a group).  ``scale_k``/``scale_v`` are static
+    per-layer scales, fixed at prefill (calibration) time."""
+    nl = n_layers or cfg.n_layers
     shape = (nl, batch, cfg.n_kv_heads, max_len, cfg.hd)
     return {
         "k_q": torch.zeros(shape, dtype=torch.int8, device=device),

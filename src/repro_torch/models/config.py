@@ -1,14 +1,16 @@
 """Architecture configuration (port of ``repro/models/config.py``, the
-fields the dense, MoE and encoder-decoder models' training and int8 serving
-paths read).
+fields the dense, MoE, SSM, hybrid and encoder-decoder models' training and
+int8 serving paths read).
 
 The block is the llama block with the reference's options: ``norm``
 (RMSNorm, the parametric LayerNorm or OLMo's non-parametric one), ``act``
 (the SwiGLU or the non-gated GELU MLP), the per-head q/k RMSNorm
 (``qk_norm``) and the LM head tied to the embedding table
 (``tie_embeddings``, the reference's default) or untied, in f32.  The
-encoder-decoder family adds ``n_encoder_layers``.  ``logits_dtype`` is not
-a field (the head is f32)."""
+encoder-decoder family adds ``n_encoder_layers``; the SSM family (Mamba-1
+or Mamba-2 layers) and the hybrid (Mamba-2 layers with one shared
+attention block before every ``hybrid_attn_every`` of them) add ``ssm``.
+``logits_dtype`` is not a field (the head is f32)."""
 from __future__ import annotations
 
 import dataclasses
@@ -35,9 +37,20 @@ class MoEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    kind: str                 # "mamba1" | "mamba2"
+    d_state: int
+    d_conv: int = 4
+    expand: int = 2
+    headdim: int = 64         # mamba2 only
+    chunk: int = 128          # scan chunk length
+    dt_rank: Optional[int] = None   # mamba1; default d_model/16
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str               # "dense" | "moe" | "encdec" (ssm, hybrid: not ported)
+    family: str               # dense | moe | ssm | hybrid | encdec
     n_layers: int
     d_model: int
     n_heads: int
@@ -63,6 +76,8 @@ class ModelConfig:
     attn_triangular: bool = False
     remat: bool = True                # checkpoint each block in training
     moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    hybrid_attn_every: int = 6        # zamba2: shared attn cadence
     n_encoder_layers: int = 0         # encdec only (0: n_layers)
 
     def __post_init__(self):
@@ -77,6 +92,12 @@ class ModelConfig:
     @property
     def compute_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
+
+    @property
+    def d_inner(self) -> int:
+        if self.ssm is None:
+            raise ValueError(f"{self.name} has no SSM layers")
+        return self.ssm.expand * self.d_model
 
     def attn_spec(self, *, serve: bool = False) -> AttentionSpec:
         """The training spec (``attn_mode``), or with ``serve=True`` the

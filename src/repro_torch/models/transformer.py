@@ -1,17 +1,25 @@
-"""Decoder assembly for training and int8 serving, dense and MoE families
-(port of ``repro/models/transformer.py``).
+"""Decoder assembly for training and int8 serving: the dense, MoE, SSM and
+hybrid families (port of ``repro/models/transformer.py``).
 
 Parameters are a plain dict laid out like the reference's, except that the
 scanned layer segments are one Python list of per-layer dicts, each with
-an ``mlp`` (dense block) or a ``moe`` (MoE block) entry
-(:mod:`repro_torch.bridge` maps between the two).  Two cache
-layouts, told apart by their keys: the paged pool (``k_pages``, from
-:func:`make_paged_cache`) and the dense ``(slots, max_len)`` cache
-(``k_q``, from :func:`make_cache`).  Entry points:
+an ``mlp`` (dense block), a ``moe`` (MoE block) or an ``ssm`` (Mamba
+block) entry, and that the hybrid's ``(groups, per, ...)`` stacked Mamba-2
+layers are the same flat list beside its ``shared_attn`` block
+(:mod:`repro_torch.bridge` maps between the layouts).  Two cache layouts,
+told apart by their keys: the paged pool (``k_pages``, from
+:func:`make_paged_cache`; dense and MoE) and the dense ``(slots,
+max_len)`` cache (``k_q``, from :func:`make_cache`).  An SSM or hybrid
+dense cache carries each layer's float state in the same dict: ``conv``
+``(L, B, d_conv-1, C)`` in the compute dtype and ``h`` ``(L, B, di, N)``
+(Mamba-1) or ``(L, B, H, N, P)`` (Mamba-2) in f32, beside the hybrid's
+int8 K/V of its ``L / hybrid_attn_every`` shared-attention calls (the
+SSM engine keeps the state int8 instead: ``launch/engines/ssm.py``).
+Entry points:
 
   * :func:`forward` — full-sequence logits: training mode (QAT attention,
     per-block remat, the MoE aux losses) or serve mode (the prefills'
-    forward);
+    forward, returning the attention layers' K/V and the SSM states);
   * :func:`prefill` — run the whole batch, calibrate and fill a dense
     cache, return each row's last valid logits;
   * :func:`prefill_paged` — run a prompt, write its int8 K/V into the named
@@ -40,6 +48,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mlp as M
 from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
 
 Params = Dict
@@ -48,16 +57,24 @@ Params = Dict
 def layer_segments(cfg: ModelConfig) -> List[Tuple[str, int]]:
     """(kind, count) segments, in order: the reference's ``_layer_kinds``,
     its stacked segments (a MoE config's leading dense layers, then its MoE
-    layers)."""
+    layers; an SSM config's Mamba layers), and the hybrid's Mamba-2
+    layers."""
     if cfg.family == "dense":
         return [("dense", cfg.n_layers)]
     if cfg.family == "moe":
         fd = cfg.moe.first_dense_layers
         return ([("dense", fd)] if fd else []) + [("moe", cfg.n_layers - fd)]
+    if cfg.family in ("ssm", "hybrid"):
+        if cfg.ssm is None or cfg.ssm.kind not in S.MAMBA_INIT:
+            raise ValueError(f"{cfg.name}: the {cfg.family} family needs an "
+                             f"SSMConfig of kind mamba1 or mamba2")
+        if cfg.family == "hybrid" and cfg.n_layers % cfg.hybrid_attn_every:
+            raise ValueError(f"{cfg.name}: {cfg.n_layers} layers in groups "
+                             f"of {cfg.hybrid_attn_every}")
+        return [(cfg.ssm.kind, cfg.n_layers)]
     raise NotImplementedError(
-        f"{cfg.name}: this decoder holds the dense and MoE families; the "
-        f"{cfg.family} family is models.encdec or not ported (ROADMAP "
-        f"queue 1 item 4)")
+        f"{cfg.name}: this decoder holds the dense, MoE, SSM and hybrid "
+        f"families; the {cfg.family} family is models.encdec")
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
@@ -85,40 +102,61 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
         dtype=torch.float32 if cfg.tie_embeddings else wdt)}
     p["layers"] = []
     for kind in (kind for kind, n in segments for _ in range(n)):
-        lp = {"norm1": norm_init(cfg.d_model, dev),
-              "attn": A.attn_block_init(gen, cfg, device=dev, dtype=wdt),
-              "norm2": norm_init(cfg.d_model, dev)}
+        lp = {"norm1": norm_init(cfg.d_model, dev)}
+        if kind in S.MAMBA_INIT:
+            lp["ssm"] = S.MAMBA_INIT[kind](gen, cfg, device=dev, dtype=wdt)
+        else:
+            lp["attn"] = A.attn_block_init(gen, cfg, device=dev, dtype=wdt)
+            lp["norm2"] = norm_init(cfg.d_model, dev)
         if kind == "dense":
             lp["mlp"] = M.mlp_init(gen, cfg, device=dev, dtype=wdt)
-        else:
+        elif kind == "moe":
             lp["moe"] = MOE.moe_init(gen, cfg, device=dev, dtype=wdt)
         p["layers"].append(lp)
+    if cfg.family == "hybrid":
+        # one attention + MLP block shared by every group, on
+        # concat(hidden, embeddings)
+        p["shared_attn"] = {
+            "norm": norm_init(2 * cfg.d_model, dev),
+            "attn": A.attn_block_init(gen, cfg, device=dev, dtype=wdt,
+                                      d_input=2 * cfg.d_model),
+            "mlp_norm": norm_init(cfg.d_model, dev),
+            "mlp": M.mlp_init(gen, cfg, device=dev, dtype=wdt)}
     p["final_norm"] = norm_init(cfg.d_model, dev)
     if not cfg.tie_embeddings:
         p["lm_head"] = L.linear_init(gen, cfg.d_model, vp, device=dev)
     return p
 
 
+# f32 subtrees a serve step multiplies as stored: the MoE router (routing
+# is computed from f32 weights) and Mamba-1's dt projection (it multiplies
+# the f32 dt_in)
+_F32_SUBTREES = ("router", "dt_proj")
+
+
 def cast_for_serving(params: Params, cfg: ModelConfig) -> Params:
     """Cast the weights each layer casts at use (the linear weights, the
-    MoE expert stacks, an untied embedding table) to the compute dtype
-    once, so a step does not re-cast them.  Results are unchanged: casting
-    once equals casting at every use.  The MoE router (routing is computed
-    from f32 weights), the f32 LM head, a tied table (it is the f32 head
-    too; its gathered rows are cast at use) and the norms stay f32; a leaf
+    MoE expert stacks, the Mamba conv weights, an untied embedding table)
+    to the compute dtype once, so a step does not re-cast them.  Results
+    are unchanged: casting once equals casting at every use.  The MoE
+    router, Mamba-1's ``dt_proj``, the SSM's ``A_log``, ``D`` and
+    ``dt_bias``, the f32 LM head, a tied table (it is the f32 head too;
+    its gathered rows are cast at use) and the norms stay f32; a leaf
     already in the compute dtype is kept, not copied."""
     dt = cfg.compute_dtype
 
     def cast(tree, stacks=False):
-        return {k: (v if k == "router" else
+        return {k: (v if k in _F32_SUBTREES else
                     cast(v, stacks=k == "moe") if isinstance(v, dict) else
-                    v.to(dt) if k == "w" or stacks else v)
+                    v.to(dt) if k in ("w", "conv_w") or stacks else v)
                 for k, v in tree.items()}
 
     table = params["embed"]["table"]
     out = {"embed": {"table": table if cfg.tie_embeddings else table.to(dt)},
            "layers": [cast(lp) for lp in params["layers"]],
            "final_norm": params["final_norm"]}
+    if "shared_attn" in params:
+        out["shared_attn"] = cast(params["shared_attn"])
     if not cfg.tie_embeddings:
         out["lm_head"] = params["lm_head"]
     return out
@@ -153,10 +191,28 @@ def _ffn(lp, h: torch.Tensor, cfg: ModelConfig, *, tokenwise: bool = False
                          tokenwise=tokenwise)[0]
 
 
+def _mamba_block(lp, x: torch.Tensor, cfg: ModelConfig,
+                 state: Optional[Dict] = None):
+    """One Mamba block, pre-norm and residual: the new ``x`` and, with a
+    ``state`` (decode), the new state."""
+    h = L.NORM_APPLY[cfg.norm](lp["norm1"], x)
+    out, st = S.MAMBA_APPLY[cfg.ssm.kind](lp["ssm"], h, cfg, state=state)
+    return x + out, st
+
+
+def _mamba_block_serve(lp, x: torch.Tensor, cfg: ModelConfig):
+    """A serve-mode Mamba block: run from a zero state, so that the state
+    after the sequence comes back for the cache (one pass, no rerun)."""
+    return _mamba_block(lp, x, cfg,
+                        S.zero_state(cfg, x.shape[0], device=x.device))
+
+
 def _block_apply(lp, x: torch.Tensor, cfg: ModelConfig):
     """One training-mode block (attention in ``cfg.attn_mode``): the new
     ``x`` and, for a MoE block, its (aux_loss, z_loss) stacked (None for a
-    dense block)."""
+    dense or Mamba block)."""
+    if "ssm" in lp:
+        return _mamba_block(lp, x, cfg)[0], None
     norm = L.NORM_APPLY[cfg.norm]
     h = norm(lp["norm1"], x)
     x = x + A.attn_block_apply(lp["attn"], h, cfg)
@@ -167,19 +223,81 @@ def _block_apply(lp, x: torch.Tensor, cfg: ModelConfig):
     return x + out, torch.stack([aux["aux_loss"], aux["z_loss"]])
 
 
-def _block_apply_serve(lp, x: torch.Tensor, cfg: ModelConfig,
-                       positions: torch.Tensor):
-    """One serve-mode block (``cfg.serve_attn_mode``), returning this
-    layer's raw (k, v) for the cache."""
-    b, s, _ = x.shape
-    norm = L.NORM_APPLY[cfg.norm]
-    h = norm(lp["norm1"], x)
-    q, k, v = A._project_qkv(lp["attn"], h, cfg, positions)
+def _attn_serve(attn, h: torch.Tensor, cfg: ModelConfig,
+                positions: torch.Tensor):
+    """A serve-mode attention (``cfg.serve_attn_mode``) on the normed
+    ``h``: its output projection and its raw (k, v) for the cache."""
+    b, s, _ = h.shape
+    q, k, v = A._project_qkv(attn, h, cfg, positions)
     o = core_attn.attention(q, k, v, cfg.attn_spec(serve=True))
     o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd)
-    x = x + L.linear_apply(lp["attn"]["wo"], o, dtype=cfg.compute_dtype)
+    return L.linear_apply(attn["wo"], o, dtype=cfg.compute_dtype), (k, v)
+
+
+def _block_apply_serve(lp, x: torch.Tensor, cfg: ModelConfig,
+                       positions: torch.Tensor):
+    """One serve-mode dense or MoE block, returning this layer's raw
+    (k, v) for the cache."""
+    norm = L.NORM_APPLY[cfg.norm]
+    out, kv = _attn_serve(lp["attn"], norm(lp["norm1"], x), cfg, positions)
+    x = x + out
     h = norm(lp["norm2"], x)
-    return x + _ffn(lp, h, cfg), (k, v)
+    return x + _ffn(lp, h, cfg), kv
+
+
+def _remat(fn, lp, x: torch.Tensor, cfg: ModelConfig):
+    """``fn(lp, x, cfg)`` under ``torch.utils.checkpoint`` when
+    ``cfg.remat``."""
+    if cfg.remat:
+        return checkpoint(functools.partial(fn, lp, cfg=cfg), x,
+                          use_reentrant=False, preserve_rng_state=False)
+    return fn(lp, x, cfg)
+
+
+def _stack_states(states: List[Dict]) -> Dict[str, torch.Tensor]:
+    """Per-layer SSM states -> one (L, B, ...) tensor a leaf."""
+    return {k: torch.stack([st[k] for st in states]) for k in states[0]}
+
+
+def _shared_attn(sp, x: torch.Tensor, x0: torch.Tensor, cfg: ModelConfig,
+                 attend):
+    """The hybrid's shared attention + MLP block on concat(x, x0), its
+    attention ``attend(attn_params, h) -> (out, kv)`` (training, serve or
+    decode); returns the new ``x`` and ``kv``."""
+    norm = L.NORM_APPLY[cfg.norm]
+    h = norm(sp["norm"], torch.cat([x, x0], dim=-1))
+    out, kv = attend(sp["attn"], h)
+    x = x + out
+    h = norm(sp["mlp_norm"], x)
+    return x + M.mlp_apply(sp["mlp"], h, cfg), kv
+
+
+def _hybrid_forward(params, x: torch.Tensor, cfg: ModelConfig, *,
+                    serve: bool):
+    """Zamba2's layout: [shared attention, then ``hybrid_attn_every``
+    Mamba-2 blocks] per group, the shared block re-fed the embeddings
+    ``x0``.  Returns (x, the groups' raw (k, v), the layers' states)."""
+    x0 = x
+    every = cfg.hybrid_attn_every
+    if serve:
+        positions = torch.arange(x.shape[1], device=x.device)
+
+        def attend(p, h):
+            return _attn_serve(p, h, cfg, positions)
+    else:
+        def attend(p, h):
+            return A.attn_block_apply(p, h, cfg), None
+    kvs, states = [], []
+    for g0 in range(0, cfg.n_layers, every):
+        x, kv = _shared_attn(params["shared_attn"], x, x0, cfg, attend)
+        kvs.append(kv)
+        for lp in params["layers"][g0:g0 + every]:
+            if serve:
+                x, st = _mamba_block_serve(lp, x, cfg)
+                states.append(st)
+            else:
+                x, _ = _remat(_block_apply, lp, x, cfg)
+    return x, kvs, states
 
 
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
@@ -189,40 +307,59 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     Training mode (``serve=False``): attention in ``cfg.attn_mode``, each
     block under ``torch.utils.checkpoint`` when ``cfg.remat``; ``aux``
     holds ``aux_loss`` and ``z_loss`` summed over the MoE layers (zero for
-    the dense family).  Serve mode: ``cfg.serve_attn_mode`` and
-    ``aux["kv"]``, each layer's raw (k, v) (B, Hkv, S, hd) for the cache;
-    its losses stay zero (the reference's are discarded by its callers).
+    the other families).  Serve mode: ``cfg.serve_attn_mode``;
+    ``aux["kv"]``, each attention layer's (the hybrid: each shared-block
+    call's) raw (k, v) (B, Hkv, S, hd) for the cache; and for the SSM and
+    hybrid families ``aux["ssm"]``, every layer's state after the sequence
+    from zeros, stacked (:func:`_stack_states`).  Its losses stay zero
+    (the reference's are discarded by its callers).
     """
     x = embed_tokens(params, tokens, cfg)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     aux: Dict = {"aux_loss": zero, "z_loss": zero}
-    if serve:
+    if cfg.family == "hybrid":
+        x, kvs, states = _hybrid_forward(params, x, cfg, serve=serve)
+    elif serve:
         positions = torch.arange(tokens.shape[1], device=x.device)
-        kvs = []
+        kvs, states = [], []
         for lp in params["layers"]:
-            x, kv = _block_apply_serve(lp, x, cfg, positions)
-            kvs.append(kv)
-        aux["kv"] = kvs
+            if "ssm" in lp:
+                x, st = _mamba_block_serve(lp, x, cfg)
+                states.append(st)
+            else:
+                x, kv = _block_apply_serve(lp, x, cfg, positions)
+                kvs.append(kv)
     else:
         for lp in params["layers"]:
-            if cfg.remat:
-                x, losses = checkpoint(
-                    functools.partial(_block_apply, lp, cfg=cfg), x,
-                    use_reentrant=False, preserve_rng_state=False)
-            else:
-                x, losses = _block_apply(lp, x, cfg)
+            x, losses = _remat(_block_apply, lp, x, cfg)
             if losses is not None:
                 aux = {"aux_loss": aux["aux_loss"] + losses[0],
                        "z_loss": aux["z_loss"] + losses[1]}
+    if serve:
+        if kvs:
+            aux["kv"] = kvs
+        if states:
+            aux["ssm"] = _stack_states(states)
     return unembed(params, x, cfg), aux
 
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda"
                ) -> Dict[str, torch.Tensor]:
-    """Dense decode cache: int8 K/V ``(L, batch, Hkv, max_len, hd)``,
-    per-layer scales and lengths.  With a sliding window, ``max_len`` is
-    the ring's size (the reference's callers pass the window)."""
-    return A.init_kv_cache(cfg, batch, max_len, device=resolve_device(device))
+    """Dense decode cache: int8 K/V ``(L_attn, batch, Hkv, max_len, hd)``
+    of the attention layers (the hybrid: one a group), per-layer scales
+    and lengths, and the SSM and hybrid families' float state (``conv``,
+    ``h``; see the module docstring).  With a sliding window, ``max_len``
+    is the ring's size (the reference's callers pass the window)."""
+    dev = resolve_device(device)
+    if cfg.family in ("dense", "moe"):
+        return A.init_kv_cache(cfg, batch, max_len, device=dev)
+    cache = {"length": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+    if cfg.family == "hybrid":
+        cache = A.init_kv_cache(
+            cfg, batch, max_len, device=dev,
+            n_layers=cfg.n_layers // cfg.hybrid_attn_every)
+    cache.update(S.init_ssm_state(cfg, batch, cfg.n_layers, device=dev))
+    return cache
 
 
 def prefill(params, tokens: torch.Tensor, cfg: ModelConfig,
@@ -237,28 +374,35 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig,
     (padding and idle rows included).  A ring cache shorter than the
     prompt keeps the last ``cache_size`` positions, which needs ``S`` to
     be a multiple of ``cache_size`` so that they land at ring indices 0..
+
+    An SSM layer's state is the state after all ``S`` positions, padding
+    included, as in the reference: a row shorter than ``S`` continues from
+    the state after its ``S - valid_len`` padding tokens (ROADMAP queue 3).
     """
     b, s = tokens.shape
     if valid_len is None:
         valid_len = torch.full((b,), s, dtype=torch.int32,
                                device=tokens.device)
     logits, aux = forward(params, tokens, cfg, serve=True)
-    kvs = aux["kv"]
-    k_all = torch.stack([k for k, _ in kvs])        # (L, B, Hkv, S, hd)
-    v_all = torch.stack([v for _, v in kvs])
-    cache_size = cache["k_q"].shape[3]
-    if cache_size < s:
-        if s % cache_size:
-            raise ValueError(f"a ring cache of {cache_size} positions takes "
-                             f"a prompt whose length is a multiple of it, "
-                             f"got {s}")
-        k_all = k_all[:, :, :, -cache_size:]
-        v_all = v_all[:, :, :, -cache_size:]
-    w = k_all.shape[3]
-    cache["scale_k"].copy_(qlib.absmax_scale(k_all, axis=(1, 2, 3, 4)))
-    cache["scale_v"].copy_(qlib.absmax_scale(v_all, axis=(1, 2, 3, 4)))
-    cache["k_q"][:, :, :, :w] = qlib.quantize(k_all, cache["scale_k"])
-    cache["v_q"][:, :, :, :w] = qlib.quantize(v_all, cache["scale_v"])
+    if "kv" in aux:
+        kvs = aux["kv"]
+        k_all = torch.stack([k for k, _ in kvs])    # (L, B, Hkv, S, hd)
+        v_all = torch.stack([v for _, v in kvs])
+        cache_size = cache["k_q"].shape[3]
+        if cache_size < s:
+            if s % cache_size:
+                raise ValueError(f"a ring cache of {cache_size} positions "
+                                 f"takes a prompt whose length is a "
+                                 f"multiple of it, got {s}")
+            k_all = k_all[:, :, :, -cache_size:]
+            v_all = v_all[:, :, :, -cache_size:]
+        w = k_all.shape[3]
+        cache["scale_k"].copy_(qlib.absmax_scale(k_all, axis=(1, 2, 3, 4)))
+        cache["scale_v"].copy_(qlib.absmax_scale(v_all, axis=(1, 2, 3, 4)))
+        cache["k_q"][:, :, :, :w] = qlib.quantize(k_all, cache["scale_k"])
+        cache["v_q"][:, :, :, :w] = qlib.quantize(v_all, cache["scale_v"])
+    for k, v in aux.get("ssm", {}).items():
+        cache[k].copy_(v)
     cache["length"].copy_(valid_len)
     idx = torch.clamp_min(valid_len.to(torch.int64) - 1, 0)
     last = logits[torch.arange(b, device=logits.device), idx]
@@ -328,10 +472,22 @@ def write_prompt_kv(pool: Dict[str, torch.Tensor], k_all: torch.Tensor,
 
 def _layer_cache(cache: Dict[str, torch.Tensor], i: int
                  ) -> Dict[str, torch.Tensor]:
-    """Layer ``i``'s views of the cache (pool or dense), with the shared
-    lengths and, paged, the shared table."""
+    """Attention layer ``i``'s views of the cache (pool or dense), with the
+    shared lengths and, paged, the shared table."""
     shared = ("block_table", "length")
-    return {k: (v if k in shared else v[i]) for k, v in cache.items()}
+    return {k: (v if k in shared else v[i]) for k, v in cache.items()
+            if k not in ("conv", "h")}
+
+
+def _mamba_decode(lp, x: torch.Tensor, cfg: ModelConfig,
+                  cache: Dict[str, torch.Tensor], i: int) -> torch.Tensor:
+    """Mamba layer ``i``'s one-token step; its state in ``cache`` is
+    replaced in place."""
+    x, st = _mamba_block(lp, x, cfg, {"conv": cache["conv"][i],
+                                      "h": cache["h"][i]})
+    cache["conv"][i].copy_(st["conv"])
+    cache["h"][i].copy_(st["h"])
+    return x
 
 
 def decode_step(params, token: torch.Tensor, cfg: ModelConfig,
@@ -339,12 +495,23 @@ def decode_step(params, token: torch.Tensor, cfg: ModelConfig,
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """token (B,) -> logits (B, vocab_padded); every slot's length grows
     by one.  Paged, idle slots write into the trash block; dense, each slot
-    writes its own row (a ring with a window)."""
+    writes its own row (a ring with a window).  A Mamba layer steps its
+    state in place; the hybrid's shared block runs before every
+    ``hybrid_attn_every`` of them on the group's slice of the dense
+    cache."""
     block = (A.attn_block_decode_paged if "k_pages" in cache
              else A.attn_block_decode)
     norm = L.NORM_APPLY[cfg.norm]
     x = embed_tokens(params, token[:, None], cfg)       # (B, 1, d)
+    x0 = x
     for i, lp in enumerate(params["layers"]):
+        if cfg.family == "hybrid" and i % cfg.hybrid_attn_every == 0:
+            group = _layer_cache(cache, i // cfg.hybrid_attn_every)
+            x, _ = _shared_attn(params["shared_attn"], x, x0, cfg,
+                                lambda p, h: (block(p, h, group, cfg), None))
+        if "ssm" in lp:
+            x = _mamba_decode(lp, x, cfg, cache, i)
+            continue
         h = norm(lp["norm1"], x)
         x = x + block(lp["attn"], h, _layer_cache(cache, i), cfg)
         h = norm(lp["norm2"], x)
@@ -389,7 +556,8 @@ def verify_step(params, tokens: torch.Tensor, cfg: ModelConfig,
 def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
     """Analytic parameter count (no vocab padding; the MLP by ``act``,
     norms by kind, the q/k norms not counted, as in the reference); MoE
-    ``active_only`` counts the shared and the top-k routed experts."""
+    ``active_only`` counts the shared and the top-k routed experts.  The
+    formulas are the reference's, its approximations included."""
     d, hd = cfg.d_model, cfg.hd
     attn_p = d * hd * (cfg.n_heads + 2 * cfg.n_kv_heads) + hd * cfg.n_heads * d
     mlp_p = d * cfg.d_ff * (3 if cfg.act == "silu" else 2)
@@ -413,5 +581,22 @@ def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
         dec_layer = 2 * attn_p + mlp_p + 3 * norm_p
         return embed + n_enc * dense_layer + cfg.n_layers * dec_layer \
             + 2 * norm_p
-    raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is "
-                              f"ROADMAP queue 1 item 4")
+    sc = cfg.ssm
+    di, n = cfg.d_inner, sc.d_state
+    nh = di // sc.headdim
+    mamba2 = (d * (2 * di + 2 * n + nh) + sc.d_conv * (di + 2 * n) + 3 * nh
+              + di + di * d)
+    if cfg.family == "ssm":
+        if sc.kind == "mamba1":
+            r = sc.dt_rank or max(d // 16, 1)
+            per = (d * 2 * di + sc.d_conv * di + di * (r + 2 * n) + r * di
+                   + di + di * n + di + di * d)
+        else:
+            per = mamba2
+        return embed + cfg.n_layers * (per + norm_p) + norm_p
+    if cfg.family == "hybrid":
+        # the reference counts the shared block's concat-width norm as d
+        shared = (2 * d * hd * cfg.n_heads + 2 * d * hd * 2 * cfg.n_kv_heads
+                  + hd * cfg.n_heads * d + mlp_p + 3 * norm_p)
+        return embed + cfg.n_layers * (mamba2 + norm_p) + shared + norm_p
+    raise ValueError(cfg.family)

@@ -12,7 +12,7 @@ file imports no JAX, so it runs on the machine with the card:
 
 Every split-softmax kernel sums e*V and e exactly in integers, so it
 equals its plain version's ``exact=True`` mode bit for bit (``torch.equal``)
-at every shape and edge here, and at D 16, 32, 64 and 128.  Against the
+at every shape and edge here, and at D 16, 32, 64, 80 and 128.  Against the
 default plain version the tolerance is ``rtol = atol = 2e-5`` at ``s_v =
 0.02`` (output scale up to 127 * s_v = 2.54): the default rounds its f32
 partial sums of e*V, the kernel does not; integer stages are identical.
@@ -818,3 +818,49 @@ def test_kernels_at_the_dense_configs_gqa_groups(rng, cuda, hq):
                 *args, cfg=CFG, window=window, exact=True)
             torch.cuda.synchronize()
             assert torch.equal(got, want), (fn, window)
+
+
+@pytest.mark.parametrize("window", [None, 48])
+def test_dense_decode_kernels_at_the_hybrid_head_dim(rng, cuda, window):
+    """Kernels 4 and 6 at Zamba2-2.7B's shared attention (32/32 heads of
+    80, group 1) over its dense churn's cache (8 slots, S_max 290), with
+    the edge lengths: each bit for bit its ``exact=True`` plain version,
+    the composed bit for bit the fused, and the fused bit for bit the paged
+    kernel on the same K/V scattered into a pool."""
+    hq = hkv = 32
+    d, s_max, bk = 80, 290, splitmax_decode.DENSE_BLOCK_K
+    lens = _decode_lens(bk, s_max)
+    q, k, v, m_z, s_q, s_v, lens_t = _dense_case(rng, cuda, lens, hq, hkv,
+                                                 s_max, d)
+    luts = _luts(cuda)
+    fused = splitmax_decode.splitmax_decode_fused_cuda(
+        q, k, v, m_z, s_q, s_v, lens_t, *luts, cfg=CFG, window=window)
+    want = splitmax_decode.splitmax_decode_fused_plain(
+        q, k, v, m_z, s_q, s_v, lens_t, *luts, cfg=CFG, window=window,
+        exact=True)
+    q_q = qlib.quantize(q, s_q[:, None, None])
+    comp = splitmax_decode.splitmax_decode_cuda(
+        q_q, k, v, m_z, s_v, lens_t, *luts, cfg=CFG, window=window)
+    comp_want = splitmax_decode.splitmax_decode_plain(
+        q_q, k, v, m_z, s_v, lens_t, *luts, cfg=CFG, window=window,
+        exact=True)
+    b, mb = len(lens), -(-s_max // bk)
+    nb = 1 + b * mb
+    table = torch.from_numpy(rng.permutation(np.arange(1, nb)).reshape(
+        b, mb).astype(np.int32)).to(cuda)
+    pools = []
+    for src in (k, v):
+        tiles = torch.nn.functional.pad(src, (0, 0, 0, mb * bk - s_max))
+        pool = torch.zeros((nb, hkv, bk, d), dtype=torch.int8, device=cuda)
+        pool[table.long()] = tiles.reshape(b, hkv, mb, bk, d).permute(
+            0, 2, 1, 3, 4)
+        pools.append(pool)
+    paged = splitmax_decode.splitmax_decode_fused_paged_cuda(
+        q, *pools, table, m_z, s_q, s_v, lens_t, *luts, cfg=CFG,
+        window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(fused, want)
+    assert torch.equal(comp, comp_want)
+    assert torch.equal(comp, fused)
+    assert torch.equal(paged, fused)
+    assert not fused[0].any()

@@ -23,6 +23,8 @@ from repro_torch.configs import get_arch as tget_arch
 from repro_torch.core import paged_kv
 from repro_torch.launch import faults as tfaults
 from repro_torch.launch import serve as tserve
+from repro_torch.launch import steps as tsteps
+from repro_torch.launch.engines import PagedKVEngine, SSMStateEngine
 
 torch.set_num_threads(1)
 
@@ -89,11 +91,19 @@ def test_minimum_pool_serializes_admissions(rig):
 
 def test_make_engine_serves_the_dense_family_only(rig):
     """The paged engine serves the dense and (since the MoE slice) the MoE
-    family; the SSM family's engine is not ported and is refused."""
+    family; since the SSM slice the SSM family gets the state-slab engine,
+    which has no pool to over-commit and refuses ``pool_blocks`` as the
+    reference's does."""
     _, _, tcfg, tparams, prompts, _, _ = rig
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tserve.make_engine(tparams, tcfg.replace(family="ssm"), prompts,
-                           slots=2, max_len=40)
+    assert isinstance(tserve.make_engine(tparams, tcfg, prompts, slots=2,
+                                         max_len=40), PagedKVEngine)
+    ssm = tget_arch("falcon_mamba_7b").smoke.replace(dtype="float32")
+    sparams = tsteps.init_params_fn(ssm)(seed=0, device="cpu")
+    assert isinstance(tserve.make_engine(sparams, ssm, prompts, slots=2,
+                                         max_len=40), SSMStateEngine)
+    with pytest.raises(ValueError, match="paged KV cache"):
+        tserve.make_engine(sparams, ssm, prompts, slots=2, max_len=40,
+                           pool_blocks=8)
 
 
 def test_pool_floor_is_enforced(rig):
