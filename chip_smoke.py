@@ -146,10 +146,37 @@ Phases, each fatal on failure:
      at D 80, each bit for bit its exact plain version and timed beside
      its bound and SDPA (``"zamba2"`` in the JSON line).
 
-Kernels 7 (dense verify) and 8 (int8 GEMM) have no caller in any model, as
-in the reference: they are checked and timed in phases 3 and 4 and stand in the
-JSON line with ``"launches": 0`` (kernel 8 also ``"pre_pass_launches": 0``)
-and ``"path": null``.  Kernels 1-3 also carry ``launches_by_path``.
+ 12. int8 serve weights, the CIM model and the decode baselines: the
+     smoke configs of the dense, MoE, encoder-decoder and hybrid families
+     served with int8 weights (``serve_param_dtype="int8"``) on the card
+     against the CPU, equal tokens, and Falcon-Mamba's Mamba-1 layers
+     refused (``ValueError``) by the serving init and by ``serve``; the
+     float and fakequant decode baselines on TinyLlama's smoke config, the
+     card against the CPU (logits within ``DECODE_BASELINE_TOL`` of their
+     scale, equal tokens, no split-softmax launch); DeepSeek-67B at full
+     width in int8 (95 layers, d_model 8192, 64/8 heads of 128, d_ff 22016,
+     vocab 102400 untied; 67.4 GB, drawn leaf by leaf, each f32 draw
+     quantized in place), once every earlier model is freed, on the churn
+     cut to its first 8 requests and gens 8..16 (every forward dequantizes
+     the 67.4 GB): plain with its warm-up, one profiled batch, the
+     row-count check, self-drafted gamma 4 (the plain tokens) and composed
+     (the fused tokens), each kernel's launches counted, peak memory and
+     ``mem_get_info``; kernels 1, 2, 5 and 3 (gamma 4 and 8) at its 64/8
+     heads of D 128, each bit for bit its exact plain version, timed by
+     graph replay beside bound and SDPA (``"deepseek67b"`` in the JSON
+     line); TinyLlama-1.1B at full width in bf16 and in int8 on the same
+     cut churn (tok/s side by side); and the CIM datapath
+     (``core/cim.py``) at one DeepSeek-67B MLP shape through kernel 8,
+     its only caller: the nibble split (2 launches) and the bit-serial form
+     (8 on one pre-pass) bit for bit kernel 8's direct product and its
+     plain version's, the Q15 requant pipeline bit for bit the CPU's, each
+     timed (``"cim"`` under kernel 8 in the JSON line).
+
+Kernel 7 (dense verify) has no caller in any model, as in the reference:
+it is checked and timed in phases 3 and 4 and stands in the JSON line with
+``"launches": 0`` and ``"path": null``.  Kernel 8's launches are the CIM
+model's (``launches_by_path``); no model's path launches it.  Kernels 1-3
+also carry ``launches_by_path``.
 
 The line before the last is the card's name and power limit; before it, one
 JSON object with each kernel's numbers.  The last line is
@@ -227,7 +254,7 @@ MOE_TOL_RMS = 2 ** -7
 # the rest of the dense family: every smoke config card vs CPU, and two at
 # full width (Mistral-NeMo-12B, 24.5 GB in bf16; OLMo-1B, the tied head);
 # Chameleon-34B and DeepSeek-Coder-33B (67 GB in bf16) run at smoke size
-# only, and DeepSeek-67B (135 GB) does not fit one card
+# only, and DeepSeek-67B (135 GB in bf16) serves in int8 (phase 12)
 DENSE_SMOKE_ARCHS = ("olmo_1b", "mistral_nemo_12b", "chameleon_34b",
                      "deepseek_coder_33b", "deepseek_67b")
 NEMO_ARCH = "mistral_nemo_12b"
@@ -250,6 +277,26 @@ SSM_ARCH = "falcon_mamba_7b"
 HYBRID_ARCH = "zamba2_2p7b"
 HYBRID_HEADS = dict(hq=32, hkv=32, d=80)
 FORCED_PREEMPT = dict(preempt_step=10, preempt_slot=3)
+# int8 serve weights: the smoke configs served card vs CPU (one of each
+# family that serves in int8: the dense, MoE, encoder-decoder and hybrid),
+# DeepSeek-67B at full width (67.4 GB in int8; 64/8 heads of 128, GQA group
+# 8) on a cut churn (16 requests on the 8 slots, so that half of them are
+# admitted while others decode), the CIM datapath at one of its MLP shapes
+# (x @ w_in)
+INT8_SMOKE_ARCHS = ("tinyllama_1p1b", "deepseek_moe_16b",
+                    "seamless_m4t_medium", "zamba2_2p7b")
+DS_ARCH = "deepseek_67b"
+DS_HEADS = dict(hq=64, hkv=8, d=128)
+DS_CHURN = dict(requests=16, gen=16)
+# TinyLlama with bf16 and int8 serve weights on the serving churn, runs
+# interleaved
+INT8_VS_BF16_ORDER = ("bfloat16", "int8", "int8", "bfloat16", "bfloat16",
+                      "int8")
+CIM_SHAPE = (256, 8192, 22016)
+CIM_REQUANT_MULTIPLIERS = (1e-5, 0.001, 0.0117, 0.3)
+# the float/fakequant decode baselines, card vs CPU: max |logit diff| over
+# the logits' scale (tests/test_torch_decode_baselines.py states the same)
+DECODE_BASELINE_TOL = 2e-3
 # the reference's bound on the reciprocal LUT's error against the division
 # (tests/test_fused_decode.py::test_fused_recip_lut_error_bounded)
 RECIP_LUT_REL_ERR = 2 ** -8
@@ -1623,14 +1670,14 @@ def smoke_reference_phase(torch, dev):
 
 # --------------------------------------------------------------- serving --
 
-def churn(cfg):
-    """The churn workload: SERVE's prompts and staggered gens, seed 0."""
+def churn(cfg, requests: int = SERVE["requests"], gen: int = SERVE["gen"]):
+    """The churn workload: SERVE's prompts and staggered gens in [gen // 2,
+    gen], seed 0; fewer ``requests`` are the churn's first prompts."""
     import numpy as np
     rng = np.random.default_rng(SERVE["seed"])
     prompts = [rng.integers(0, cfg.vocab_size, SERVE["prompt_len"],
-                            dtype=np.int32) for _ in range(SERVE["requests"])]
-    gens = [int(g) for g in rng.integers(SERVE["gen"] // 2, SERVE["gen"] + 1,
-                                         SERVE["requests"])]
+                            dtype=np.int32) for _ in range(requests)]
+    gens = [int(g) for g in rng.integers(gen // 2, gen + 1, requests)]
     return prompts, gens
 
 
@@ -2172,29 +2219,40 @@ def rows_agree(torch, dev, params, cfg, b: int, t: int) -> bool:
     from repro_torch.models import layers as L
 
     gen = torch.Generator(device=dev).manual_seed(6)
-    head = (("tied head (embedding table)", params["embed"]["table"].T)
-            if cfg.tie_embeddings else ("lm_head", params["lm_head"]["w"]))
+    embed = params["embed"]
+    # weights as the serve step multiplies them, an int8 one dequantized
+    # when its turn comes (a tied int8 table: its payload, the scale
+    # multiplies the logits after the product)
+    head = (("tied head (embedding table)",
+             lambda: embed.get("table", embed.get("table_q")).T)
+            if cfg.tie_embeddings else
+            ("lm_head", lambda: L.linear_weight(params["lm_head"])))
     weights, per_token, seen = [], [head], set()
+
+    def linear(p):
+        return lambda: L.linear_weight(p)
+
     for i, lp in enumerate(params["layers"]):
         kind = "moe" if "moe" in lp else "dense"
         if kind in seen:
             continue
         seen.add(kind)
-        weights += [(f"layer {i} {n}", lp["attn"][n]["w"])
+        weights += [(f"layer {i} {n}", linear(lp["attn"][n]))
                     for n in ("wq", "wk", "wv", "wo")]
         if kind == "moe":
-            per_token.append((f"layer {i} router", lp["moe"]["router"]["w"]))
+            per_token.append((f"layer {i} router",
+                              linear(lp["moe"]["router"])))
         ffn = lp["mlp"] if kind == "dense" else lp["moe"].get("shared")
         if ffn is not None:
             tag = "mlp" if kind == "dense" else "shared"
-            per_token += [(f"layer {i} {tag} {n}", ffn[n]["w"])
+            per_token += [(f"layer {i} {tag} {n}", linear(ffn[n]))
                           for n in ("w_in", "w_gate", "w_out")]
     verdicts = []
     tokenwise_names = {name for name, _ in per_token}
-    for name, w in weights + per_token:
+    for name, weight in weights + per_token:
         tokenwise = name in tokenwise_names
-        w = w.to(torch.float32 if "head" in name or "router" in name
-                 else cfg.compute_dtype)
+        w = weight().to(torch.float32 if "head" in name or "router" in name
+                        else cfg.compute_dtype)
         x = torch.randn((b * t, w.shape[0]), generator=gen, device=dev
                         ).to(w.dtype)
         small, big = x[:b] @ w, (x @ w)[:b]
@@ -2563,7 +2621,9 @@ def moe_phase(torch, dev):
     print(f"[moe] churn {SERVE}: served {stats['served']}, "
           f"{stats['total_tokens']} tokens in {stats['wall_s']:.3f} s, "
           f"{stats['tok_s']:.1f} tok/s, {stats['decode_steps']} decode steps, "
-          f"{stats['slot_prefills']} slot prefills, p50/p99 step "
+          f"{stats['slot_prefills']} slot prefills "
+          f"({stats['slot_prefills'] - SERVE['slots']} of them admitted "
+          f"while others decode), p50/p99 step "
           f"{stats['p50_step_ms']:.2f}/{stats['p99_step_ms']:.2f} ms, leaked "
           f"{stats['leaked_blocks']}, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, launches "
@@ -2627,15 +2687,23 @@ def dense_smoke_phase(torch, dev):
     print(f"[dense-smoke] phase wall time {time.perf_counter() - t0:.1f} s")
 
 
-def dense_full_phase(torch, dev, arch: str, *, speculative: bool):
+def dense_full_phase(torch, dev, arch: str, *, speculative: bool,
+                     int8: bool = False, requests: int = SERVE["requests"],
+                     gen: int = SERVE["gen"], tag: str = "dense"):
     """``arch`` at full width on the card, drawn leaf by leaf in bf16 (the
-    LM head, or a tied embedding table, f32): the churn through
-    ``serve_paged`` with its warm-up; with ``speculative`` also one batch
-    under the profiler, the row-count check and the churn through
-    ``serve_speculative`` self-drafted at gamma 4 (tokens those of the
-    plain churn where the row check says they must be).  Returns the main
-    paths' launches of kernels 1, 2 and 3 (1 and 2 from the plain churn, 3
-    from the speculative one)."""
+    LM head, or a tied embedding table, f32), or with ``int8`` as int8
+    serve weights (``serve_param_dtype="int8"``: each layer, the table and
+    the head drawn in f32 and quantized at once): the churn of
+    ``requests`` (gens up to ``gen``; more requests than slots, so that
+    some are admitted while others decode) through ``serve_paged`` with
+    its warm-up; with
+    ``speculative`` also one batch under the profiler, the row-count check
+    and the churn through ``serve_speculative`` self-drafted at gamma 4
+    (tokens those of the plain churn where the row check says they must
+    be); with ``int8`` also the composed churn (``attn_fused=False``, the
+    fused churn's tokens).  Returns the main paths' launches of kernels 1,
+    2 and 3 (1 and 2 from the plain churn, 3 from the speculative one) and,
+    with ``int8``, 5 (the composed churn)."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels import splitmax_attn, splitmax_decode as K
     from repro_torch.launch import serve as srv
@@ -2646,36 +2714,65 @@ def dense_full_phase(torch, dev, arch: str, *, speculative: bool):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     cfg = get_arch(arch).config
+    if int8:
+        cfg = cfg.replace(serve_param_dtype="int8")
     name = cfg.name
+    resident = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     params = T.init_params(cfg, seed=SERVE["seed"], device=dev, serving=True)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     w_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(params))
     init_peak = torch.cuda.max_memory_allocated()
+    free, total = torch.cuda.mem_get_info()
     # never the f32 masters: at most the largest f32 draw (the padded vocab
-    # x d_model table or head) and its scaled copy beside the weights
-    f32_draw = 4 * L.pad_vocab(cfg.vocab_size,
-                               cfg.vocab_pad_multiple) * cfg.d_model
-    check(init_peak <= w_bytes + 2 * f32_draw, f"{name} init: peak "
-          f"{init_peak / 1e9:.2f} GB for {w_bytes / 1e9:.2f} GB of weights")
-    print(f"[dense] {name} at full width: {cfg.n_layers} layers, d_model "
+    # x d_model table or head) and its bf16 copy beside the weights; with
+    # int8 (a whole layer drawn in f32, then quantized in its own storage)
+    # the largest draw and its int8 payload, and no draw alive once it is
+    # quantized.  max_memory_allocated counts what was resident before the
+    # phase too.
+    f32_draw = 4 * max(
+        L.pad_vocab(cfg.vocab_size, cfg.vocab_pad_multiple) * cfg.d_model,
+        max(sum(x.numel() for x in tree_leaves(lp))
+            for lp in params["layers"]) if int8 else 0)
+    over = f32_draw * (1.25 if int8 else 2)
+    check(init_peak <= resident + w_bytes + over, f"{name} init: peak "
+          f"{init_peak / 1e9:.2f} GB for {w_bytes / 1e9:.2f} GB of weights "
+          f"and {resident / 1e9:.2f} GB resident before (allowed "
+          f"{over / 1e9:.2f} GB over them)")
+    how = ("drawn layer by layer in f32 and quantized (int8 serve weights)"
+           if int8 else "drawn leaf by leaf (bf16)")
+    print(f"[{tag}] {name} at full width: {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd} "
           f"(q columns {cfg.n_heads * cfg.hd}), d_ff {cfg.d_ff}, vocab "
           f"{cfg.vocab_size}, norm {cfg.norm}, qk_norm {cfg.qk_norm}, tied "
           f"{cfg.tie_embeddings}, rope {cfg.rope_theta:g}; "
-          f"{cfg.param_count():,} parameters, seeded random weights drawn "
-          f"leaf by leaf in {init_s:.2f} s: {w_bytes / 1e9:.2f} GB, peak "
-          f"{init_peak / 1e9:.2f} GB")
+          f"{cfg.param_count():,} parameters, seeded random weights "
+          f"{how} in "
+          f"{init_s:.2f} s: {w_bytes / 1e9:.2f} GB, peak "
+          f"{init_peak / 1e9:.2f} GB ({resident / 1e9:.2f} GB resident "
+          f"before); mem_get_info after init: {free / 1e9:.2f} GB free of "
+          f"{total / 1e9:.2f} GB")
 
-    prompts, gens = churn(cfg)
-    kw = dict(slots=SERVE["slots"], gen=SERVE["gen"], gens=gens,
+    prompts, gens = churn(cfg, requests, gen)
+    kw = dict(slots=SERVE["slots"], gen=gen, gens=gens,
               block_k=SERVE["block_k"])
+    if requests != SERVE["requests"] or gen != SERVE["gen"]:
+        print(f"[{tag}] {name}: the churn cut to its first {requests} "
+              f"requests, gens in [{gen // 2}, {gen}] (every forward "
+              f"dequantizes {w_bytes / 1e9:.1f} GB of int8 weights)"
+              if int8 else f"[{tag}] {name}: the churn cut to {requests} "
+              f"requests, gens in [{gen // 2}, {gen}]")
     splitmax_attn.launches = K.launches = 0
     stats = srv.serve_paged(params, cfg, prompts, warmup=True, **kw)
     torch.cuda.synchronize()
     n_prefill, n_decode = splitmax_attn.launches, K.launches
     check_served(stats, gens, cfg.vocab_size, f"{name} churn")
+    # more requests than slots and unequal first gens: a slot retires while
+    # the others decode, and the next request is admitted into it
+    check(stats["slot_prefills"] > SERVE["slots"]
+          and len(set(gens[:SERVE["slots"]])) > 1,
+          f"{name}: no request admitted while others decode")
     n_warm = (stats["warmup_prefills"], stats["warmup_decode_steps"])
     check(n_warm == (2, 1), f"{name} warm-up ran {n_warm} prefills and "
           f"decodes")
@@ -2685,10 +2782,14 @@ def dense_full_phase(torch, dev, arch: str, *, speculative: bool):
     check(n_decode == (stats["decode_steps"] + n_warm[1]) * cfg.n_layers,
           f"{name} decode launches {n_decode} != ({stats['decode_steps']} "
           f"steps + {n_warm[1]} warm-up) x {cfg.n_layers} layers")
-    print(f"[dense] {name} churn {SERVE}: served {stats['served']}, "
+    print(f"[{tag}] {name} churn of {requests} requests, {SERVE['slots']} "
+          f"slots, {SERVE['prompt_len']}-token prompts, gens to {gen}: "
+          f"served {stats['served']}, "
           f"{stats['total_tokens']} tokens in {stats['wall_s']:.3f} s, "
           f"{stats['tok_s']:.1f} tok/s, {stats['decode_steps']} decode steps, "
-          f"{stats['slot_prefills']} slot prefills, p50/p99 step "
+          f"{stats['slot_prefills']} slot prefills "
+          f"({stats['slot_prefills'] - SERVE['slots']} of them admitted "
+          f"while others decode), p50/p99 step "
           f"{stats['p50_step_ms']:.2f}/{stats['p99_step_ms']:.2f} ms, leaked "
           f"{stats['leaked_blocks']}, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, launches "
@@ -2723,7 +2824,7 @@ def dense_full_phase(torch, dev, arch: str, *, speculative: bool):
             check(same == len(stats["finished"]),
                   f"{name} speculative: tokens differ from plain serving in "
                   f"{len(stats['finished']) - same} requests")
-        print(f"[dense] {name} speculative self gamma {gamma}: served "
+        print(f"[{tag}] {name} speculative self gamma {gamma}: served "
               f"{spec['served']}, {spec['total_tokens']} tokens in "
               f"{spec['wall_s']:.3f} s, {spec['tok_s']:.1f} tok/s (plain "
               f"{stats['tok_s']:.1f}), {spec['verify_steps']} rounds, p50/p99 "
@@ -2732,14 +2833,33 @@ def dense_full_phase(torch, dev, arch: str, *, speculative: bool):
               f"{same}/{len(stats['finished'])} requests (required: {agree}), "
               f"leaked {spec['leaked_blocks']}, launches prefill {n_pre} "
               f"decode {n_dec} verify {n_ver}")
-    print(f"[dense] {name} phase wall time {time.perf_counter() - t_phase:.1f} "
-          f"s, peak device memory "
+    out = {"splitmax_attention": n_prefill,
+           "splitmax_decode_fused_paged": n_decode,
+           "splitmax_decode_fused_verify_paged": n_ver}
+    if int8:
+        K.launches = K.composed_launches = 0
+        comp = srv.serve_paged(params, cfg.replace(attn_fused=False), prompts,
+                               **kw)
+        torch.cuda.synchronize()
+        n_comp = K.composed_launches
+        check_served(comp, gens, cfg.vocab_size, f"{name} composed churn")
+        check(n_comp == comp["decode_steps"] * cfg.n_layers > 0
+              and K.launches == 0,
+              f"{name} composed launches {n_comp} (fused {K.launches}) != "
+              f"{comp['decode_steps']} steps x {cfg.n_layers}")
+        check(comp["finished"] == stats["finished"],
+              f"{name}: composed tokens differ from the fused churn's")
+        print(f"[{tag}] {name} composed churn (attn_fused=False): "
+              f"{served_line(comp, torch)}, tokens == fused, composed "
+              f"launches {n_comp}")
+        out["splitmax_decode_paged"] = n_comp
+    print(f"[{tag}] {name} phase wall time "
+          f"{time.perf_counter() - t_phase:.1f} s, weights "
+          f"{w_bytes / 1e9:.2f} GB, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     del params
     torch.cuda.empty_cache()
-    return {"splitmax_attention": n_prefill,
-            "splitmax_decode_fused_paged": n_decode,
-            "splitmax_decode_fused_verify_paged": n_ver}
+    return out
 
 
 def profile_serving(torch, srv, params, cfg, prompts, gen: int = 8,
@@ -3099,6 +3219,11 @@ def encdec_full_phase(torch, F, dev):
     torch.cuda.synchronize()
     n_prefill, n_decode = splitmax_attn.launches, K.launches
     check_served(stats, gens, cfg.vocab_size, f"{name} churn")
+    # more requests than slots and unequal first gens: a slot retires while
+    # the others decode, and the next request is admitted into it
+    check(stats["slot_prefills"] > SERVE["slots"]
+          and len(set(gens[:SERVE["slots"]])) > 1,
+          f"{name}: no request admitted while others decode")
     n_warm = (stats["warmup_prefills"], stats["warmup_decode_steps"])
     check(n_warm == (2, 1), f"{name} warm-up ran {n_warm} prefills and "
           f"decodes")
@@ -3119,7 +3244,9 @@ def encdec_full_phase(torch, F, dev):
           f"{cfg.d_model} frames: served {stats['served']}, "
           f"{stats['total_tokens']} tokens in {stats['wall_s']:.3f} s, "
           f"{stats['tok_s']:.1f} tok/s, {stats['decode_steps']} decode steps, "
-          f"{stats['slot_prefills']} slot prefills, p50/p99 step "
+          f"{stats['slot_prefills']} slot prefills "
+          f"({stats['slot_prefills'] - SERVE['slots']} of them admitted "
+          f"while others decode), p50/p99 step "
           f"{stats['p50_step_ms']:.2f}/{stats['p99_step_ms']:.2f} ms, leaked "
           f"{stats['leaked_blocks']}, pool {pool['num_blocks']} blocks "
           f"(carved bank {carved} = {SERVE['slots']} slots x {cross_bps}), "
@@ -3329,6 +3456,11 @@ def falcon_full_phase(torch, dev) -> None:
     stats = srv.serve_paged(params, cfg, prompts, warmup=True, **kw)
     torch.cuda.synchronize()
     check_served(stats, gens, cfg.vocab_size, f"{name} churn")
+    # more requests than slots and unequal first gens: a slot retires while
+    # the others decode, and the next request is admitted into it
+    check(stats["slot_prefills"] > SERVE["slots"]
+          and len(set(gens[:SERVE["slots"]])) > 1,
+          f"{name}: no request admitted while others decode")
     n_warm = (stats["warmup_prefills"], stats["warmup_decode_steps"])
     check(n_warm == (1, 1), f"{name} warm-up ran {n_warm} prefills and "
           f"decodes")
@@ -3562,6 +3694,421 @@ def hybrid_full_phase(torch, F, dev):
              "splitmax_decode": runs[False][2]}, subs, errs)
 
 
+# ------------------------------------- int8 serve weights, CIM, baselines --
+
+def int8_smoke_check(torch, dev) -> None:
+    """Int8 serve weights at the smoke size in f32: each of
+    ``INT8_SMOKE_ARCHS`` drawn on the CPU by a serving init with
+    ``serve_param_dtype="int8"`` and served on the card and on the CPU
+    from the same weights (a 6-request churn; SeamlessM4T with 24 frames a
+    request, Zamba2 through the dense cache): equal tokens.  Then
+    Falcon-Mamba's Mamba-1 layers refused on the card, by the serving init
+    and by ``serve`` given quantized weights (``ValueError``)."""
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.core import quantization as qlib
+    from repro_torch.launch import serve as srv
+    from repro_torch.models import encdec as E
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    cpu = torch.device("cpu")
+    # the dequantization itself, in place in the compute dtype: the card's
+    # bits are the CPU's (bf16: one rounding of the f32 product)
+    w = torch.randn((2048, 5632), generator=torch.Generator().manual_seed(5))
+    q, s = qlib.quantize_weight(w)
+    for dt in (torch.bfloat16, torch.float32):
+        on_card = L.linear_weight({"w_q": q.to(dev), "w_s": s.to(dev)}, dt)
+        check(torch.equal(on_card.cpu(), L.linear_weight(
+            {"w_q": q, "w_s": s}, dt)), f"int8 dequant to {dt}: card != CPU")
+    print("[int8-smoke] dequant of a 2048 x 5632 int8 weight to bf16 and "
+          "f32: card == CPU bit for bit")
+    for arch in INT8_SMOKE_ARCHS:
+        cfg = get_arch(arch).smoke.replace(dtype="float32",
+                                           serve_param_dtype="int8")
+        init = E.init_params if cfg.family == "encdec" else T.init_params
+        params = init(cfg, seed=0, device=cpu, serving=True)
+        n_int8 = sum(x.dtype == torch.int8 for x in tree_leaves(params))
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab_size, 24, dtype=np.int32)
+                   for _ in range(6)]
+        gens = [int(g) for g in rng.integers(8, 17, 6)]
+        kw = dict(slots=3, gen=16, gens=gens, block_k=8)
+        if cfg.family == "encdec":
+            kw["frames"] = [np.asarray(rng.normal(size=(24, cfg.d_model)),
+                                       np.float32) * 0.02 for _ in range(6)]
+        if cfg.family == "hybrid":
+            kw["cache_kind"] = "dense"
+        on_card = srv.serve(tree_to(params, dev), cfg, prompts, **kw)
+        on_cpu = srv.serve(params, cfg, prompts, **kw)
+        what = f"{arch} int8 smoke churn"
+        check_served(on_card, gens, cfg.vocab_size, what,
+                     overshoot=int(cfg.family == "hybrid"))
+        check(n_int8 > 0 and on_card["finished"] == on_cpu["finished"],
+              f"{what}: card tokens differ from the CPU's ({n_int8} int8 "
+              f"leaves)")
+        print(f"[int8-smoke] {cfg.name} (f32 compute, {n_int8} int8 weight "
+              f"leaves), 6-request churn "
+              f"({kw.get('cache_kind', 'paged')}): card tokens == CPU tokens")
+    cfg = get_arch(SSM_ARCH).smoke.replace(dtype="float32")
+    masters = T.init_params(cfg, seed=0, device=dev)
+    prompt = [np.arange(8, dtype=np.int32)]
+    refusals = {
+        "serving init": lambda: T.init_params(
+            cfg.replace(serve_param_dtype="int8"), device=dev, serving=True),
+        "serve": lambda: srv.serve(
+            qlib.quantize_weights_for_serving(masters), cfg, prompt, slots=1,
+            gen=2)}
+    for what, call in refusals.items():
+        try:
+            call()
+        except ValueError as e:
+            check(cfg.family in str(e), f"{cfg.name} int8 {what}: the "
+                  f"refusal does not name the family: {e}")
+            print(f"[int8-smoke] {cfg.name} int8 {what} refused: {e}")
+        else:
+            check(False, f"{cfg.name}: int8 {what} of Mamba-1 layers ran")
+
+
+def decode_baselines_check(torch, dev) -> None:
+    """The decode attention's float and fakequant baselines
+    (``serve_attn_mode``) on TinyLlama's smoke config in f32, the card vs
+    the CPU, same weights: paged prefill + 8 decode steps within
+    ``DECODE_BASELINE_TOL`` of the logits' scale, and a 6-request churn's
+    tokens equal.  No split-softmax kernel runs in these modes."""
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import splitmax_attn, splitmax_decode as K
+    from repro_torch.launch import serve as srv
+    from repro_torch.models import transformer as T
+
+    cpu = torch.device("cpu")
+    base = get_arch("tinyllama_1p1b").smoke.replace(dtype="float32")
+    params = T.init_params(base, seed=0, device=cpu)
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, base.vocab_size, (1, 20))
+    prompts = [rng.integers(0, base.vocab_size, 24, dtype=np.int32)
+               for _ in range(6)]
+    gens = [int(g) for g in rng.integers(8, 17, 6)]
+    kw = dict(slots=3, gen=16, gens=gens, block_k=8)
+    for mode in ("float", "fakequant"):
+        cfg = base.replace(serve_attn_mode=mode)
+        splitmax_attn.launches = K.launches = 0
+        gpu = smoke_paged_logits(torch, params, cfg, tokens, dev)
+        on_card = srv.serve_paged(tree_to(params, dev), cfg, prompts, **kw)
+        torch.cuda.synchronize()
+        n_kernels = splitmax_attn.launches + K.launches
+        ref = smoke_paged_logits(torch, params, cfg, tokens, cpu)
+        on_cpu = srv.serve_paged(params, cfg, prompts, **kw)
+        err = float((gpu - ref).abs().max())
+        scale = float(ref.abs().max())
+        what = f"{mode} decode baseline"
+        check(bool(torch.isfinite(gpu).all()), f"{what}: non-finite")
+        check(err <= DECODE_BASELINE_TOL * scale, f"{what}: max|gpu-cpu| "
+              f"logits {err:.3g} > {DECODE_BASELINE_TOL} * {scale:.3g}")
+        check_served(on_card, gens, base.vocab_size, what)
+        check(on_card["finished"] == on_cpu["finished"],
+              f"{what}: card tokens differ from the CPU's")
+        check(n_kernels == 0, f"{what}: {n_kernels} split-softmax launches")
+        print(f"[baselines] {base.name} serve_attn_mode={mode!r}: prefill + "
+              f"8 decode steps max|logit diff| card vs CPU {err:.3g} of "
+              f"{scale:.3g} (tol {DECODE_BASELINE_TOL} of the scale); "
+              f"6-request churn tokens == CPU tokens; 0 split-softmax "
+              f"launches")
+
+
+def deepseek_kernel_shapes(torch, F, dev):
+    """Kernels 1, 2, 5 and 3 at DeepSeek-67B's 64/8 heads of D 128 (GQA
+    group 8): kernel 1 at its B 1 x 250 admission, kernels 2 and 5 over an
+    8-slot pool of block_k 32 at the int8 churn's lengths (251..266), and
+    kernel 3 at gamma 4 and gamma 8 over the same pool; each bit for bit
+    its ``exact=True`` plain version and within ``tolerance`` of the
+    default one, kernel 5 also bit for bit kernel 2 on ``quantize(q,
+    s_q)``; each timed by graph replay beside its bound and SDPA's bf16
+    kernel.  Returns each kernel's sub-entry (``"deepseek67b"``) and its
+    largest error."""
+    from repro_torch.core import paged_kv
+    from repro_torch.core import quantization as qlib
+    from repro_torch.core.attention import luts_for
+    from repro_torch.core.lut import LUTConfig
+    from repro_torch.kernels import ops, splitmax_attn as KA
+    from repro_torch.kernels import splitmax_decode as KD
+
+    lcfg = LUTConfig(scale_z=8.0 / 127)
+    exp_lut, recip_lut = luts_for(lcfg.scale_z, dev)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    hq, hkv, d = (DS_HEADS[k] for k in ("hq", "hkv", "d"))
+    b, bk, s = SERVE["slots"], SERVE["block_k"], SERVE["prompt_len"]
+    luts = 4 * (256 + lcfg.recip_table_size)
+    fns, entries, errs = {}, {}, {}
+
+    def held(name, ker, exact, default, s_v, what):
+        torch.cuda.synchronize()
+        err, tol = float((ker - default).abs().max()), tolerance(float(s_v))
+        check(torch.equal(ker, exact), f"deepseek67b {what}: kernel != the "
+              f"exact=True plain version")
+        check(err <= tol, f"deepseek67b {what}: max|kernel-plain| {err:.3g} "
+              f"> {tol:.3g}")
+        errs[name] = max(errs.get(name, 0.0), err)
+        return err
+
+    # kernel 1: one admission
+    q = torch.randn((1, hq, s, d), generator=gen, device=dev)
+    k = torch.randn((1, hkv, s, d), generator=gen, device=dev)
+    v = torch.randn((1, hkv, s, d), generator=gen, device=dev)
+    s_q, s_k, s_v = (qlib.absmax_scale(x) for x in (q, k, v))
+    args = (qlib.quantize(q, s_q), qlib.quantize(k, s_k),
+            qlib.quantize(v, s_v),
+            ops.requant_multiplier(s_q, s_k, d, lcfg).reshape(()), s_v,
+            exp_lut, recip_lut)
+    kw = dict(cfg=lcfg)
+    err = held("splitmax_attention", KA.splitmax_attention_cuda(*args, **kw),
+               KA.splitmax_attention_plain(*args, exact=True, **kw),
+               KA.splitmax_attention_plain(*args, **kw), s_v,
+               f"prefill B 1 x {s}")
+    fns["prefill"] = lambda: KA.splitmax_attention_cuda(*args, **kw)
+    kb, vb = (x.to(torch.bfloat16).repeat_interleave(hq // hkv, dim=1)
+              for x in (k, v))
+    qb = q.to(torch.bfloat16)
+    fns["prefill sdpa"] = lambda: F.scaled_dot_product_attention(
+        qb, kb, vb, is_causal=True)
+    bms, by = bound_ms(hq * s * d + 2 * hkv * s * d + 4 * hq * s * d + luts,
+                       hq * s * (s + 1) // 2 * 6 * d)
+    entries["prefill"] = {
+        "shape": dict(b=1, s=s, causal=True, **DS_HEADS), "bound_ms": bms,
+        "bound_by": by, "max_abs_err": err,
+        "plain_ms": time_ms(torch, lambda: KA.splitmax_attention_plain(
+            *args, **kw), iters=3, warm=1)}
+
+    # kernels 2 and 5 over the pool
+    lens = torch.randint(s + 1, s + DS_CHURN["gen"] + 1, (b,), generator=gen,
+                         device=dev).tolist()
+    kp, vp, table, lens_t = paged_case(torch, gen, dev, lens, hkv, d, bk)
+    s_k, s_v = pool_scales(torch, dev)
+    q = torch.randn((b, hq, d), generator=gen, device=dev)
+    s_q = qlib.absmax_scale(q, axis=(1, 2)).reshape(-1)
+    m_z = ops.requant_multiplier(s_q, s_k, d, lcfg)
+    dargs = [q, kp, vp, table, m_z, s_q, s_v, lens_t, exp_lut, recip_lut]
+    cargs = [qlib.quantize(q, s_q[:, None, None]), kp, vp, table, m_z, s_v,
+             lens_t, exp_lut, recip_lut]
+    fused = KD.splitmax_decode_fused_paged_cuda(*dargs, cfg=lcfg)
+    composed = KD.splitmax_decode_paged_cuda(*cargs, cfg=lcfg)
+    check(torch.equal(fused, composed), "deepseek67b: the composed decode "
+          "differs from the fused one on quantize(q, s_q)")
+    tiles = sum(paged_kv.blocks_per_seq(n, bk) for n in lens)
+    for key, name, kern, plain, a, q_bytes in (
+            ("decode", "splitmax_decode_fused_paged",
+             KD.splitmax_decode_fused_paged_cuda,
+             KD.splitmax_decode_fused_paged_plain, dargs, 4),
+            ("composed", "splitmax_decode_paged",
+             KD.splitmax_decode_paged_cuda, KD.splitmax_decode_paged_plain,
+             cargs, 1)):
+        err = held(name, kern(*a, cfg=lcfg), plain(*a, cfg=lcfg, exact=True),
+                   plain(*a, cfg=lcfg), s_v, f"{key} lens {lens}")
+        fns[key] = lambda f=kern, a=a: f(*a, cfg=lcfg)
+        bms, by = bound_ms(q_bytes * b * hq * d + 2 * hkv * d * sum(lens)
+                           + 4 * tiles + 4 * b * 3 + 4 * b * hq * d + luts,
+                           sum(lens) * hq * 6 * d)
+        entries[key] = {
+            "shape": dict(b=b, lens=lens, block_k=bk, **DS_HEADS),
+            "bound_ms": bms, "bound_by": by, "max_abs_err": err,
+            "plain_ms": time_ms(torch, lambda f=plain, a=a: f(*a, cfg=lcfg),
+                                iters=10)}
+    fns["decode sdpa"] = sdpa_decode_yardstick(torch, F, gen, dev, b, hq, d,
+                                               [[n] for n in lens])
+
+    # kernel 3: gamma 4 (the served gamma) and 8, over the same pool
+    for gamma in (SPEC["gamma"], 2 * SPEC["gamma"]):
+        key = f"verify gamma {gamma}"
+        qv = torch.randn((b, hq, gamma, d), generator=gen, device=dev)
+        s_qv = qlib.absmax_scale(qv, axis=(1, 3))[:, 0, :, 0].contiguous()
+        vargs = [qv, kp, vp, table, ops.requant_multiplier(s_qv, s_k, d, lcfg),
+                 s_qv, s_v, lens_t, exp_lut, recip_lut]
+        err = held("splitmax_decode_fused_verify_paged",
+                   KD.splitmax_decode_fused_verify_paged_cuda(*vargs,
+                                                              cfg=lcfg),
+                   KD.splitmax_decode_fused_verify_paged_plain(
+                       *vargs, cfg=lcfg, exact=True),
+                   KD.splitmax_decode_fused_verify_paged_plain(*vargs,
+                                                               cfg=lcfg),
+                   s_v, key)
+        fns[key] = (lambda a=vargs:
+                    KD.splitmax_decode_fused_verify_paged_cuda(*a, cfg=lcfg))
+        q_lens = [[n - (gamma - 1 - t) for t in range(gamma)] for n in lens]
+        fns[f"{key} sdpa"] = sdpa_decode_yardstick(torch, F, gen, dev, b, hq,
+                                                   d, q_lens)
+        bms, by = bound_ms(8 * b * hq * gamma * d + 2 * hkv * d * sum(lens)
+                           + 4 * tiles + 4 * b + 8 * b * gamma + 4 + luts,
+                           hq * sum(map(sum, q_lens)) * 6 * d)
+        entries[key] = {
+            "shape": dict(b=b, lens=lens, gamma=gamma, block_k=bk,
+                          **DS_HEADS),
+            "bound_ms": bms, "bound_by": by, "max_abs_err": err,
+            "plain_ms": time_ms(
+                torch, lambda a=vargs:
+                KD.splitmax_decode_fused_verify_paged_plain(*a, cfg=lcfg),
+                iters=3, warm=1)}
+    one = torch.zeros(1, device=dev)
+    fns["launch floor"] = lambda: one.add_(1)
+    times = graph_rounds(torch, fns)
+    floor = times.pop("launch floor")[0]
+    for key, e in entries.items():
+        yard = key if key.startswith(("prefill", "verify")) else "decode"
+        e["ms"], lo, hi = times[key]
+        e["ms_range"] = [lo, hi]
+        e["library_ms"] = times[f"{yard} sdpa"][0]
+        e["launch_floor_ms"] = floor
+        print(f"[ds67b-kernels] {key} {hq}/{hkv} d{d} {e['shape']}: == exact "
+              f"oracle, max_abs_err {e['max_abs_err']:.3g}; kernel "
+              f"{e['ms']:.5f} ms ({lo:.5f}-{hi:.5f}), bound "
+              f"{e['bound_ms']:.5f} ms ({e['bound_by']}), plain "
+              f"{e['plain_ms']:.4f} ms, SDPA bf16 {e['library_ms']:.5f} ms, "
+              f"launch floor {floor:.5f} ms")
+    subs = {"splitmax_attention": entries["prefill"],
+            "splitmax_decode_fused_paged": entries["decode"],
+            "splitmax_decode_paged": entries["composed"],
+            "splitmax_decode_fused_verify_paged": {
+                k: v for k, v in entries.items() if k.startswith("verify")}}
+    return subs, errs
+
+
+def cim_phase(torch, dev):
+    """The CIM datapath model (``core/cim.py``) through kernel 8 at one
+    DeepSeek-67B MLP shape (``CIM_SHAPE``: x (M, K) @ w_in (K, N)): the
+    nibble-split product (2 body launches, each on its own pre-pass) and
+    the 8-cycle bit-serial one (8 body launches on one pre-pass), counted
+    from 0, each bit for bit kernel 8's direct product and its plain
+    version's; then the Q15 requant pipeline on the card bit for bit the
+    CPU's.  Timed host-inclusive beside the direct product, the plain
+    version and ``torch._int_mm``.  Returns kernel 8's ``"cim"``
+    sub-entry."""
+    from repro_torch.core import cim
+    from repro_torch.core import quantization as qlib
+    from repro_torch.kernels import int8_matmul as K8
+
+    m, k, n = CIM_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(21)
+    x = int8_like(torch, gen, (m, k), dev)
+    w = torch.randint(-128, 128, (k, n), generator=gen, device=dev,
+                      dtype=torch.int8)
+    K8.launches = K8.pack_launches = 0
+    nib = cim.nibble_split_matmul(x, w)
+    torch.cuda.synchronize()
+    by_path = {"cim nibble split": (K8.launches, K8.pack_launches)}
+    K8.launches = K8.pack_launches = 0
+    ser = cim.serial_bit_matmul(x, w)
+    torch.cuda.synchronize()
+    by_path["cim bit-serial"] = (K8.launches, K8.pack_launches)
+    check(by_path == {"cim nibble split": (2, 2), "cim bit-serial": (8, 1)},
+          f"CIM kernel 8 launches (body, pre-pass) {by_path}, want "
+          f"(2, 2) and (8, 1)")
+    direct = K8.int8_matmul_cuda(x, w)
+    plain = K8.int8_matmul_plain(x, w)
+    for what, got in (("nibble split", nib), ("bit-serial", ser)):
+        check(torch.equal(got, direct) and torch.equal(got, plain),
+              f"CIM {what}: differs from kernel 8's direct product or its "
+              f"plain version's")
+    requant = {}
+    for mult in CIM_REQUANT_MULTIPLIERS:
+        on_card = qlib.requantize_int32_bitexact(direct, mult)
+        on_cpu = qlib.requantize_int32_bitexact(direct.cpu(), mult)
+        check(torch.equal(on_card.cpu(), on_cpu), f"requantize_int32_bitexact "
+              f"(m {mult}): card != CPU")
+        ideal = qlib.requantize_int32(direct, torch.tensor(mult, device=dev))
+        requant[mult] = int((ideal.int() - on_card.int()).abs().max())
+        check(requant[mult] <= 1, f"requant m {mult}: {requant[mult]} LSB "
+              f"from the float requant")
+    times = {"nibble_split_ms": lambda: cim.nibble_split_matmul(x, w),
+             "serial_bit_ms": lambda: cim.serial_bit_matmul(x, w),
+             "direct_ms": lambda: K8.int8_matmul_cuda(x, w),
+             "plain_ms": lambda: K8.int8_matmul_plain(x, w),
+             "library_ms": lambda: torch._int_mm(x, w),
+             "requant_bitexact_ms":
+                 lambda: qlib.requantize_int32_bitexact(direct, 0.0117)}
+    out = {key: time_ms(torch, fn, iters=5, warm=2)
+           for key, fn in times.items()}
+    bms, by = bound_ms(m * k + k * n + 4 * m * n, 2 * m * k * n)
+    out.update(shape=[m, k, n], bound_ms=bms, bound_by=by,
+               launches_by_path={p: v[0] for p, v in by_path.items()},
+               pre_pass_launches_by_path={p: v[1] for p, v in by_path.items()},
+               requant_max_lsb_from_float=requant, exact_equal=True)
+    print(f"[cim] x ({m}, {k}) @ w ({k}, {n}) int8: nibble split (2 kernel-8 "
+          f"launches) and bit-serial (8 on one pre-pass) == kernel 8's direct "
+          f"product == its plain version, bit for bit; requant pipeline card "
+          f"== CPU, within {max(requant.values())} LSB of the float requant; "
+          f"host-inclusive ms: nibble {out['nibble_split_ms']:.4f}, "
+          f"bit-serial {out['serial_bit_ms']:.4f}, direct "
+          f"{out['direct_ms']:.4f}, plain f64 {out['plain_ms']:.4f}, "
+          f"torch._int_mm {out['library_ms']:.4f}, requant "
+          f"{out['requant_bitexact_ms']:.4f}; bound {bms:.5f} ms ({by})")
+    return out
+
+
+def tinyllama_int8_vs_bf16(torch, dev) -> None:
+    """TinyLlama-1.1B at full width on the serving churn (SERVE: 24
+    requests, 8 slots, gens 16..32), with bf16 and with int8 serve weights
+    from the same seed, both resident: each served with its warm-up in
+    ``INT8_VS_BF16_ORDER`` (interleaved, so that a drift of the shared
+    host falls on both).  Prints every run's tok/s and p50 step, each
+    dtype's median and spread, and the int8 / bf16 ratio of the medians,
+    called unresolved where a spread exceeds the gap.  A record of the
+    dequantization's cost, not a target; each dtype's tokens repeat bit
+    for bit."""
+    import statistics
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve as srv
+    from repro_torch.models import transformer as T
+
+    base = get_arch("tinyllama_1p1b").config
+    prompts, gens = churn(base)
+    kw = dict(slots=SERVE["slots"], gen=SERVE["gen"], gens=gens,
+              block_k=SERVE["block_k"])
+    models = {}
+    for dtype in ("bfloat16", "int8"):
+        cfg = base.replace(serve_param_dtype=dtype)
+        params = T.init_params(cfg, seed=SERVE["seed"], device=dev,
+                               serving=True)
+        w_bytes = sum(x.numel() * x.element_size()
+                      for x in tree_leaves(params))
+        models[dtype] = (cfg, params, w_bytes)
+    runs = {"bfloat16": [], "int8": []}
+    tokens = {}
+    for i, dtype in enumerate(INT8_VS_BF16_ORDER):
+        cfg, params, w_bytes = models[dtype]
+        stats = srv.serve_paged(params, cfg, prompts, warmup=True, **kw)
+        torch.cuda.synchronize()
+        check_served(stats, gens, cfg.vocab_size, f"{cfg.name} {dtype}")
+        check(tokens.setdefault(dtype, stats["finished"])
+              == stats["finished"],
+              f"{cfg.name} {dtype}: run {i} tokens differ from its first")
+        runs[dtype].append(stats)
+        print(f"[int8-vs-bf16] run {i} {cfg.name} {dtype} weights "
+              f"({w_bytes / 1e9:.2f} GB): {served_line(stats, torch)}")
+    del models
+    torch.cuda.empty_cache()
+
+    def summary(key):
+        """Each dtype's median of ``key`` and its spread (max - min over
+        the median), and the int8 / bf16 ratio of the medians."""
+        med, spread = {}, {}
+        for dtype, rs in runs.items():
+            xs = [r[key] for r in rs]
+            med[dtype] = statistics.median(xs)
+            spread[dtype] = (max(xs) - min(xs)) / med[dtype]
+        ratio = med["int8"] / med["bfloat16"]
+        verdict = ("resolved" if abs(ratio - 1) > max(spread.values())
+                   else "unresolved: a spread exceeds the gap")
+        return (f"{key} int8 / bf16 {ratio:.3f} (medians {med['int8']:.2f} "
+                f"/ {med['bfloat16']:.2f} of {len(runs['int8'])} runs each; "
+                f"spread int8 {100 * spread['int8']:.1f}%, bf16 "
+                f"{100 * spread['bfloat16']:.1f}%, gap "
+                f"{100 * abs(ratio - 1):.1f}%): {verdict}")
+
+    print(f"[int8-vs-bf16] {summary('tok_s')}")
+    print(f"[int8-vs-bf16] {summary('p50_step_ms')}")
+
+
 def main() -> int:
     t_script = time.perf_counter()
     import torch
@@ -3642,6 +4189,19 @@ def main() -> int:
     ssm_smoke_check(torch, dev)
     falcon_full_phase(torch, dev)
     hybrid, hybrid_subs, hybrid_errs = hybrid_full_phase(torch, F, dev)
+    # no model calls kernels 7 and 8: their counts are still 0 here
+    check(splitmax_decode.dense_verify_launches == int8_matmul.launches
+          == int8_matmul.pack_launches == 0, "the dense verify or the int8 "
+          "GEMM launched on a model's path")
+    t_phase = time.perf_counter()
+    int8_smoke_check(torch, dev)
+    decode_baselines_check(torch, dev)
+    ds67b = dense_full_phase(torch, dev, DS_ARCH, speculative=True, int8=True,
+                             tag="ds67b", **DS_CHURN)
+    ds_subs, ds_errs = deepseek_kernel_shapes(torch, F, dev)
+    tinyllama_int8_vs_bf16(torch, dev)
+    cim = cim_phase(torch, dev)
+    print(f"[ds67b] phase 12 wall time {time.perf_counter() - t_phase:.1f} s")
     by_path = {"paged churn": launches["splitmax_attention"],
                "dense churn": dense.pop("splitmax_attention"),
                "pressure churn": n_pressure,
@@ -3651,19 +4211,23 @@ def main() -> int:
                "mistral-nemo churn": nemo["splitmax_attention"],
                "olmo churn": olmo["splitmax_attention"],
                "seamless churn": seamless["splitmax_attention"],
-               "zamba2 dense churn": hybrid["splitmax_attention"]}
+               "zamba2 dense churn": hybrid["splitmax_attention"],
+               "deepseek-67b int8 churn": ds67b["splitmax_attention"]}
     decode_by_path = {
         "paged churn": launches["splitmax_decode_fused_paged"],
         "moe churn": moe["splitmax_decode_fused_paged"],
         "mistral-nemo churn": nemo["splitmax_decode_fused_paged"],
         "olmo churn": olmo["splitmax_decode_fused_paged"],
-        "seamless churn": seamless["splitmax_decode_fused_paged"]}
+        "seamless churn": seamless["splitmax_decode_fused_paged"],
+        "deepseek-67b int8 churn": ds67b["splitmax_decode_fused_paged"]}
     verify_by_path = {
         "speculative churn (self, self:4)":
             launches["splitmax_decode_fused_verify_paged"],
         "moe speculative churn": moe["splitmax_decode_fused_verify_paged"],
         "mistral-nemo speculative churn":
-            nemo["splitmax_decode_fused_verify_paged"]}
+            nemo["splitmax_decode_fused_verify_paged"],
+        "deepseek-67b int8 speculative churn":
+            ds67b["splitmax_decode_fused_verify_paged"]}
     for paths in (by_path, decode_by_path, verify_by_path):
         for path, n in paths.items():
             check(n > 0, f"no split-softmax launch on the {path} path")
@@ -3673,7 +4237,10 @@ def main() -> int:
     launches["splitmax_attention"] = sum(by_path.values())
     check(seamless["splitmax_decode_paged"] > 0, "no composed decode launch "
           "on the seamless composed churn")
-    launches["splitmax_decode_paged"] += seamless["splitmax_decode_paged"]
+    check(ds67b["splitmax_decode_paged"] > 0, "no composed decode launch "
+          "on the deepseek-67b int8 composed churn")
+    launches["splitmax_decode_paged"] += (seamless["splitmax_decode_paged"]
+                                          + ds67b["splitmax_decode_paged"])
     launches.update(dense)
     for name, what in (("splitmax_decode_fused", "zamba2 dense churn"),
                        ("splitmax_decode", "zamba2 composed dense churn")):
@@ -3682,12 +4249,16 @@ def main() -> int:
     launches["splitmax_decode_fused_verify"] = (
         splitmax_decode.dense_verify_launches)
     # kernel 8's body and its K-major pre-pass, each counted at its launch
-    launches["int8_matmul"] = int8_matmul.launches
-    launches["int8_matmul pre-pass"] = int8_matmul.pack_launches
+    # on its one path, the CIM datapath model
+    launches["int8_matmul"] = sum(cim["launches_by_path"].values())
+    launches["int8_matmul pre-pass"] = sum(
+        cim["pre_pass_launches_by_path"].values())
     for k in kernels:
         k["launches"] = launches[k["name"]]
-    next(k for k in kernels if k["name"] == "int8_matmul")[
-        "pre_pass_launches"] = launches["int8_matmul pre-pass"]
+    k8 = next(k for k in kernels if k["name"] == "int8_matmul")
+    k8.update(pre_pass_launches=launches["int8_matmul pre-pass"],
+              path="core/cim.py: nibble_split_matmul, serial_bit_matmul",
+              launches_by_path=cim.pop("launches_by_path"), cim=cim)
     for k, paths in zip(kernels, (by_path, decode_by_path, verify_by_path)):
         k["launches_by_path"] = paths
     for k in kernels:
@@ -3695,21 +4266,23 @@ def main() -> int:
             k["seamless"] = seamless_subs[k["name"]]
         if k["name"] in hybrid_subs:
             k["zamba2"] = hybrid_subs[k["name"]]
+        if k["name"] in ds_subs:
+            k["deepseek67b"] = ds_subs[k["name"]]
     err_of = {"splitmax_attention": seamless_errs["splitmax_attention"],
               "splitmax_decode_fused_paged": seamless_errs["decode"],
               "splitmax_decode_paged": seamless_errs["composed"]}
     for k in kernels:
-        for errs in (err_of, hybrid_errs):
+        for errs in (err_of, hybrid_errs, ds_errs):
             if k["name"] in errs:
                 k["max_abs_err"] = max(k["max_abs_err"], errs[k["name"]])
     for name in ("splitmax_attention", "splitmax_decode_fused_paged",
                  "splitmax_decode_fused_verify_paged", "splitmax_decode_paged",
-                 "splitmax_decode_fused", "splitmax_decode"):
-        check(launches[name] > 0, f"{name} never launched on the main path")
-    for name in ("splitmax_decode_fused_verify", "int8_matmul",
+                 "splitmax_decode_fused", "splitmax_decode", "int8_matmul",
                  "int8_matmul pre-pass"):
-        check(launches[name] == 0, f"{name} launched {launches[name]} times "
-              f"on a main path, which no model of the reference does")
+        check(launches[name] > 0, f"{name} never launched on the main path")
+    n_dense_verify = launches["splitmax_decode_fused_verify"]
+    check(n_dense_verify == 0, f"the dense verify launched {n_dense_verify} "
+          f"times on a main path, which no model of the reference does")
 
     print(f"[wall] chip_smoke.py {time.perf_counter() - t_script:.1f} s, "
           f"the kernels' build included")

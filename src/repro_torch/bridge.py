@@ -19,7 +19,9 @@ list each.
 :func:`to_jax_layout` is the inverse map, which the trainer's checkpoints
 use so that the reference restores them.  A non-parametric norm is the
 empty dict in both layouts, and a tied config has no ``lm_head`` in
-either.
+either.  Int8 serve weights (``w_q``/``w_s``, ``table_q``/``table_s``)
+cross like any leaf: a stacked ``(L, 1, 1)`` scale becomes each layer's
+``(1, 1)`` and back.
 """
 from __future__ import annotations
 

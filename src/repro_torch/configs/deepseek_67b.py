@@ -1,7 +1,9 @@
 """deepseek-67b — dense llama-arch GQA [arXiv:2401.02954].  The same
 values as ``repro/configs/deepseek_67b.py`` (its ``max_seq`` is not a
-field of the port's config).  67.4 B parameters, 134.9 GB in bf16: more
-than one card holds, so the port runs it at the smoke size."""
+field of the port's config).  67.4 B parameters: 134.9 GB in bf16, more
+than one card holds; 67.4 GB as int8 serve weights
+(``replace(serve_param_dtype="int8")``), which one 80 GB card serves at
+full width."""
 from repro_torch.configs.base import ArchSpec
 from repro_torch.models.config import ModelConfig
 

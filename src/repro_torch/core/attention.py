@@ -1,7 +1,7 @@
 """CIMple attention datapath (port of ``repro/core/attention.py``: the
-three modes of ``attention``, and the int8 branches of ``decode_attention``
-and ``paged_decode_attention`` -- fused and composed -- and
-``paged_verify_attention``).
+three modes of ``attention``, ``decode_attention`` and
+``paged_decode_attention`` -- int8 fused and composed, and the float
+baselines -- and ``paged_verify_attention``).
 
   * ``"float"``     — 3-pass safe-softmax attention (the paper's baseline);
   * ``"fakequant"`` — training (QAT): scores snap to the int8 grid through a
@@ -15,7 +15,11 @@ and ``paged_decode_attention`` -- fused and composed -- and
                       on the CPU.
 
 A model trains with ``fakequant`` and serves with ``int8``.  The decode
-entry points take ``int8`` only.
+entry points' ``float`` and ``fakequant`` modes are the reference's
+baselines, the same in both modes: the int8 cache (the same contents in
+every mode) dequantized with its static scales, then the float
+safe-softmax under the length (and window) mask, plain PyTorch on any
+device (the reference computes them outside its kernels too).
 
 Two options of the int8 kernels, the reference's ablations, default off
 and set by no config: ``lut_mode="compute"`` reads the exp values the
@@ -32,6 +36,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core import lut as lut_lib
+from repro_torch.core import paged_kv
 from repro_torch.core import quantization as qlib
 from repro_torch.core.lut import LUTConfig
 from repro_torch.kernels import blocked as blocked_lib
@@ -67,13 +72,6 @@ class AttentionSpec:
     @property
     def lut_config(self) -> LUTConfig:
         return LUTConfig(scale_z=self.scale_z)
-
-
-def _require_int8(spec: AttentionSpec) -> None:
-    if spec.mode != "int8":
-        raise NotImplementedError(
-            f"decode attention in mode {spec.mode!r}: the port decodes "
-            f"through the int8 datapath only")
 
 
 @functools.lru_cache(maxsize=32)
@@ -136,8 +134,21 @@ def decode_attention(q: torch.Tensor, k_cache_q: torch.Tensor,
                      spec: AttentionSpec) -> torch.Tensor:
     """(B,Hq,D) query vs the dense int8 cache (B,Hkv,S_max,D) -> (B,Hq,D),
     dtype of q.  One ``s_q`` per slot, as in :func:`paged_decode_attention`;
-    ``spec.fused`` picks the fused or the composed kernel."""
-    _require_int8(spec)
+    ``spec.fused`` picks the fused or the composed kernel.  The float and
+    fakequant modes attend the dequantized cache's first ``cache_len``
+    positions (and, with a window, only its last ``window``)."""
+    if spec.mode in ("float", "fakequant"):
+        kf = qlib.dequantize(k_cache_q, s_k)
+        vf = qlib.dequantize(v_cache_q, s_v)
+        kpos = torch.arange(kf.shape[2], device=q.device)[None, :]
+        lens = cache_len.to(torch.int64)[:, None]
+        valid = kpos < lens
+        if spec.window is not None:
+            valid &= kpos > lens - 1 - spec.window
+        out = ref_lib.safe_softmax_attention_ref(
+            q[:, :, None, :], kf, vf, causal=False,
+            mask=valid[:, None, None, :])[:, :, 0, :]
+        return out.to(q.dtype)
     s_q = qlib.absmax_scale(q, axis=(1, 2))                  # (B,1,1)
     exp_lut, recip_lut = luts_for(spec.scale_z, q.device, spec.lut_mode)
     if spec.fused:
@@ -164,8 +175,13 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     slot's numerics never depend on its batch neighbours.  ``spec.fused``
     quantizes q inside the decode kernel; otherwise q is quantized here and
     the composed kernel takes the int8 query (the same values either way).
+    The float and fakequant baselines gather the pool through the table
+    and attend as :func:`decode_attention` does.
     """
-    _require_int8(spec)
+    if spec.mode in ("float", "fakequant"):
+        return decode_attention(q, paged_kv.gather_kv(k_pages, block_table),
+                                paged_kv.gather_kv(v_pages, block_table),
+                                s_k, s_v, cache_len, spec)
     s_q = qlib.absmax_scale(q, axis=(1, 2))                  # (B,1,1)
     exp_lut, recip_lut = luts_for(spec.scale_z, q.device, spec.lut_mode)
     if spec.fused:
@@ -192,9 +208,18 @@ def paged_verify_attention(q: torch.Tensor, k_pages: torch.Tensor,
     All T tokens' K/V are already in the pool (``cache_len`` counts them)
     and query t attends ``cache_len - (T-1-t)`` positions.  ``s_q[b, t]`` is
     the absmax scale of slot b's token-t query, exactly the per-slot scale
-    the sequential decode computes at that step.
+    the sequential decode computes at that step.  The float and fakequant
+    baselines run :func:`decode_attention` once per token over the
+    gathered pool.
     """
-    _require_int8(spec)
+    if spec.mode in ("float", "fakequant"):
+        t = q.shape[2]
+        k_all = paged_kv.gather_kv(k_pages, block_table)
+        v_all = paged_kv.gather_kv(v_pages, block_table)
+        outs = [decode_attention(q[:, :, i, :], k_all, v_all, s_k, s_v,
+                                 cache_len - (t - 1 - i), spec)
+                for i in range(t)]
+        return torch.stack(outs, dim=2)
     s_q = qlib.absmax_scale(q, axis=(1, 3))[:, 0, :, 0]      # (B,T)
     exp_lut, recip_lut = luts_for(spec.scale_z, q.device, spec.lut_mode)
     out = ops.splitmax_decode_fused_verify_paged(

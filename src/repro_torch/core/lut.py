@@ -89,6 +89,17 @@ def exp_lookup(z_q: torch.Tensor, exp_lut: torch.Tensor) -> torch.Tensor:
     return exp_lut[z_q.long() + 128]
 
 
+def exp_lookup_onehot(z_q: torch.Tensor, exp_lut: torch.Tensor
+                      ) -> torch.Tensor:
+    """The reference's MXU-shaped read, ``one_hot(z_q + 128) @ table`` in
+    f32: equal to :func:`exp_lookup` bit for bit (each row picks one entry
+    of at most 2^15, exact in f32; on the card with TF32 off, as
+    ``repro_torch.resolve_device`` sets it)."""
+    onehot = torch.nn.functional.one_hot(z_q.long() + 128, 256)
+    return (onehot.to(torch.float32)
+            @ exp_lut.to(torch.float32)).to(torch.int32)
+
+
 def recip_mantissa_index(s: torch.Tensor, mbits: int
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(idx, expo)`` with ``max(s, 1) = (1 + frac) * 2^expo`` and ``idx``
@@ -134,3 +145,12 @@ def recip_apply(x: torch.Tensor, r: torch.Tensor, e: torch.Tensor
                 ) -> torch.Tensor:
     """x / s  ~=  x * r * 2^e   (float32 result)."""
     return x.to(torch.float32) * r.to(torch.float32) * exp2_int(e)
+
+
+def recip_float(s: torch.Tensor, recip_lut: torch.Tensor, cfg: LUTConfig
+                ) -> torch.Tensor:
+    """The LUT's 1/s as f32, ``r * exp2(e)`` with a float ``exp2`` as the
+    reference's convenience has it (:func:`recip_factor` builds the power
+    of two from its bits)."""
+    r, e = recip_lookup(s, recip_lut, cfg)
+    return r.to(torch.float32) * torch.exp2(e.to(torch.float32))

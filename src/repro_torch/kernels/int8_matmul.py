@@ -15,7 +15,9 @@ memory limit at its first launch, so call it once before capturing it in
 a CUDA graph.
 
 As in the reference, no model calls it: the port's linear layers compute
-in the model's float dtype (``models/layers.py``).
+in the model's float dtype (``models/layers.py``).  Its caller is the CIM
+datapath model (``core/cim.py``), whose nibble and bit products are int8
+GEMMs.
 """
 from __future__ import annotations
 
@@ -164,18 +166,41 @@ def int8_matmul_cuda(x_q: torch.Tensor, w_q: torch.Tensor,
         raise ValueError("int8_matmul_cuda takes CUDA tensors")
     _check_int8("x_q", x_q, x_q.device)
     _check_int8("w_q", w_q, x_q.device)
-    m, k = x_q.shape
-    if k != w_q.shape[0]:
+    if x_q.shape[1] != w_q.shape[0]:
         raise ValueError(f"x_q {tuple(x_q.shape)} @ w_q {tuple(w_q.shape)}")
-    if k % 16 or x_q.data_ptr() % 16:
-        x_p = torch.zeros((m, padded_k(k)), dtype=torch.int8,
-                          device=x_q.device)
-        x_p[:, :k] = x_q
-    else:
-        x_p = x_q
-    if m:
-        w_t = pack_k_major_cuda(w_q)
-    else:                           # an empty output: no pre-pass either
-        w_t = torch.empty((w_q.shape[1], padded_k(k)), dtype=torch.int8,
-                          device=x_q.device)
-    return int8_matmul_packed_cuda(x_p, w_t, multiplier)
+    return int8_matmul_packed_cuda(_k_major_x(x_q), _packed_w(w_q, [x_q]),
+                                   multiplier)
+
+
+def int8_matmul_shared_w_cuda(xs, w_q: torch.Tensor) -> list:
+    """Several ``(M_i, K)`` int8 operands on the card times one ``w_q (K,
+    N)`` -> their int32 products: one K-major pre-pass of ``w_q``, then one
+    GEMM body launch a product (each counted by its wrapper)."""
+    _check_int8("w_q", w_q, w_q.device)
+    for x_q in xs:
+        _check_int8("x_q", x_q, w_q.device)
+        if x_q.shape[1] != w_q.shape[0]:
+            raise ValueError(f"x_q {tuple(x_q.shape)} @ w_q "
+                             f"{tuple(w_q.shape)}")
+    w_t = _packed_w(w_q, xs)
+    return [int8_matmul_packed_cuda(_k_major_x(x_q), w_t) for x_q in xs]
+
+
+def _k_major_x(x_q: torch.Tensor) -> torch.Tensor:
+    """``x_q`` as the body's (M, Kp) operand: itself, or a zero-padded
+    copy when K % 16 != 0 or its base is not 16-byte aligned."""
+    m, k = x_q.shape
+    if k % 16 == 0 and x_q.data_ptr() % 16 == 0:
+        return x_q
+    x_p = torch.zeros((m, padded_k(k)), dtype=torch.int8, device=x_q.device)
+    x_p[:, :k] = x_q
+    return x_p
+
+
+def _packed_w(w_q: torch.Tensor, xs) -> torch.Tensor:
+    """``w_q`` K-major through the pre-pass, or, when every output is empty
+    (no x has rows), an empty stand-in without a launch."""
+    k, n = w_q.shape
+    if any(x_q.shape[0] for x_q in xs):
+        return pack_k_major_cuda(w_q)
+    return torch.empty((n, padded_k(k)), dtype=torch.int8, device=w_q.device)

@@ -189,3 +189,13 @@ def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor,
                                      device=x_q.device).reshape(())
     fn = int8_mm.int8_matmul_cuda if x_q.is_cuda else int8_mm.int8_matmul_plain
     return fn(x_q.contiguous(), w_q.contiguous(), multiplier)
+
+
+def int8_matmul_shared_w(xs, w_q: torch.Tensor) -> list:
+    """Several (M_i,K) int8 operands times one (K,N) int8 ``w_q`` -> their
+    int32 products; on the card ``w_q`` is packed K-major once and each
+    product is one launch of the GEMM body."""
+    if w_q.is_cuda:
+        return int8_mm.int8_matmul_shared_w_cuda(
+            [x.contiguous() for x in xs], w_q.contiguous())
+    return [int8_mm.int8_matmul_plain(x, w_q) for x in xs]

@@ -30,6 +30,7 @@ from repro_torch.core import paged_kv
 from repro_torch.launch import steps as st
 from repro_torch.launch.engines import base
 from repro_torch.models import encdec as E
+from repro_torch.models import layers as L
 
 
 class EncDecEngine(base.CacheEngine):
@@ -50,7 +51,7 @@ class EncDecEngine(base.CacheEngine):
         if any(f.shape[0] != enc_len for f in frames):
             raise ValueError("one encoder length per run")
         self.params = E.cast_for_serving(params, cfg)
-        self.device = params["embed"]["table"].device
+        self.device = L.param_device(params)
         self.cfg = cfg
         self.prompts = prompts
         self.frames = frames

@@ -16,6 +16,7 @@ import torch
 from repro_torch.core import paged_kv
 from repro_torch.launch import steps as st
 from repro_torch.launch.engines import base
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
 
@@ -32,7 +33,7 @@ class PagedKVEngine(base.CacheEngine):
                 f"and MoE families (ssm: SSMStateEngine; encdec: "
                 f"EncDecEngine)")
         self.params = T.cast_for_serving(params, cfg)
-        self.device = params["embed"]["table"].device
+        self.device = L.param_device(params)
         self.cfg = cfg
         self.prompts = prompts
         self.slots = slots

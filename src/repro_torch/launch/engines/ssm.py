@@ -31,6 +31,7 @@ import torch
 
 from repro_torch.core import quantization as qlib
 from repro_torch.launch.engines import base
+from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
 
@@ -74,7 +75,7 @@ class SSMStateEngine(base.CacheEngine):
                              f"(family {cfg.family} has none)")
         del max_len, block_k                # fixed footprint: no paging
         self.params = T.cast_for_serving(params, cfg)
-        self.device = params["embed"]["table"].device
+        self.device = L.param_device(params)
         self.cfg = cfg
         self.prompts = prompts
         self.slots = slots

@@ -44,6 +44,7 @@ from repro_torch.launch import faults as faults_mod
 from repro_torch.launch import steps as st
 from repro_torch.launch.engines import base as engines_base
 from repro_torch.launch.health import ServeHealth
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
 _M32 = 0xFFFFFFFF
@@ -526,7 +527,7 @@ def run_speculative(params, cfg, prompts: List[np.ndarray], *, slots: int,
             f"pool_blocks={pool_blocks} cannot hold one sequence: need "
             f">= 1 + {bps} (trash + blocks_per_seq(max_len={max_len}))")
     pool_size = pool_blocks if pool_blocks is not None else 1 + slots * bps
-    device = params["embed"]["table"].device
+    device = L.param_device(params)
 
     params = T.cast_for_serving(params, cfg)
     draft_params = (params if self_draft

@@ -85,6 +85,7 @@ from repro_torch.launch import scheduler as sched
 from repro_torch.launch import steps as st
 from repro_torch.launch.engines import (EncDecEngine, PagedKVEngine,
                                        SSMStateEngine)
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
 
@@ -201,7 +202,8 @@ def serve_dense(params, cfg, prompts: List[np.ndarray], *, slots: int,
     if max_len is None:
         max_len = prompt_len + max(gens) + 8
     seq_pad = prompt_len + max(gens)    # fixed re-prefill width
-    device = params["embed"]["table"].device
+    device = L.param_device(params)
+    params = T.cast_for_serving(params, cfg)
     prefill_step = st.make_prefill_step(cfg, max_len)
     decode_step = st.make_decode_step(cfg)
     sampler = sched.make_sampler(temperature, top_p, cfg.vocab_size)

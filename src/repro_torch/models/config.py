@@ -10,7 +10,11 @@ The block is the llama block with the reference's options: ``norm``
 encoder-decoder family adds ``n_encoder_layers``; the SSM family (Mamba-1
 or Mamba-2 layers) and the hybrid (Mamba-2 layers with one shared
 attention block before every ``hybrid_attn_every`` of them) add ``ssm``.
-``logits_dtype`` is not a field (the head is f32)."""
+``logits_dtype`` sets the LM head's dtype (None: f32, the reference's
+default) and ``serve_param_dtype`` the serve weights: ``"int8"`` makes a
+serving init (and ``cast_for_serving``) store every linear weight and
+embedding table as int8 with an f32 scale, dequantized at use; any other
+value keeps the serving init's compute-dtype weights."""
 from __future__ import annotations
 
 import dataclasses
@@ -74,6 +78,8 @@ class ModelConfig:
     # training perf levers (defaults = the paper-faithful baseline)
     attn_score_dtype: str = "float32"
     attn_triangular: bool = False
+    logits_dtype: Optional[str] = None  # None -> float32 LM head
+    serve_param_dtype: str = "float32"  # "int8": int8-resident serve weights
     remat: bool = True                # checkpoint each block in training
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
@@ -92,6 +98,16 @@ class ModelConfig:
     @property
     def compute_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
+
+    @property
+    def head_dtype(self) -> torch.dtype:
+        """The LM head's dtype: ``logits_dtype``, f32 when None."""
+        return getattr(torch, self.logits_dtype or "float32")
+
+    @property
+    def int8_weights(self) -> bool:
+        """Whether the serve weights are int8-resident."""
+        return self.serve_param_dtype == "int8"
 
     @property
     def d_inner(self) -> int:

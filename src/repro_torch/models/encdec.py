@@ -65,12 +65,19 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     masters, or with ``serving=True`` each linear weight cast to the
     compute dtype as soon as it is drawn (equal to
     ``cast_for_serving(init_params(...))``).  The embedding table is the
-    f32 LM head too and stays f32."""
+    f32 LM head too and stays f32.  With ``cfg.serve_param_dtype ==
+    "int8"`` each layer and the table are drawn in f32 and quantized at
+    once in the draws' own storage, as :func:`cast_for_serving` would."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    wdt = cfg.compute_dtype if serving else torch.float32
+    int8 = serving and cfg.int8_weights
+    wdt = cfg.compute_dtype if serving and not int8 else torch.float32
     d = cfg.d_model
     norm_init = L.NORM_INIT[cfg.norm]
+
+    def served(tree):
+        return qlib.quantize_weights_for_serving(tree, consume=True) \
+            if int8 else tree
 
     def attn():
         return A.attn_block_init(gen, cfg, device=dev, dtype=wdt)
@@ -78,16 +85,16 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     def mlp():
         return M.mlp_init(gen, cfg, device=dev, dtype=wdt)
 
-    p: Params = {"embed": L.embedding_init(
+    p: Params = {"embed": served(L.embedding_init(
         gen, L.pad_vocab(cfg.vocab_size, cfg.vocab_pad_multiple), d,
-        device=dev)}
-    p["encoder"] = [{"norm1": norm_init(d, dev), "attn": attn(),
-                     "norm2": norm_init(d, dev), "mlp": mlp()}
+        device=dev))}
+    p["encoder"] = [served({"norm1": norm_init(d, dev), "attn": attn(),
+                            "norm2": norm_init(d, dev), "mlp": mlp()})
                     for _ in range(cfg.n_encoder_layers or cfg.n_layers)]
     p["enc_norm"] = norm_init(d, dev)
-    p["decoder"] = [{"norm1": norm_init(d, dev), "self_attn": attn(),
-                     "norm2": norm_init(d, dev), "cross_attn": attn(),
-                     "norm3": norm_init(d, dev), "mlp": mlp()}
+    p["decoder"] = [served({"norm1": norm_init(d, dev), "self_attn": attn(),
+                            "norm2": norm_init(d, dev), "cross_attn": attn(),
+                            "norm3": norm_init(d, dev), "mlp": mlp()})
                     for _ in range(cfg.n_layers)]
     p["final_norm"] = norm_init(d, dev)
     return p
@@ -96,7 +103,12 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
 def cast_for_serving(params: Params, cfg: ModelConfig) -> Params:
     """The linear weights cast to the compute dtype once (each layer casts
     them at use, so results are unchanged); the embedding table (the f32
-    head) and the norms stay f32, a leaf already cast is kept."""
+    head) and the norms stay f32, a leaf already cast is kept.  With
+    ``cfg.serve_param_dtype == "int8"`` the float linear weights and the
+    table are quantized instead (``quantize_weights_for_serving``, meant
+    for f32 masters); int8 leaves are kept."""
+    if cfg.int8_weights:
+        return qlib.quantize_weights_for_serving(params)
     dt = cfg.compute_dtype
 
     def cast(tree):

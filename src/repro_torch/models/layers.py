@@ -4,6 +4,15 @@ Parameters are plain dicts of tensors laid out as in the reference (a
 linear weight is ``(d_in, d_out)`` and applies as ``x @ w``), so weights
 bridge over unchanged.  Compute happens in the config's dtype; norms and
 RoPE in float32.
+
+An int8 serve weight (``core.quantization.quantize_weights_for_serving``)
+is ``{"w_q", "w_s"}`` in place of ``{"w"}`` and ``{"table_q",
+"table_s"}`` in place of ``{"table"}``, its f32 scale ``(1, 1)``.  A
+linear dequantizes at use, ``f32(w_q) * w_s`` rounded once to the compute
+dtype: the reference's ``w_q.astype(dtype) * w_s`` promotes to f32 because
+its scale is an f32 array (a product with the scale cast to bf16 first
+would change the bits).  The embedding scales its gathered
+rows and the tied head its logits.
 """
 from __future__ import annotations
 
@@ -18,8 +27,8 @@ def normal_init(gen: torch.Generator, shape, std: float, device,
                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """A float32 normal draw times ``std``, cast to ``dtype`` before the
     next leaf is drawn (the serving init keeps no f32 master)."""
-    return (torch.randn(shape, generator=gen, device=device,
-                        dtype=torch.float32) * std).to(dtype)
+    return torch.randn(shape, generator=gen, device=device,
+                       dtype=torch.float32).mul_(std).to(dtype)
 
 
 def linear_init(gen, d_in: int, d_out: int, *, device,
@@ -29,13 +38,44 @@ def linear_init(gen, d_in: int, d_out: int, *, device,
     return {"w": normal_init(gen, (d_in, d_out), std, device, dtype)}
 
 
+def linear_weight(params: Params, dtype: Optional[torch.dtype] = None
+                  ) -> torch.Tensor:
+    """The weight a linear multiplies: ``w``, or ``w_q`` dequantized,
+    ``f32(w_q) * w_s`` rounded once to ``dtype`` (f32 when None), in one
+    pass: the int8 payload and the f32 scale promote to f32, and the
+    product is stored into a ``dtype`` tensor (3 bytes a parameter in
+    bf16)."""
+    if "w_q" not in params:
+        return params["w"]
+    w_q = params["w_q"]
+    out = torch.empty(w_q.shape, dtype=dtype or torch.float32,
+                      device=w_q.device)
+    return torch.mul(w_q, params["w_s"], out=out)
+
+
 def linear_apply(params: Params, x: torch.Tensor, *,
                  dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    w = params["w"]
+    w = linear_weight(params, dtype)
     if dtype is not None:
         w = w.to(dtype)
         x = x.to(dtype)
     return x @ w
+
+
+def dequantized(tree, dtype: Optional[torch.dtype] = None):
+    """``tree`` with each int8 linear weight made float once
+    (``{"w": linear_weight(p, dtype)}``) and each int8 table's payload cast
+    to ``dtype`` (f32 if None; its scale kept), for a caller that applies
+    them several times (``per_token``): the values every use would
+    compute."""
+    if not isinstance(tree, dict):
+        return tree
+    if "w_q" in tree:
+        return {"w": linear_weight(tree, dtype)}
+    if "table_q" in tree:
+        return {"table_q": tree["table_q"].to(dtype or torch.float32),
+                "table_s": tree["table_s"]}
+    return {k: dequantized(v, dtype) for k, v in tree.items()}
 
 
 def per_token(fn, x: torch.Tensor):
@@ -136,25 +176,37 @@ class _EmbeddingGather(torch.autograd.Function):
         return onehot.T @ g.reshape(n, -1), None
 
 
-def _embed_table(params: Params) -> torch.Tensor:
-    """The embedding table (the reference's also returns the int8 table's
-    scale, which comes with the int8 serve weights)."""
-    return params["table"]
+def _embed_table(params: Params):
+    """(table, None), or an int8 table's (payload, scale)."""
+    if "table_q" in params:
+        return params["table_q"], params["table_s"]
+    return params["table"], None
+
+
+def param_device(params) -> torch.device:
+    """The device a model's parameters live on: its embedding table's."""
+    return _embed_table(params["embed"])[0].device
 
 
 def embedding_apply(params: Params, token_ids: torch.Tensor, *,
                     dtype: torch.dtype) -> torch.Tensor:
-    return _EmbeddingGather.apply(_embed_table(params),
-                                  token_ids.long()).to(dtype)
+    """The rows of ``token_ids`` in ``dtype``; an int8 table's rows are
+    cast, then multiplied by its scale cast to ``dtype``."""
+    tab, sc = _embed_table(params)
+    if sc is None:
+        return _EmbeddingGather.apply(tab, token_ids.long()).to(dtype)
+    return tab[token_ids.long()].to(dtype) * sc.to(dtype)
 
 
 def unembed_apply(params: Params, x: torch.Tensor, *,
                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Tied unembedding: ``x (B, S, d)`` against the embedding table ->
     logits over the padded vocab, in ``dtype`` (f32, the reference's
-    default: the table is multiplied as stored, f32 when served)."""
-    tab = _embed_table(params)
-    return x.to(dtype) @ tab.to(dtype).T
+    default: the table is multiplied as stored, f32 when served); an int8
+    table's logits are then multiplied by its scale in ``dtype``."""
+    tab, sc = _embed_table(params)
+    logits = x.to(dtype) @ tab.to(dtype).T
+    return logits if sc is None else logits * sc.to(dtype)
 
 
 def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:

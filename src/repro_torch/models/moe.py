@@ -130,6 +130,11 @@ def moe_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
     def rowwise(fn):
         return L.per_token(fn, x) if tokenwise else fn(x)
 
+    if tokenwise:       # int8 weights dequantized once, not per token
+        params = dict(params, router=L.dequantized(params["router"]))
+        if mc.n_shared:
+            params["shared"] = L.dequantized(params["shared"], dt)
+
     logits, probs, gate_vals, gate_idx = rowwise(
         functools.partial(route, params, cfg=cfg))
     aux = aux_losses(logits, probs, gate_idx, cfg) if losses else {}

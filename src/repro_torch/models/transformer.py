@@ -88,20 +88,32 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     :func:`cast_for_serving` casts as soon as it is drawn, before the next
     draw: the result equals ``cast_for_serving(init_params(...))`` bit for
     bit, and the device never holds more than one f32 leaf beyond it
-    (DeepSeekMoE-16B's f32 masters alone are 65.5 GB).
+    (DeepSeekMoE-16B's f32 masters alone are 65.5 GB).  With
+    ``cfg.serve_param_dtype == "int8"`` each layer, the table and the head
+    are drawn in f32 and passed at once through :func:`cast_for_serving`'s
+    policy (:func:`_serve_subtree`), which quantizes them in the draws' own
+    storage (DeepSeek-67B: 67.4 GB in int8; its largest f32 draw is the
+    3.4 GB head, a layer's is 2.8 GB).
     """
     segments = layer_segments(cfg)
     dev = resolve_device(device)
+    if serving:
+        _require_servable(cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    wdt = cfg.compute_dtype if serving else torch.float32
+    int8 = serving and cfg.int8_weights
+    wdt = cfg.compute_dtype if serving and not int8 else torch.float32
+
+    def served(tree):
+        return _serve_subtree(tree, cfg, consume=True) if int8 else tree
+
     vp = L.pad_vocab(cfg.vocab_size, cfg.vocab_pad_multiple)
     norm_init = L.NORM_INIT[cfg.norm]
     # a tied table is also the f32 LM head: it stays f32 when served
-    p: Params = {"embed": L.embedding_init(
+    p: Params = {"embed": served(L.embedding_init(
         gen, vp, cfg.d_model, device=dev,
-        dtype=torch.float32 if cfg.tie_embeddings else wdt)}
-    p["layers"] = []
-    for kind in (kind for kind, n in segments for _ in range(n)):
+        dtype=torch.float32 if cfg.tie_embeddings else wdt))}
+
+    def layer(kind):
         lp = {"norm1": norm_init(cfg.d_model, dev)}
         if kind in S.MAMBA_INIT:
             lp["ssm"] = S.MAMBA_INIT[kind](gen, cfg, device=dev, dtype=wdt)
@@ -112,26 +124,68 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
             lp["mlp"] = M.mlp_init(gen, cfg, device=dev, dtype=wdt)
         elif kind == "moe":
             lp["moe"] = MOE.moe_init(gen, cfg, device=dev, dtype=wdt)
-        p["layers"].append(lp)
+        return lp
+
+    # no f32 draw outlives its quantization
+    p["layers"] = [served(layer(kind)) for kind, n in segments
+                   for _ in range(n)]
     if cfg.family == "hybrid":
         # one attention + MLP block shared by every group, on
         # concat(hidden, embeddings)
-        p["shared_attn"] = {
+        p["shared_attn"] = served({
             "norm": norm_init(2 * cfg.d_model, dev),
             "attn": A.attn_block_init(gen, cfg, device=dev, dtype=wdt,
                                       d_input=2 * cfg.d_model),
             "mlp_norm": norm_init(cfg.d_model, dev),
-            "mlp": M.mlp_init(gen, cfg, device=dev, dtype=wdt)}
+            "mlp": M.mlp_init(gen, cfg, device=dev, dtype=wdt)})
     p["final_norm"] = norm_init(cfg.d_model, dev)
     if not cfg.tie_embeddings:
-        p["lm_head"] = L.linear_init(gen, cfg.d_model, vp, device=dev)
+        p["lm_head"] = served(L.linear_init(gen, cfg.d_model, vp,
+                                            device=dev))
     return p
+
+
+def _require_servable(cfg: ModelConfig, params: Optional[Params] = None
+                      ) -> None:
+    """Refuse int8 serve weights (``cfg.serve_param_dtype`` or an int8
+    ``dt_proj`` in ``params``) for Mamba-1 layers: their step multiplies
+    ``dt_proj``'s float ``w`` directly, where the reference dies on a
+    ``KeyError: 'w'`` (``repro/models/ssm.py:136``; ROADMAP queue 3)."""
+    if cfg.ssm is None or cfg.ssm.kind != "mamba1":
+        return
+    int8 = cfg.int8_weights or (params is not None and any(
+        "w_q" in lp["ssm"]["dt_proj"] for lp in params["layers"]))
+    if int8:
+        raise ValueError(f"{cfg.name}: the {cfg.family} family's Mamba-1 "
+                         f"layers serve with float weights only (dt_proj "
+                         f"is multiplied as a float w; the reference fails "
+                         f"with a KeyError on int8 serve weights)")
 
 
 # f32 subtrees a serve step multiplies as stored: the MoE router (routing
 # is computed from f32 weights) and Mamba-1's dt projection (it multiplies
 # the f32 dt_in)
 _F32_SUBTREES = ("router", "dt_proj")
+
+
+def _serve_subtree(tree: Params, cfg: ModelConfig, *, consume: bool = False
+                   ) -> Params:
+    """:func:`cast_for_serving` on one layer or shared block (or, for an
+    int8 config, the table or the head): the linear weights and tables
+    quantized with ``cfg.serve_param_dtype == "int8"`` (``consume``: in
+    the f32 leaves' own storage, a serving init's draws), then the float
+    leaves a step casts at use cast to the compute dtype."""
+    if cfg.int8_weights:
+        tree = qlib.quantize_weights_for_serving(tree, consume=consume)
+    dt = cfg.compute_dtype
+
+    def cast(tree, stacks=False):
+        return {k: (v if k in _F32_SUBTREES else
+                    cast(v, stacks=k == "moe") if isinstance(v, dict) else
+                    v.to(dt) if k in ("w", "conv_w") or stacks else v)
+                for k, v in tree.items()}
+
+    return cast(tree)
 
 
 def cast_for_serving(params: Params, cfg: ModelConfig) -> Params:
@@ -142,23 +196,28 @@ def cast_for_serving(params: Params, cfg: ModelConfig) -> Params:
     router, Mamba-1's ``dt_proj``, the SSM's ``A_log``, ``D`` and
     ``dt_bias``, the f32 LM head, a tied table (it is the f32 head too;
     its gathered rows are cast at use) and the norms stay f32; a leaf
-    already in the compute dtype is kept, not copied."""
-    dt = cfg.compute_dtype
+    already in the compute dtype is kept, not copied.
 
-    def cast(tree, stacks=False):
-        return {k: (v if k in _F32_SUBTREES else
-                    cast(v, stacks=k == "moe") if isinstance(v, dict) else
-                    v.to(dt) if k in ("w", "conv_w") or stacks else v)
-                for k, v in tree.items()}
-
-    table = params["embed"]["table"]
-    out = {"embed": {"table": table if cfg.tie_embeddings else table.to(dt)},
-           "layers": [cast(lp) for lp in params["layers"]],
+    With ``cfg.serve_param_dtype == "int8"`` every float linear weight and
+    table (router and head included) is first quantized
+    (``quantize_weights_for_serving``, meant for f32 masters); int8 leaves
+    are kept as they are, and the MoE expert stacks and conv weights are
+    cast as above.  Mamba-1 with int8 weights raises (``ValueError``)."""
+    _require_servable(cfg, params)
+    embed = params["embed"]
+    if cfg.int8_weights:
+        embed = _serve_subtree(embed, cfg)
+    elif not cfg.tie_embeddings and "table" in embed:
+        embed = {"table": embed["table"].to(cfg.compute_dtype)}
+    out = {"embed": embed,
+           "layers": [_serve_subtree(lp, cfg) for lp in params["layers"]],
            "final_norm": params["final_norm"]}
     if "shared_attn" in params:
-        out["shared_attn"] = cast(params["shared_attn"])
+        out["shared_attn"] = _serve_subtree(params["shared_attn"], cfg)
     if not cfg.tie_embeddings:
-        out["lm_head"] = params["lm_head"]
+        head = params["lm_head"]
+        out["lm_head"] = _serve_subtree(head, cfg) if cfg.int8_weights \
+            else head
     return out
 
 
@@ -168,12 +227,12 @@ def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig
 
 
 def unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Final norm and the LM head (tied: the embedding table), in f32 (the
-    reference's default)."""
+    """Final norm and the LM head (tied: the embedding table), in
+    ``cfg.logits_dtype`` (f32 when None, the reference's default)."""
     x = L.NORM_APPLY[cfg.norm](params["final_norm"], x)
     if cfg.tie_embeddings:
-        return L.unembed_apply(params["embed"], x)
-    return L.linear_apply(params["lm_head"], x, dtype=torch.float32)
+        return L.unembed_apply(params["embed"], x, dtype=cfg.head_dtype)
+    return L.linear_apply(params["lm_head"], x, dtype=cfg.head_dtype)
 
 
 def _ffn(lp, h: torch.Tensor, cfg: ModelConfig, *, tokenwise: bool = False
@@ -183,9 +242,10 @@ def _ffn(lp, h: torch.Tensor, cfg: ModelConfig, *, tokenwise: bool = False
     verify step) runs the SwiGLU, and the MoE layer's router and shared
     experts, one token at a time (``layers.per_token``)."""
     if "mlp" in lp:
-        if tokenwise:
-            return L.per_token(functools.partial(M.mlp_apply, lp["mlp"],
-                                                 cfg=cfg), h)
+        if tokenwise:       # int8 weights dequantized once, not per token
+            mlp = L.dequantized(lp["mlp"], cfg.compute_dtype)
+            return L.per_token(functools.partial(M.mlp_apply, mlp, cfg=cfg),
+                               h)
         return M.mlp_apply(lp["mlp"], h, cfg)
     return MOE.moe_apply(lp["moe"], h, cfg, losses=False,
                          tokenwise=tokenwise)[0]
@@ -550,7 +610,10 @@ def verify_step(params, tokens: torch.Tensor, cfg: ModelConfig,
         h = L.per_token(functools.partial(norm, lp["norm2"]), x)
         x = x + _ffn(lp, h, cfg, tokenwise=True)
     cache["length"] += t
-    return L.per_token(lambda y: unembed(params, y, cfg), x), cache
+    # the head's int8 weights dequantized once, not per token
+    head = {k: L.dequantized(params[k], cfg.head_dtype) for k in
+            ("final_norm", "embed" if cfg.tie_embeddings else "lm_head")}
+    return L.per_token(lambda y: unembed(head, y, cfg), x), cache
 
 
 def count_params(cfg: ModelConfig, active_only: bool = False) -> int:

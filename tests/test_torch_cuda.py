@@ -3,7 +3,8 @@ prefill, fused and composed decode over the paged pool and the dense cache,
 paged and dense verify (each verify row also bit for bit the decode kernel
 at its effective length, the composed decode bit for bit the fused one, and
 a dense slot bit for bit a paged slot holding the same K/V), the int8 GEMM
-(bit for bit), and smoke-size serving through them.
+(bit for bit) and the CIM products through it, and smoke-size serving
+through them.
 
 Every test here is marked ``gpu`` and skips without a CUDA device; this
 file imports no JAX, so it runs on the machine with the card:
@@ -449,6 +450,24 @@ def _tree_to(tree, device):
     if isinstance(tree, list):
         return [_tree_to(v, device) for v in tree]
     return tree.to(device)
+
+
+@pytest.mark.parametrize("m, k, n", [(32, 48, 24), (3, 1000, 130),
+                                     (64, 256, 512)])
+def test_cim_products_through_the_int8_gemm(rng, cuda, m, k, n):
+    """The CIM datapath model on the card: the nibble split is two launches
+    of kernel 8's body (each on its own pre-pass) and the bit-serial form
+    eight on one pre-pass, both bit for bit the int32 product."""
+    from repro_torch.core import cim
+    x, w = _i8(rng, (m, k), cuda), _i8(rng, (k, n), cuda)
+    want = int8_matmul.int8_matmul_plain(x, w)
+    for fn, launches in ((cim.nibble_split_matmul, (2, 2)),
+                         (cim.serial_bit_matmul, (8, 1))):
+        before = (int8_matmul.launches, int8_matmul.pack_launches)
+        got = fn(x, w)
+        after = (int8_matmul.launches, int8_matmul.pack_launches)
+        assert tuple(a - b for a, b in zip(after, before)) == launches
+        assert torch.equal(got, want)
 
 
 def test_smoke_speculative_serving_runs_through_the_kernels(cuda):

@@ -304,7 +304,8 @@ def test_fakequant_trained_model_serves_int8():
 
 def test_attn_spec_modes_and_serve_call_sites():
     """Training asks for ``attn_mode`` (fakequant), every serve step for
-    ``serve_attn_mode`` (int8); the decode entry points take int8 only."""
+    ``serve_attn_mode`` (int8); the decode entry points' fakequant mode is
+    the float baseline over the dequantized cache, not the int8 path."""
     from repro_torch.core import attention as core_attn
     cfg = get_arch("tinyllama_1p1b").smoke
     assert cfg.attn_spec().mode == "fakequant"
@@ -314,11 +315,13 @@ def test_attn_spec_modes_and_serve_call_sites():
     with pytest.raises(ValueError):
         core_attn.AttentionSpec(mode="fp8")
     q = torch.randn(2, 8, 16)
-    cache = torch.zeros(2, 2, 8, 16, dtype=torch.int8)
-    with pytest.raises(NotImplementedError):
-        core_attn.decode_attention(q, cache, cache, torch.tensor(0.1),
-                                   torch.tensor(0.1), torch.tensor([1, 2]),
-                                   cfg.attn_spec())
+    cache = torch.randint(-128, 128, (2, 2, 8, 16), dtype=torch.int8)
+    outs = {mode: core_attn.decode_attention(
+        q, cache, cache, torch.tensor(0.1), torch.tensor(0.1),
+        torch.tensor([1, 2]), core_attn.AttentionSpec(mode=mode))
+        for mode in ("fakequant", "float", "int8")}
+    assert torch.equal(outs["fakequant"], outs["float"])
+    assert not torch.equal(outs["fakequant"], outs["int8"])
     # a serve-mode config whose serve steps asked for the training spec
     # would run fakequant float attention: the prefill's logits tell
     tcfg = cfg.replace(dtype="float32")
