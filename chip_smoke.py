@@ -172,6 +172,22 @@ Phases, each fatal on failure:
      plain version's, the Q15 requant pipeline bit for bit the CPU's, each
      timed (``"cim"`` under kernel 8 in the JSON line).
 
+ 13. the distribution substrate (run after phase 7, before phase 8):
+     ``launch.train.main`` at full TinyLlama-1.1B width, B 4 x 2048, 3
+     steps, unbound and on a (1, 1) ``DeviceMesh`` over the card
+     (``--mesh single --mesh-shape 1x1``: NCCL, world 1; parameters and
+     moments DTensors placed by ``param_shardings``, the step under
+     ``axis_rules``), losses, grad norms, parameters and moments bit for
+     bit; the roofline terms of that step and of the churn's decode step
+     (8 slots over a 290-position dense cache), counted by the dry-run on
+     a (1, 1) fake mesh in a child process started after the build, beside
+     the measured step and phase 6a's p50 (a step shorter than its compute
+     term fails; the memory term's ratio is printed only: its byte count is
+     unfused); and the dry-run CLI on OLMo-1B x train_4k on the
+     (16, 16) fake mesh with ``launch.report`` on its output, in another
+     child process (exit 0, one row). Lines ``[mesh]``, ``[roofline]``,
+     ``[dryrun]``.
+
 Kernel 7 (dense verify) has no caller in any model, as in the reference:
 it is checked and timed in phases 3 and 4 and stands in the JSON line with
 ``"launches": 0`` and ``"path": null``.  Kernel 8's launches are the CIM
@@ -185,16 +201,19 @@ without a CUDA device or without the repository beside this script.
 """
 from __future__ import annotations
 
+import atexit
+import gc
 import itertools
 import json
 import math
+import os
+import shutil
+import socket
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
-
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
-INT8_OPS_PER_S = 1.979e15      # H100 SXM dense int8 tensor-core peak
 
 PREFILL = dict(b=1, hq=32, hkv=4, s=250, d=64)
 DECODE = dict(b=8, hq=32, hkv=4, d=64, block_k=32, prompt=250, gen=32)
@@ -241,7 +260,6 @@ SAMPLED = dict(temperature=0.8, top_p=0.95, sample_seed=3)
 TRAIN_SMOKE = dict(batch=8, seq=64, seed=0, steps=5)
 FQ_INT8 = dict(steps=30, batch=8, seq=48, seed=11, tokens=32)
 TRAIN_FULL = dict(batch=4, seq=2048, steps=8, warmup=2, seed=0)
-H100_BF16_FLOPS = 989e12       # H100 SXM dense bf16 tensor-core peak
 # the MoE family: DeepSeekMoE-16B at full width (the one MoE config of the
 # reference's registry that one card holds), both MoE smoke configs
 MOE_ARCH = "deepseek_moe_16b"
@@ -294,6 +312,15 @@ INT8_VS_BF16_ORDER = ("bfloat16", "int8", "int8", "bfloat16", "bfloat16",
                       "int8")
 CIM_SHAPE = (256, 8192, 22016)
 CIM_REQUANT_MULTIPLIERS = (1e-5, 0.001, 0.0117, 0.3)
+# the distribution substrate on the card: TinyLlama's full-width train step
+# on a (1, 1) mesh against the unbound step; the roofline terms of that step
+# and of the churn's decode step (8 slots over the dense cache's 290
+# positions), counted by the dry-run on a (1, 1) fake mesh in a child
+# process; and the dry-run CLI on one grid cell with its report
+MESH_TRAIN = dict(batch=4, seq=2048, steps=3, warmup=2, seed=0)
+CARD_CELLS = (("card train", "train", 2048, 4),
+              ("card decode", "decode", 290, 8))
+DRYRUN_CELL = ("olmo_1b", "train_4k")
 # the float/fakequant decode baselines, card vs CPU: max |logit diff| over
 # the logits' scale (tests/test_torch_decode_baselines.py states the same)
 DECODE_BASELINE_TOL = 2e-3
@@ -386,8 +413,12 @@ def rotating(fn, args):
 
 
 def bound_ms(n_bytes: int, n_ops: int):
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / INT8_OPS_PER_S * 1e3
+    """The larger of the bytes over HBM3's rate and the int8 operations
+    over the int8 tensor-core peak (``launch/roofline.py``: the H100 SXM
+    data sheet's constants)."""
+    from repro_torch.launch.roofline import HBM_BW, PEAK_OPS_INT8
+    t_bytes = n_bytes / HBM_BW * 1e3
+    t_ops = n_ops / PEAK_OPS_INT8 * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -2095,6 +2126,7 @@ def train_full_phase(torch, dev):
     from repro_torch.data.pipeline import DataConfig, batch_for_step
     from repro_torch.launch import steps as st
     from repro_torch.launch import train
+    from repro_torch.launch.roofline import measured_mfu
     from repro_torch.optim import adamw
 
     t = TRAIN_FULL
@@ -2116,7 +2148,7 @@ def train_full_phase(torch, dev):
     step_ms = statistics.median(res["step_s"][1:]) * 1e3
     n_params = sum(p.numel() for p in tu.leaves(res["params"]))
     flops = 6 * n_params * tokens
-    mfu = flops / (step_ms / 1e3) / H100_BF16_FLOPS
+    mfu = measured_mfu(flops, step_ms / 1e3)
     print(f"[train] full width {cfg.name} {t}: losses "
           f"{[round(x, 4) for x in losses]}; step {step_ms:.1f} ms (median "
           f"of steps 2-{t['steps']}; first {res['step_s'][0] * 1e3:.1f} ms), "
@@ -4109,6 +4141,165 @@ def tinyllama_int8_vs_bf16(torch, dev) -> None:
     print(f"[int8-vs-bf16] {summary('p50_step_ms')}")
 
 
+# ------------------------------------------- mesh, roofline and dry-run --
+
+_CARD_TERMS = """
+import json, sys
+from repro_torch.configs.base import ShapeCell
+from repro_torch.launch.dryrun import dryrun_cell
+out = {}
+for name, kind, seq, batch in json.loads(sys.argv[1]):
+    out[name] = dryrun_cell("tinyllama_1p1b", name, multi_pod=False,
+                            mesh=((1, 1), ("data", "model")),
+                            cell=ShapeCell(name, seq, batch, kind),
+                            verbose=False)
+print("TERMS" + json.dumps(out))
+"""
+
+
+def start_dryruns(src: Path):
+    """Start the CPU-side work of phase 13 in child processes, to run while
+    the card's phases do: the dry-run CLI on ``DRYRUN_CELL`` then
+    ``launch.report`` on its output, and the roofline counts of
+    ``CARD_CELLS``.  Returns the processes by name; at exit each still
+    running is killed and their directory removed."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    env = dict(os.environ, PYTHONPATH=str(src))
+    arch, shape = DRYRUN_CELL
+    out = os.path.join(tmp, "dryrun.json")
+    cli = (f"{sys.executable} -m repro_torch.launch.dryrun --arch {arch} "
+           f"--shape {shape} --mesh single --out {out} && "
+           f"{sys.executable} -m repro_torch.launch.report {out}")
+    procs = {
+        "dryrun": subprocess.Popen(["bash", "-c", cli], env=env,
+                                   stdout=subprocess.PIPE,
+                                   stderr=subprocess.STDOUT, text=True),
+        "terms": subprocess.Popen(
+            [sys.executable, "-c", _CARD_TERMS, json.dumps(CARD_CELLS)],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)}
+    def stop():
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    atexit.register(stop)
+    return procs
+
+
+def _finish(proc, what: str, timeout: float = 600) -> str:
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise SmokeFailure(f"{what}: no exit in {timeout} s")
+    check(proc.returncode == 0, f"{what}: exit {proc.returncode}:\n"
+          f"{out[-3000:]}")
+    return out
+
+
+def mesh_roofline_phase(torch, dev, procs, serve_p50_ms: float) -> None:
+    """Phase 13: ``launch.train.main`` at full TinyLlama width, B 4 x 2048,
+    3 steps, unbound and then on a (1, 1) ``DeviceMesh`` over the card
+    (``--mesh single --mesh-shape 1x1``: NCCL, world 1; parameters and
+    moments placed by ``param_shardings``, the step under ``axis_rules``):
+    losses, grad norms, parameters and moments bit for bit.  Then each
+    measured step against its roofline terms (the dry-run's counts at the
+    data sheet's constants): a step shorter than its compute term fails
+    (a wrong flop count); the memory term's ratio is only printed (its
+    byte count is unfused).  The same for the decode step beside the
+    serve churn's p50 step.  Last, the dry-run CLI's exit and its
+    report's one row."""
+    import statistics
+    from repro_torch import tree as tu
+    from repro_torch.launch import train
+    from repro_torch.launch.roofline import measured_mfu
+
+    t = MESH_TRAIN
+    argv = ["--device", "cuda", "--steps", str(t["steps"]), "--warmup",
+            str(t["warmup"]), "--batch", str(t["batch"]), "--seq",
+            str(t["seq"]), "--seed", str(t["seed"]), "--log-every", "1"]
+    sock = socket.socket()
+    sock.bind(("localhost", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    launcher = dict(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                    RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    t0 = time.perf_counter()
+    plain = train.main(argv)
+    old = {k: os.environ.get(k) for k in launcher}
+    os.environ.update(launcher)
+    try:
+        meshed = train.main(argv + ["--mesh", "single", "--mesh-shape",
+                                    "1x1"])
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    import torch.distributed as dist
+    check(not dist.is_initialized(), "the mesh run left a process group")
+    for key in ("losses", "ce", "grad_norms", "lrs"):
+        check(meshed[key] == plain[key], f"(1, 1) mesh {key} "
+              f"{meshed[key]} != unbound {plain[key]}")
+    n = 0
+    for tree in ("params", "opt_state"):
+        for a, b in zip(tu.leaves(meshed[tree]), tu.leaves(plain[tree])):
+            a = a.full_tensor() if hasattr(a, "full_tensor") else a
+            check(torch.equal(a, b), f"(1, 1) mesh {tree} leaf {n} differs")
+            n += 1
+    placed = sum(hasattr(a, "device_mesh")
+                 for a in tu.leaves(meshed["params"]))
+    step_s = {"unbound": statistics.median(plain["step_s"][1:]),
+              "(1, 1) mesh": statistics.median(meshed["step_s"][1:])}
+    print(f"[mesh] {meshed['cfg'].name} full width, B {t['batch']} x "
+          f"{t['seq']}, {t['steps']} steps on a (1, 1) DeviceMesh "
+          f"{meshed['mesh'].mesh_dim_names} (NCCL, world 1; {placed} "
+          f"DTensor parameters): losses {meshed['losses']}, grad norms, "
+          f"{n} parameter and moment leaves bit for bit the unbound run's; "
+          f"step {step_s['unbound'] * 1e3:.1f} ms unbound, "
+          f"{step_s['(1, 1) mesh'] * 1e3:.1f} ms on the mesh (median of "
+          f"steps 2-{t['steps']}); {time.perf_counter() - t0:.1f} s")
+    del plain, meshed
+    # a train step leaves reference cycles (its frames, through the
+    # checkpointed blocks) that hold the states until the collector runs:
+    # collect them now, before phase 8 measures its init peak
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out = _finish(procs["terms"], "roofline counts")
+    terms = json.loads(next(x for x in out.splitlines()
+                            if x.startswith("TERMS"))[len("TERMS"):])
+    measured = {"card train": step_s, "card decode":
+                {"serve churn p50": serve_p50_ms / 1e3}}
+    for name, kind, seq, batch in CARD_CELLS:
+        r = terms[name]["roofline"]
+        for what, sec in measured[name].items():
+            check(sec >= r["t_compute_s"], f"{name}: measured {what} step "
+                  f"{sec * 1e3:.3f} ms < its compute term "
+                  f"{r['t_compute_s'] * 1e3:.3f} ms: a wrong flop count")
+            print(f"[roofline] {name} (B {batch} x {seq}, {kind}) {what}: "
+                  f"measured {sec * 1e3:.3f} ms; t_compute "
+                  f"{r['t_compute_s'] * 1e3:.3f} ms, t_memory (unfused) "
+                  f"{r['t_memory_s'] * 1e3:.3f} ms, t_collective "
+                  f"{r['t_collective_s'] * 1e3:.3f} ms -> "
+                  f"{r['bottleneck']}; roofline MFU "
+                  f"{100 * r['roofline_mfu']:.2f}%, measured MFU "
+                  f"{100 * measured_mfu(r['model_flops'], sec):.2f}%; "
+                  f"measured / t_compute {sec / r['t_compute_s']:.2f}, "
+                  f"measured / t_memory {sec / r['t_memory_s']:.3f}")
+
+    out = _finish(procs["dryrun"], "the dry-run CLI and its report")
+    rows = [x for x in out.splitlines() if x.startswith(
+        f"| {DRYRUN_CELL[0]} | {DRYRUN_CELL[1]} |")]
+    check(len(rows) == 1, f"the dry-run report has {len(rows)} rows "
+          f"for {DRYRUN_CELL}:\n{out[-2000:]}")
+    print(f"[dryrun] {' x '.join(DRYRUN_CELL)} x 16x16 (CLI and "
+          f"launch.report, exit 0): {rows[0]}")
+
+
 def main() -> int:
     t_script = time.perf_counter()
     import torch
@@ -4145,6 +4336,7 @@ def main() -> int:
                 print(f"[build] {name} {entry}: {line.split(':', 1)[1].strip()}; "
                       f"{spills}")
 
+    dryruns = start_dryruns(src)
     decode, decode_args = decode_phase(torch, F, dev)
     kernels = [prefill_phase(torch, F, dev), decode,
                verify_phase(torch, F, dev),
@@ -4175,10 +4367,14 @@ def main() -> int:
     n_pressure = pressure_phase(torch, dev, params, cfg, plain)
     chaos_phase(torch, dev, params, cfg, plain)
     sampled_phase(torch, dev, params, cfg, plain)
+    serve_p50_ms = plain["p50_step_ms"]
     del params, plain
     torch.cuda.empty_cache()
     n_fq_smoke = train_smoke_phase(torch, dev)
     n_fq_full = train_full_phase(torch, dev)
+    t_phase = time.perf_counter()
+    mesh_roofline_phase(torch, dev, dryruns, serve_p50_ms)
+    print(f"[mesh] phase 13 wall time {time.perf_counter() - t_phase:.1f} s")
     moe_smoke_phase(torch, dev)
     moe = moe_phase(torch, dev)
     dense_smoke_phase(torch, dev)

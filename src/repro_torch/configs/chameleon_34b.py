@@ -21,5 +21,9 @@ SMOKE = ModelConfig(
     d_ff=256, vocab_size=512, qk_norm=True,
 )
 
-ARCH = ArchSpec(config=CONFIG, smoke=SMOKE,
-                source="[arXiv:2405.09818; unverified]")
+ARCH = ArchSpec(
+    config=CONFIG, smoke=SMOKE,
+    skip_shapes={"long_500k": "pure full attention (quadratic prefill, "
+                              "unbounded KV) — skipped per assignment"},
+    source="[arXiv:2405.09818; unverified]",
+)

@@ -25,5 +25,8 @@ SMOKE = ModelConfig(
     tie_embeddings=False,
 )
 
-ARCH = ArchSpec(config=CONFIG, smoke=SMOKE,
-                source="[arXiv:2410.05355; unverified]")
+ARCH = ArchSpec(
+    config=CONFIG, smoke=SMOKE,
+    skip_shapes={},
+    source="[arXiv:2410.05355; unverified]",
+)

@@ -25,4 +25,8 @@ SMOKE = ModelConfig(
     window=32, tie_embeddings=False,
 )
 
-ARCH = ArchSpec(config=CONFIG, smoke=SMOKE, source="[arXiv:2401.04088; hf]")
+ARCH = ArchSpec(
+    config=CONFIG, smoke=SMOKE,
+    skip_shapes={},
+    source="[arXiv:2401.04088; hf]",
+)

@@ -26,4 +26,9 @@ SMOKE = ModelConfig(
     head_dim=16, d_ff=128, vocab_size=512, norm="layernorm", act="gelu",
 )
 
-ARCH = ArchSpec(config=CONFIG, smoke=SMOKE, source="[arXiv:2308.11596; hf]")
+ARCH = ArchSpec(
+    config=CONFIG, smoke=SMOKE,
+    skip_shapes={"long_500k": "full-attention decoder — skipped per "
+                              "assignment"},
+    source="[arXiv:2308.11596; hf]",
+)

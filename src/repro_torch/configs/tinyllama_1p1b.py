@@ -17,4 +17,8 @@ SMOKE = ModelConfig(
     d_ff=256, vocab_size=512, tie_embeddings=False,
 )
 
-ARCH = ArchSpec(config=CONFIG, smoke=SMOKE, source="[arXiv:2401.02385; hf]")
+ARCH = ArchSpec(
+    config=CONFIG, smoke=SMOKE,
+    skip_shapes={"long_500k": "pure full attention — not in assigned grid"},
+    source="[arXiv:2401.02385; hf]",
+)

@@ -28,4 +28,8 @@ SMOKE = ModelConfig(
     hybrid_attn_every=2,
 )
 
-ARCH = ArchSpec(config=CONFIG, smoke=SMOKE, source="[arXiv:2411.15242; hf]")
+ARCH = ArchSpec(
+    config=CONFIG, smoke=SMOKE,
+    skip_shapes={},
+    source="[arXiv:2411.15242; hf]",
+)

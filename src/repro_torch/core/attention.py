@@ -99,6 +99,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     512)`` with its one ``block_k``), which must divide Sk when Sk is
     longer.  The float mode honours ``kv_valid_len`` too, which the
     reference's drops (no caller passes it; ROADMAP queue 3)."""
+    if hasattr(q, "device_mesh"):               # DTensors on a mesh
+        return _attention_per_rank(q, k, v, spec, kv_valid_len)
     causal = spec.causal
     if spec.mode == "float":
         mask = None
@@ -128,6 +130,37 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
+def _attention_per_rank(q, k, v, spec: AttentionSpec,
+                        kv_valid_len: Optional[int]) -> torch.Tensor:
+    """:func:`attention` of DTensors: every mode is independent across the
+    batch and the (GQA groups of) heads, so each rank runs it on its own
+    rows and heads (``dist.sharding.per_rank``, laid out as ``q`` is).
+    The int8 mode's per-tensor scales are the whole tensors' absmax,
+    reduced over the mesh first, then passed in whole."""
+    from repro_torch.dist.sharding import per_rank
+    rows_heads = {0: 0, 1: 1}
+    if spec.mode != "int8":
+        return per_rank(
+            lambda q, k, v: attention(q, k, v, spec,
+                                      kv_valid_len=kv_valid_len),
+            q, (q, k, v), (rows_heads,) * 3, rows_heads)
+    q, k, v = q.detach(), k.detach(), v.detach()
+    s_q, s_k, s_v = (qlib.absmax_scale(t) for t in (q, k, v))
+    exp_lut, recip_lut = luts_for(spec.scale_z, q.device, spec.lut_mode)
+
+    def local(q_q, k_q, v_q, s_q, s_k, s_v):
+        return ops.splitmax_attention(
+            q_q, k_q, v_q, s_q, s_k, s_v, exp_lut, recip_lut,
+            cfg=spec.lut_config, causal=spec.causal, window=spec.window,
+            kv_valid_len=kv_valid_len, exact_recip=spec.exact_recip)
+
+    out = per_rank(local, q,
+                   (qlib.quantize(q, s_q), qlib.quantize(k, s_k),
+                    qlib.quantize(v, s_v), s_q, s_k, s_v),
+                   (rows_heads,) * 3 + ({},) * 3, rows_heads)
+    return out.to(q.dtype)
+
+
 def decode_attention(q: torch.Tensor, k_cache_q: torch.Tensor,
                      v_cache_q: torch.Tensor, s_k: torch.Tensor,
                      s_v: torch.Tensor, cache_len: torch.Tensor,
@@ -149,6 +182,13 @@ def decode_attention(q: torch.Tensor, k_cache_q: torch.Tensor,
             q[:, :, None, :], kf, vf, causal=False,
             mask=valid[:, None, None, :])[:, :, 0, :]
         return out.to(q.dtype)
+    if hasattr(q, "device_mesh"):
+        # on a mesh the cache's sequence may be split over the axis the
+        # heads are: the query whole over its heads, and DTensor reduces
+        # the split softmax's sums over the sequence's shards
+        from torch.distributed.tensor import Replicate, Shard
+        q = q.redistribute(q.device_mesh, [
+            p if p == Shard(0) else Replicate() for p in q.placements])
     s_q = qlib.absmax_scale(q, axis=(1, 2))                  # (B,1,1)
     exp_lut, recip_lut = luts_for(spec.scale_z, q.device, spec.lut_mode)
     if spec.fused:

@@ -26,6 +26,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch.dist.sharding import per_rank
+
 Z_QUANT_MAX = 127  # top of the symmetric int8 domain — replaces the row max
 
 EXP_FRAC_BITS = 15     # exp LUT entries in [0, 2^15]
@@ -84,9 +86,17 @@ def build_recip_lut(cfg: LUTConfig) -> np.ndarray:
     return vals.astype(np.int32)
 
 
+def _lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]``; on a mesh each rank reads its own block of ``idx``
+    (DTensor's gather strategies do not cover every placement of the
+    indices)."""
+    every = {d: d for d in range(idx.dim())}
+    return per_rank(lambda i: table[i], idx, (idx,), (every,), every)
+
+
 def exp_lookup(z_q: torch.Tensor, exp_lut: torch.Tensor) -> torch.Tensor:
     """E[z_q] — int8 scores -> int32 fixed-point exponentials."""
-    return exp_lut[z_q.long() + 128]
+    return _lookup(exp_lut, z_q.long() + 128)
 
 
 def exp_lookup_onehot(z_q: torch.Tensor, exp_lut: torch.Tensor
@@ -115,7 +125,7 @@ def recip_lookup(s: torch.Tensor, recip_lut: torch.Tensor, cfg: LUTConfig
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(r, e)`` with ``1/s ~= r * 2^e`` (``r`` int32 table value)."""
     idx, expo = recip_mantissa_index(s, cfg.recip_index_bits)
-    r = recip_lut[idx.long()]
+    r = _lookup(recip_lut, idx.long())
     e = -expo - cfg.recip_frac_bits
     return r, e
 

@@ -20,6 +20,7 @@ import torch
 
 from repro_torch import tree as tu
 from repro_torch.dist import compression as comp
+from repro_torch.dist import sharding as sh
 from repro_torch.models import encdec as E
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
@@ -41,7 +42,16 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
         lane = torch.arange(vp, device=logits.device)
         logits = torch.where(lane >= logical_vocab, -1e30, logits)
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if sh.current_axis_rules() is None:
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    else:
+        # sharding-aware: with the vocab dim sharded, a lane compare and a
+        # sum leave partial sums of B x S values to reduce, where a gather
+        # would need every row whole (the reference's formulation; the
+        # same values, its one nonzero term summed with zeros)
+        lane = torch.arange(vp, device=logits.device)
+        gold = torch.sum(torch.where(lane == labels.long()[..., None],
+                                     logits, 0.0), dim=-1)
     return torch.mean(lse - gold)
 
 
@@ -168,23 +178,26 @@ def _no_speculation(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def make_prefill_step(cfg: ModelConfig, cache_len: int):
+def make_prefill_step(cfg: ModelConfig, cache_len: int, *, place=None):
     """(params, {"tokens": (B,S)} [+ "frames"]) -> (last_logits, cache): a
     fresh dense cache of ``cache_len`` positions, filled and calibrated by
-    the batch."""
+    the batch.  ``place(cache) -> cache`` lays the fresh cache out before
+    it is filled (the dry-run places it on the mesh, as the reference's
+    ``out_shardings`` do)."""
+    place = place or (lambda cache: cache)
 
     if cfg.family == "encdec":
         def prefill_step(params, batch):
             tokens, frames = batch["tokens"], batch["frames"]
-            cache = E.make_cache(cfg, tokens.shape[0], cache_len,
-                                 frames.shape[1], device=tokens.device)
+            cache = place(E.make_cache(cfg, tokens.shape[0], cache_len,
+                                       frames.shape[1], device=tokens.device))
             return E.prefill(params, frames, tokens, cfg, cache)
         return prefill_step
 
     def prefill_step(params, batch):
         tokens = batch["tokens"]
-        cache = T.make_cache(cfg, tokens.shape[0], cache_len,
-                             device=tokens.device)
+        cache = place(T.make_cache(cfg, tokens.shape[0], cache_len,
+                                   device=tokens.device))
         return T.prefill(params, tokens, cfg, cache)
 
     return prefill_step

@@ -21,8 +21,34 @@ import torch
 from repro_torch.core import attention as core_attn
 from repro_torch.core import paged_kv
 from repro_torch.core import quantization as qlib
+from repro_torch.dist.sharding import shard
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
+
+
+def split_heads(x: torch.Tensor, n: int, hd: int,
+                groups: Optional[int] = None) -> torch.Tensor:
+    """A projection ``(B, S, n * hd)`` -> ``(B, S, n, hd)``.  Under a mesh
+    binding it is first laid out with whole heads on each rank, and with
+    ``groups`` (the query heads of a GQA layer: its K/V head count) whole
+    groups of them: its last dim is split over "model" only where that
+    divides ``groups or n``.  DTensor splits no dim across a reshape that
+    would cut a head, nor the attention's (Hkv, group) reshape of the
+    query heads across a group."""
+    b, s, _ = x.shape
+    x = shard(x, "batch", None, "heads", sizes=(b, s, groups or n))
+    return x.reshape(b, s, n, hd)
+
+
+def out_proj(params, out: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The output projection ``wo`` of the heads' outputs ``(B, S, H*hd)``.
+    Under a mesh binding its partial sums over the head-sharded ``model``
+    axis are reduced here: left partial, the norm that follows keeps them
+    partial (it is linear in them), and DTensor then gathers the next
+    weight whole rather than reduce them, repeating that product on every
+    ``model`` rank."""
+    return shard(L.linear_apply(params["wo"], out, dtype=cfg.compute_dtype),
+                 "batch", None, "embed")
 
 
 def attn_block_init(gen, cfg: ModelConfig, *, device,
@@ -62,7 +88,8 @@ def attn_block_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
     q, k, v = _project_qkv(params, x, cfg, torch.arange(s, device=x.device))
     out = core_attn.attention(q, k, v, spec)
     out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd)
-    return L.linear_apply(params["wo"], out, dtype=cfg.compute_dtype)
+    out = shard(out, "batch", None, "embed")
+    return out_proj(params, out, cfg)
 
 
 def cross_kv(params, memory: torch.Tensor, cfg: ModelConfig):
@@ -72,8 +99,8 @@ def cross_kv(params, memory: torch.Tensor, cfg: ModelConfig):
     dt = cfg.compute_dtype
     k = L.linear_apply(params["wk"], memory, dtype=dt)
     v = L.linear_apply(params["wv"], memory, dtype=dt)
-    return (k.reshape(b, sm, cfg.n_kv_heads, cfg.hd).transpose(1, 2),
-            v.reshape(b, sm, cfg.n_kv_heads, cfg.hd).transpose(1, 2))
+    return (split_heads(k, cfg.n_kv_heads, cfg.hd).transpose(1, 2),
+            split_heads(v, cfg.n_kv_heads, cfg.hd).transpose(1, 2))
 
 
 def cross_attn_apply(params, x: torch.Tensor, memory: torch.Tensor,
@@ -89,11 +116,11 @@ def cross_attn_apply(params, x: torch.Tensor, memory: torch.Tensor,
     dt = cfg.compute_dtype
     spec = dataclasses.replace(spec or cfg.attn_spec(), causal=False)
     q = L.linear_apply(params["wq"], x, dtype=dt)
-    q = q.reshape(b, s, cfg.n_heads, cfg.hd).transpose(1, 2)
+    q = split_heads(q, cfg.n_heads, cfg.hd, cfg.n_kv_heads).transpose(1, 2)
     k, v = kv if kv is not None else cross_kv(params, memory, cfg)
     out = core_attn.attention(q, k, v, spec, kv_valid_len=memory_valid_len)
     out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd)
-    return L.linear_apply(params["wo"], out, dtype=dt)
+    return out_proj(params, out, cfg)
 
 
 def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig,
@@ -110,8 +137,8 @@ def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig,
     q = L.linear_apply(params["wq"], x, dtype=dt)
     k = L.linear_apply(params["wk"], x, dtype=dt)
     v = L.linear_apply(params["wv"], x, dtype=dt)
-    q = q.reshape(b, s, cfg.n_heads, hd)
-    k = k.reshape(b, s, cfg.n_kv_heads, hd)
+    q = split_heads(q, cfg.n_heads, hd, cfg.n_kv_heads)
+    k = split_heads(k, cfg.n_kv_heads, hd)
     if cfg.qk_norm:
         def norm(p, y):
             if tokenwise:
@@ -121,9 +148,14 @@ def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig,
         k = norm(params["k_norm"], k)
     q = q.transpose(1, 2)
     k = k.transpose(1, 2)
-    v = v.reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
+    v = split_heads(v, cfg.n_kv_heads, hd).transpose(1, 2)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
+    # q's guard tests the K/V head count: whole GQA groups on each rank
+    q = shard(q, "batch", "heads", None, None,
+              sizes=(b, cfg.n_kv_heads, s, hd))
+    k = shard(k, "batch", "heads", None, None)
+    v = shard(v, "batch", "heads", None, None)
     return q, k, v
 
 
@@ -178,15 +210,45 @@ def attn_block_decode(params, x: torch.Tensor,
     else:
         pos = (new_len - 1).long()
         attn_len = new_len
-    b_idx = torch.arange(b, device=x.device)
-    inside = (pos < cache_size)[:, None, None]
-    pos = torch.clamp_max(pos, cache_size - 1)
-    k_q[b_idx, :, pos, :] = torch.where(inside, k_new, k_q[b_idx, :, pos, :])
-    v_q[b_idx, :, pos, :] = torch.where(inside, v_new, v_q[b_idx, :, pos, :])
+    write_token(k_q, k_new, pos)
+    write_token(v_q, v_new, pos)
     out = core_attn.decode_attention(q[:, :, 0, :], k_q, v_q, s_k, s_v,
                                      attn_len, spec)
     out = out.reshape(b, 1, cfg.n_heads * cfg.hd)
-    return L.linear_apply(params["wo"], out, dtype=cfg.compute_dtype)
+    return out_proj(params, out, cfg)
+
+
+def write_token(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor
+                ) -> None:
+    """``cache[b, :, pos[b]] = new[b]`` in place, for ``cache (B, H, S, hd)``
+    and ``new (B, H, hd)``; a position >= S is dropped.
+
+    A DTensor cache (batch and sequence sharded by ``cache_shardings``) is
+    written shard by shard: DTensor has no in-place ``index_put_`` on a
+    sharded tensor, so ``new`` and ``pos`` take the cache's batch layout
+    and each rank writes the positions that fall in its own sequence
+    chunk into its local tensor."""
+    offset = 0
+    if hasattr(cache, "device_mesh"):
+        from torch.distributed.tensor import Replicate, Shard
+        mesh, pl = cache.device_mesh, cache.placements
+        rows = [Shard(0) if p == Shard(0) else Replicate() for p in pl]
+        seq_len = cache.shape[2]
+        for i, p in enumerate(pl):
+            if p == Shard(2):
+                seq_len //= mesh.size(i)
+                offset = offset * mesh.size(i) + mesh.get_local_rank(i)
+        offset *= seq_len
+        new = new.redistribute(mesh, rows).to_local()
+        pos = pos.redistribute(mesh, rows).to_local()
+        cache = cache.to_local()
+    size = cache.shape[2]
+    pos = pos - offset
+    inside = ((pos >= 0) & (pos < size))[:, None, None]
+    pos = torch.clamp(pos, 0, size - 1)
+    b_idx = torch.arange(cache.shape[0], device=cache.device)
+    cache[b_idx, :, pos, :] = torch.where(inside, new,
+                                          cache[b_idx, :, pos, :])
 
 
 def init_paged_kv_cache(cfg: ModelConfig, num_blocks: int, slots: int,
@@ -231,7 +293,7 @@ def attn_block_decode_paged(params, x: torch.Tensor,
         q[:, :, 0, :], k_pages, v_pages, table, s_k, s_v, new_len,
         cfg.attn_spec(serve=True))
     out = out.reshape(b, 1, cfg.n_heads * hd)
-    return L.linear_apply(params["wo"], out, dtype=cfg.compute_dtype)
+    return out_proj(params, out, cfg)
 
 
 def attn_block_verify_paged(params, x: torch.Tensor,
@@ -263,4 +325,4 @@ def attn_block_verify_paged(params, x: torch.Tensor,
         q, k_pages, v_pages, table, s_k, s_v, base_len + t,
         cfg.attn_spec(serve=True))
     out = out.transpose(1, 2).reshape(b, t, cfg.n_heads * cfg.hd)
-    return L.linear_apply(params["wo"], out, dtype=cfg.compute_dtype)
+    return out_proj(params, out, cfg)

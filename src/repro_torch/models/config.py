@@ -80,6 +80,12 @@ class ModelConfig:
     attn_triangular: bool = False
     logits_dtype: Optional[str] = None  # None -> float32 LM head
     serve_param_dtype: str = "float32"  # "int8": int8-resident serve weights
+    serve_param_sharding: str = "fsdp"  # fsdp | tp: serve-time placement (tp
+                                        # drops the fsdp factor: no per-step
+                                        # parameter all-gather)
+    seq_sharding: bool = False          # under a mesh binding, the residual
+                                        # stream is seq-sharded over "model"
+                                        # between matmuls
     remat: bool = True                # checkpoint each block in training
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None

@@ -45,6 +45,7 @@ from repro_torch import resolve_device
 from repro_torch.core import attention as core_attn
 from repro_torch.core import paged_kv
 from repro_torch.core import quantization as qlib
+from repro_torch.dist.sharding import shard
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mlp as M
@@ -125,8 +126,9 @@ def cast_for_serving(params: Params, cfg: ModelConfig) -> Params:
 
 def _unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Final norm and the tied f32 head -> logits over the padded vocab."""
-    return L.unembed_apply(params["embed"],
-                           L.NORM_APPLY[cfg.norm](params["final_norm"], x))
+    logits = L.unembed_apply(params["embed"],
+                             L.NORM_APPLY[cfg.norm](params["final_norm"], x))
+    return shard(logits, "batch", None, "vocab")
 
 
 def _run(body, lp, x: torch.Tensor, cfg: ModelConfig, serve: bool):
@@ -151,9 +153,10 @@ def encode(params, frames: torch.Tensor, cfg: ModelConfig, *,
         x = x + A.attn_block_apply(lp["attn"], h, cfg, spec=spec,
                                    causal=False)
         h = norm(lp["norm2"], x)
-        return x + M.mlp_apply(lp["mlp"], h, cfg)
+        return shard(x + M.mlp_apply(lp["mlp"], h, cfg), "batch", None,
+                     "embed")
 
-    x = frames.to(cfg.compute_dtype)
+    x = shard(frames.to(cfg.compute_dtype), "batch", None, "embed")
     for lp in params["encoder"]:
         x = _run(body, lp, x, cfg, serve)
     return norm(params["enc_norm"], x)
@@ -180,8 +183,7 @@ def decode_sequence(params, tokens: torch.Tensor, memory: torch.Tensor,
             q, k, v = A._project_qkv(lp["self_attn"], h, cfg, positions)
             o = core_attn.attention(q, k, v, spec)
             o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd)
-            x = x + L.linear_apply(lp["self_attn"]["wo"], o,
-                                   dtype=cfg.compute_dtype)
+            x = x + A.out_proj(lp["self_attn"], o, cfg)
             aux["self_kv"].append((k, v))
             kv = A.cross_kv(lp["cross_attn"], memory, cfg)
             aux["cross_kv"].append(kv)
@@ -192,9 +194,12 @@ def decode_sequence(params, tokens: torch.Tensor, memory: torch.Tensor,
         x = x + A.cross_attn_apply(lp["cross_attn"], h, memory, cfg,
                                    spec=spec, kv=kv)
         h = norm(lp["norm3"], x)
-        return x + M.mlp_apply(lp["mlp"], h, cfg)
+        return shard(x + M.mlp_apply(lp["mlp"], h, cfg), "batch", None,
+                     "embed")
 
-    x = L.embedding_apply(params["embed"], tokens, dtype=cfg.compute_dtype)
+    x = shard(L.embedding_apply(params["embed"], tokens,
+                                dtype=cfg.compute_dtype),
+              "batch", None, "embed")
     for lp in params["decoder"]:
         x = _run(body, lp, x, cfg, serve)
     return _unembed(params, x, cfg), aux

@@ -20,6 +20,8 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.dist.sharding import per_rank, shard
+
 Params = Dict[str, torch.Tensor]
 
 
@@ -193,9 +195,13 @@ def embedding_apply(params: Params, token_ids: torch.Tensor, *,
     """The rows of ``token_ids`` in ``dtype``; an int8 table's rows are
     cast, then multiplied by its scale cast to ``dtype``."""
     tab, sc = _embed_table(params)
-    if sc is None:
-        return _EmbeddingGather.apply(tab, token_ids.long()).to(dtype)
-    return tab[token_ids.long()].to(dtype) * sc.to(dtype)
+    tab = shard(tab, "vocab", "embed")
+    ids = token_ids.long()
+    # on a mesh each rank gathers its own rows from the whole table
+    # (DTensor's gather strategies do not cover every placement of ids)
+    gather = _EmbeddingGather.apply if sc is None else (lambda t, i: t[i])
+    rows = per_rank(gather, ids, (tab, ids), ({}, {0: 0}), {0: 0})
+    return rows.to(dtype) if sc is None else rows.to(dtype) * sc.to(dtype)
 
 
 def unembed_apply(params: Params, x: torch.Tensor, *,
@@ -205,6 +211,7 @@ def unembed_apply(params: Params, x: torch.Tensor, *,
     default: the table is multiplied as stored, f32 when served); an int8
     table's logits are then multiplied by its scale in ``dtype``."""
     tab, sc = _embed_table(params)
+    tab = shard(tab, "vocab", "embed")
     logits = x.to(dtype) @ tab.to(dtype).T
     return logits if sc is None else logits * sc.to(dtype)
 

@@ -7,6 +7,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import shard
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
@@ -30,6 +31,7 @@ def mlp_init(gen, cfg: ModelConfig, *, device,
 def mlp_apply(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     dt = cfg.compute_dtype
     h = L.linear_apply(params["w_in"], x, dtype=dt)
+    h = shard(h, "batch", None, "mlp")
     if cfg.act == "silu":
         g = L.linear_apply(params["w_gate"], x, dtype=dt)
         h = F.silu(g) * h

@@ -28,8 +28,6 @@ experts one token at a time, at the decode step's shape.  The expert GEMMs
 have that shape already while the capacity at T tokens stays at its floor
 ``top_k`` (their rows are the capacity slots; DeepSeekMoE-16B at T = 4).
 
-``shard(...)`` annotations of the reference have no counterpart on one
-card.
 """
 from __future__ import annotations
 
@@ -39,6 +37,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import per_rank, shard
 from repro_torch.models import layers as L
 from repro_torch.models import mlp as M
 from repro_torch.models.config import ModelConfig, MoEConfig
@@ -143,20 +142,38 @@ def moe_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
     pos = queue_positions(gate_idx, e)                           # (B,S,K)
     keep = pos < cap
     pos_c = torch.clamp_max(pos, cap - 1)  # a dropped one adds a 0 anywhere
-    dispatch = torch.zeros((b, s, e * cap), dtype=dt, device=x.device)
-    dispatch.scatter_(2, gate_idx * cap + pos_c, keep.to(dt))
-    dispatch = dispatch.reshape(b, s, e, cap)
+
+    def scatter(slot, kept):
+        d = torch.zeros(slot.shape[:2] + (e * cap,), dtype=dt,
+                        device=slot.device)
+        return d.scatter_(2, slot, kept)
+
+    # on a mesh, each rank scatters its own rows (DTensor has no scatter_
+    # strategy)
+    slot = gate_idx * cap + pos_c
+    dispatch = per_rank(scatter, slot, (slot, keep.to(dt)),
+                        ({0: 0}, {0: 0}), {0: 0})
+    dispatch = shard(dispatch.reshape(b, s, e, cap), "batch", None, "expert",
+                     None)
 
     # ---- expert FFN (stacked batched GEMMs) --------------------------------
     xe = torch.einsum("bsec,bsd->ebcd", dispatch, x.to(dt))      # (E,B,C,d)
+    xe = shard(xe, "expert", "batch", None, None)
     h = torch.einsum("ebcd,edf->ebcf", xe, params["w_in"].to(dt))
     g = torch.einsum("ebcd,edf->ebcf", xe, params["w_gate"].to(dt))
     ye = torch.einsum("ebcf,efd->ebcd", F.silu(g) * h,
                       params["w_out"].to(dt))                    # (E,B,C,d)
+    ye = shard(ye, "expert", "batch", None, None)
 
     # ---- combine: gate-weighted rows, cast to dt, summed in f32 ------------
-    b_idx = torch.arange(b, device=x.device)[:, None, None]
-    picked = ye[gate_idx, b_idx, pos_c].to(torch.float32)        # (B,S,K,d)
+    def rows(ye, gate_idx, pos_c):
+        b_idx = torch.arange(gate_idx.shape[0], device=ye.device)
+        return ye[gate_idx, b_idx[:, None, None], pos_c]
+
+    # on a mesh each rank gathers its own tokens' rows
+    picked = per_rank(rows, gate_idx, (ye, gate_idx, pos_c),
+                      ({0: 1}, {0: 0}, {0: 0}),
+                      {0: 0}).to(torch.float32)                  # (B,S,K,d)
     w = (gate_vals * keep).to(dt).to(torch.float32)[..., None]
     terms = w * picked
     acc = terms[:, :, 0]

@@ -23,6 +23,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import per_rank, shard
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
@@ -129,8 +130,12 @@ def _associative_scan(a: torch.Tensor, b: torch.Tensor
     out_a, out_b = torch.empty_like(a), torch.empty_like(b)
     out_a[:, 0], out_b[:, 0] = a[:, 0], b[:, 0]
     out_a[:, 1::2], out_b[:, 1::2] = odd_a, odd_b
-    _combine((odd_a[:, :m], odd_b[:, :m]), (a[:, 2::2], b[:, 2::2]),
-             out=(out_a[:, 2::2], out_b[:, 2::2]))
+    pairs = ((odd_a[:, :m], odd_b[:, :m]), (a[:, 2::2], b[:, 2::2]))
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        # autograd records no out= product: the same ops, then a copy
+        out_a[:, 2::2], out_b[:, 2::2] = _combine(*pairs)
+    else:
+        _combine(*pairs, out=(out_a[:, 2::2], out_b[:, 2::2]))
     return out_a, out_b
 
 
@@ -143,7 +148,7 @@ def _mamba1_scan_chunked(a: torch.Tensor, bx: torch.Tensor, h0: torch.Tensor,
     b, s, d, n = a.shape
     chunk = min(chunk, s)
     h = h0
-    h_all = torch.empty((b, s, d, n), dtype=torch.float32, device=a.device)
+    h_all = torch.empty_like(a)                       # (B, S, D, N) f32
     for c0 in range(0, s, chunk):
         ac, bc = a[:, c0:c0 + chunk], bx[:, c0:c0 + chunk]
         m = ac.shape[1]
@@ -157,8 +162,11 @@ def _mamba1_scan_chunked(a: torch.Tensor, bx: torch.Tensor, h0: torch.Tensor,
         aa, bb = _associative_scan(ac, bc)
         # aa * h + bb: its first m rows straight into h_all, and its last
         # (padded) row, the carry, on its own
-        torch.mul(aa[:, :m], h[:, None], out=h_all[:, c0:c0 + m]).add_(
-            bb[:, :m])
+        if torch.is_grad_enabled() and aa.requires_grad:
+            h_all[:, c0:c0 + m] = aa[:, :m] * h[:, None] + bb[:, :m]
+        else:
+            torch.mul(aa[:, :m], h[:, None], out=h_all[:, c0:c0 + m]).add_(
+                bb[:, :m])
         h = aa[:, -1] * h + bb[:, -1]
     return h_all, h
 
@@ -176,11 +184,16 @@ def mamba1_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
     r = _dt_rank(cfg)
     xz = L.linear_apply(params["in_proj"], x, dtype=dt)
     xs, z = torch.chunk(xz, 2, dim=-1)                    # (B, S, di) each
+    xs = shard(xs, "batch", None, "mlp")
     conv_tail = state["conv"] if state is not None else None
     xs, new_tail = _causal_conv1d(xs, params["conv_w"].to(dt), conv_tail)
     xs = F.silu(xs)
 
     proj = L.linear_apply(params["x_proj"], xs, dtype=dt).to(torch.float32)
+    # its partial sums over the inner dim reduced whole: left partial,
+    # DTensor reduce-scatters them over the sequence, and every chunk of
+    # the scan then gathers the sequence back
+    proj = shard(proj, "batch", None, None)
     dt_in, bmat, cmat = torch.split(proj, [r, n, n], dim=-1)
     delta = _softplus(dt_in @ params["dt_proj"]["w"]
                       + params["dt_proj"]["b"])           # (B, S, di)
@@ -191,7 +204,11 @@ def mamba1_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
     h0 = (state["h"] if state is not None else
           torch.zeros((x.shape[0], cfg.d_inner, n), dtype=torch.float32,
                       device=x.device))
-    h_all, h_last = _mamba1_scan_chunked(da, dbx, h0, sc.chunk)
+    # on a mesh, each rank scans its own rows and channels
+    h_all, h_last = per_rank(
+        lambda a, bx, h: _mamba1_scan_chunked(a, bx, h, sc.chunk), da,
+        (da, dbx, h0), ({0: 0, 2: 2}, {0: 0, 2: 2}, {0: 0, 2: 1}),
+        ({0: 0, 2: 2}, {0: 0, 2: 1}))
     del da, dbx
     y = torch.einsum("bsdn,bsn->bsd", h_all, cmat)        # (B, S, di)
     del h_all
@@ -263,7 +280,7 @@ def _ssd_chunked(xh: torch.Tensor, log_a: torch.Tensor, bmat: torch.Tensor,
     heads; h0 (B, H, N, P).  Returns (y (B, S, H, P), h_last)."""
     b, s, h, p = xh.shape
     chunk = min(chunk, s)
-    y = torch.empty((b, s, h, p), dtype=torch.float32, device=xh.device)
+    y = torch.empty_like(xh, dtype=torch.float32)
     state = h0
     for c0 in range(0, s, chunk):
         parts = [t[:, c0:c0 + chunk] for t in (xh, log_a, bmat, cmat)]
@@ -295,6 +312,7 @@ def mamba2_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
     xbc, new_tail = _causal_conv1d(xbc, params["conv_w"].to(dt_), conv_tail)
     xbc = F.silu(xbc)
     xs, bmat, cmat = torch.split(xbc, [di, n, n], dim=-1)
+    xs = shard(xs, "batch", None, "mlp")
 
     delta = _softplus(dt_in.to(torch.float32)
                       + params["dt_bias"])                # (B, S, H)
@@ -303,9 +321,14 @@ def mamba2_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
     xf = xs.to(torch.float32).reshape(b, s, nh, p)
     h0 = (state["h"] if state is not None else
           torch.zeros((b, nh, n, p), dtype=torch.float32, device=x.device))
-    y, h_last = _ssd_chunked(xf * delta[..., None], log_a,
-                             bmat.to(torch.float32), cmat.to(torch.float32),
-                             h0, sc.chunk)
+    xh = xf * delta[..., None]
+    # on a mesh, each rank runs the SSD on its own rows and heads
+    heads = {0: 0, 2: 2}
+    y, h_last = per_rank(
+        lambda *a: _ssd_chunked(*a, sc.chunk), xh,
+        (xh, log_a, bmat.to(torch.float32), cmat.to(torch.float32), h0),
+        (heads, heads, {0: 0}, {0: 0}, {0: 0, 2: 1}),
+        (heads, {0: 0, 2: 1}))
     y = y + xf * params["D"][:, None]
     y = L.rmsnorm_apply(params["norm"], y.reshape(b, s, di))
     y = (y * F.silu(z.to(torch.float32))).to(dt_)

@@ -44,6 +44,7 @@ from repro_torch import resolve_device
 from repro_torch.core import attention as core_attn
 from repro_torch.core import paged_kv
 from repro_torch.core import quantization as qlib
+from repro_torch.dist.sharding import shard
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mlp as M
@@ -221,9 +222,17 @@ def cast_for_serving(params: Params, cfg: ModelConfig) -> Params:
     return out
 
 
+def _residual(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The residual stream's placement between blocks (under a mesh
+    binding): batch over the data axes, the sequence over "model" with
+    ``cfg.seq_sharding``."""
+    return shard(x, "batch", "seq" if cfg.seq_sharding else None, "embed")
+
+
 def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig
                  ) -> torch.Tensor:
-    return L.embedding_apply(params["embed"], tokens, dtype=cfg.compute_dtype)
+    return _residual(L.embedding_apply(params["embed"], tokens,
+                                       dtype=cfg.compute_dtype), cfg)
 
 
 def unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -231,8 +240,10 @@ def unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     ``cfg.logits_dtype`` (f32 when None, the reference's default)."""
     x = L.NORM_APPLY[cfg.norm](params["final_norm"], x)
     if cfg.tie_embeddings:
-        return L.unembed_apply(params["embed"], x, dtype=cfg.head_dtype)
-    return L.linear_apply(params["lm_head"], x, dtype=cfg.head_dtype)
+        logits = L.unembed_apply(params["embed"], x, dtype=cfg.head_dtype)
+    else:
+        logits = L.linear_apply(params["lm_head"], x, dtype=cfg.head_dtype)
+    return shard(logits, "batch", None, "vocab")
 
 
 def _ffn(lp, h: torch.Tensor, cfg: ModelConfig, *, tokenwise: bool = False
@@ -263,8 +274,9 @@ def _mamba_block(lp, x: torch.Tensor, cfg: ModelConfig,
 def _mamba_block_serve(lp, x: torch.Tensor, cfg: ModelConfig):
     """A serve-mode Mamba block: run from a zero state, so that the state
     after the sequence comes back for the cache (one pass, no rerun)."""
-    return _mamba_block(lp, x, cfg,
-                        S.zero_state(cfg, x.shape[0], device=x.device))
+    x, st = _mamba_block(lp, x, cfg,
+                         S.zero_state(cfg, x.shape[0], device=x.device))
+    return _residual(x, cfg), st
 
 
 def _block_apply(lp, x: torch.Tensor, cfg: ModelConfig):
@@ -272,15 +284,16 @@ def _block_apply(lp, x: torch.Tensor, cfg: ModelConfig):
     ``x`` and, for a MoE block, its (aux_loss, z_loss) stacked (None for a
     dense or Mamba block)."""
     if "ssm" in lp:
-        return _mamba_block(lp, x, cfg)[0], None
+        return _residual(_mamba_block(lp, x, cfg)[0], cfg), None
     norm = L.NORM_APPLY[cfg.norm]
     h = norm(lp["norm1"], x)
     x = x + A.attn_block_apply(lp["attn"], h, cfg)
     h = norm(lp["norm2"], x)
     if "mlp" in lp:
-        return x + M.mlp_apply(lp["mlp"], h, cfg), None
+        return _residual(x + M.mlp_apply(lp["mlp"], h, cfg), cfg), None
     out, aux = MOE.moe_apply(lp["moe"], h, cfg)
-    return x + out, torch.stack([aux["aux_loss"], aux["z_loss"]])
+    return (_residual(x + out, cfg),
+            torch.stack([aux["aux_loss"], aux["z_loss"]]))
 
 
 def _attn_serve(attn, h: torch.Tensor, cfg: ModelConfig,
@@ -291,7 +304,7 @@ def _attn_serve(attn, h: torch.Tensor, cfg: ModelConfig,
     q, k, v = A._project_qkv(attn, h, cfg, positions)
     o = core_attn.attention(q, k, v, cfg.attn_spec(serve=True))
     o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd)
-    return L.linear_apply(attn["wo"], o, dtype=cfg.compute_dtype), (k, v)
+    return A.out_proj(attn, o, cfg), (k, v)
 
 
 def _block_apply_serve(lp, x: torch.Tensor, cfg: ModelConfig,
@@ -302,7 +315,7 @@ def _block_apply_serve(lp, x: torch.Tensor, cfg: ModelConfig,
     out, kv = _attn_serve(lp["attn"], norm(lp["norm1"], x), cfg, positions)
     x = x + out
     h = norm(lp["norm2"], x)
-    return x + _ffn(lp, h, cfg), kv
+    return _residual(x + _ffn(lp, h, cfg), cfg), kv
 
 
 def _remat(fn, lp, x: torch.Tensor, cfg: ModelConfig):

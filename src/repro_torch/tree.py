@@ -31,19 +31,21 @@ def _children(node):
     return None
 
 
+def _walk(node, path: Path, out: List[Tuple[Path, Any]]) -> None:
+    kids = _children(node)
+    if kids is None:
+        out.append((path, node))
+        return
+    for key, child in kids:
+        _walk(child, path + (key,), out)
+
+
 def leaves_with_path(tree) -> List[Tuple[Path, Any]]:
-    """Every leaf with its path, in JAX's flattening order."""
+    """Every leaf with its path, in JAX's flattening order.  (A module-level
+    walk: a recursive closure would be a reference cycle keeping every
+    leaf alive until the garbage collector runs.)"""
     out: List[Tuple[Path, Any]] = []
-
-    def walk(node, path):
-        kids = _children(node)
-        if kids is None:
-            out.append((path, node))
-            return
-        for key, child in kids:
-            walk(child, path + (key,))
-
-    walk(tree, ())
+    _walk(tree, (), out)
     return out
 
 

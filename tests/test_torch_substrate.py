@@ -383,6 +383,8 @@ def test_compressed_sgd_converges():
 
 
 def test_compressed_psum_over_a_group_waits():
-    with pytest.raises(NotImplementedError):
+    """A named axis is a dim of the bound mesh: without a binding it is
+    refused (the group path itself: tests/test_torch_sharding.py)."""
+    with pytest.raises(ValueError, match="no mesh is bound"):
         comp.compressed_psum({"w": torch.ones(2)}, {"w": torch.zeros(2)},
                              axis_name="dp")
