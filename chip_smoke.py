@@ -260,6 +260,27 @@ SAMPLED = dict(temperature=0.8, top_p=0.95, sample_seed=3)
 TRAIN_SMOKE = dict(batch=8, seq=64, seed=0, steps=5)
 FQ_INT8 = dict(steps=30, batch=8, seq=48, seed=11, tokens=32)
 TRAIN_FULL = dict(batch=4, seq=2048, steps=8, warmup=2, seed=0)
+# phase 14, training the other families: each smoke config card vs CPU,
+# the step twice, the CLI's resume, and (where it has attention) the
+# fakequant->int8 agreement through kernel 1 as a record; then each at full
+# width through ``launch.train.main``, 3 steps of B 4 x 2048 (each fits the
+# card), depth cut where the state (f32 masters, gradients, two moments: 16
+# B a parameter) does not fit:
+# (arch, layers or None for all); Falcon-Mamba's batch and
+# depth (from 4 layers up) are planned from one layer's measured step peak
+FAMILY_SMOKE_ARCHS = ("deepseek_moe_16b", "mixtral_8x22b", "falcon_mamba_7b",
+                      "zamba2_2p7b", "seamless_m4t_medium")
+FAMILY_FULL = (("zamba2_2p7b", None), ("seamless_m4t_medium", None),
+               ("deepseek_moe_16b", 4), ("falcon_mamba_7b", 4))
+FAMILY_TRAIN = dict(batch=4, seq=2048, steps=3, warmup=2, seed=0)
+# card vs CPU over the smoke steps: with float attention every loss and grad
+# norm within 1e-5; as trained (fakequant) the losses within 1e-3 and the
+# grad norms, and the first step's gradient leaves against their scale,
+# within 1e-2: a last-bit difference of a score on an int8 rounding edge
+# moves its grid index and the straight-through gradient carries the jump
+# (measured up to 3.1e-3 on Mixtral's smoke grad norms, float attention
+# 6.4e-7)
+FAMILY_CARD_TOL = dict(float=1e-5, loss=1e-3, grad_norm=1e-2)
 # the MoE family: DeepSeekMoE-16B at full width (the one MoE config of the
 # reference's registry that one card holds), both MoE smoke configs
 MOE_ARCH = "deepseek_moe_16b"
@@ -1989,18 +2010,27 @@ def _run_steps(torch, step, params, state, dc, n, device):
     return params, state, losses, norms
 
 
-def fq_int8_agreement(torch, params, cfg, tokens):
+def fq_int8_agreement(torch, params, cfg, tokens, frames=None):
     """The reference's system check (``tests/test_system.py``): the
     teacher-forced logits of the training forward (fakequant) against the
-    int8 datapath's.  Returns (top-1 agreement, total variation, kernel-1
-    launches of the int8 forward)."""
+    int8 datapath's; an encoder-decoder's forward takes its ``frames``.
+    Returns (top-1 agreement, total variation, kernel-1 launches of the
+    int8 forward)."""
     from repro_torch.kernels import splitmax_attn
+    from repro_torch.models import encdec as E
     from repro_torch.models import transformer as T
+
+    def forward(c):
+        if c.family == "encdec":
+            return E.forward(params, {"frames": frames, "tokens": tokens},
+                             c)[0]
+        return T.forward(params, tokens, c)[0]
+
     with torch.no_grad():
-        logits_fq, _ = T.forward(params, tokens, cfg)
+        logits_fq = forward(cfg)
         torch.cuda.synchronize()
         splitmax_attn.launches = 0
-        logits_i8, _ = T.forward(params, tokens, cfg.replace(attn_mode="int8"))
+        logits_i8 = forward(cfg.replace(attn_mode="int8"))
         torch.cuda.synchronize()
         n = splitmax_attn.launches
         p_fq = torch.softmax(logits_fq[..., :cfg.vocab_size], -1)
@@ -2231,6 +2261,262 @@ def train_full_phase(torch, dev):
     del params, state, batch
     torch.cuda.empty_cache()
     return n_int8
+
+
+def int8_attention_calls(cfg) -> int:
+    """Kernel-1 launches of one int8 training forward: one an attention
+    layer; the hybrid's shared block once every ``hybrid_attn_every``
+    layers; an encoder-decoder's encoder self, decoder self and cross."""
+    if cfg.family == "encdec":
+        return cfg.n_encoder_layers + 2 * cfg.n_layers
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.hybrid_attn_every
+    return cfg.n_layers
+
+
+def family_smoke_train(torch, dev, arch: str) -> int:
+    """Phase 14 on one smoke config in f32: the card against the CPU over
+    ``TRAIN_SMOKE["steps"]`` steps (losses and grad norms within 1e-3);
+    the same step twice on the card, bit for bit; the CLI's resume, 6
+    steps straight against 3, a checkpoint and 3 more, bit for bit; and,
+    where the family has attention, the fakequant->int8 agreement after
+    ``FQ_INT8["steps"]`` steps, a record (its 0.9 / 0.1 gate is the dense
+    family's).  Returns the int8 forward's kernel-1 launches."""
+    import tempfile
+    from repro_torch import tree as tu
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, batch_for_step
+    from repro_torch.launch import steps as st
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw
+
+    t = TRAIN_SMOKE
+    cfg = get_arch(arch).smoke.replace(dtype="float32")
+    cpu = torch.device("cpu")
+    opt = adamw.OptimizerConfig(peak_lr=1e-3, warmup_steps=2,
+                                total_steps=t["steps"])
+
+    def data(seq, batch, seed):
+        return DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                          global_batch=batch, seed=seed,
+                          frames=cfg.family == "encdec", d_model=cfg.d_model)
+
+    dc = data(t["seq"], t["batch"], t["seed"])
+    p0 = st.init_params_fn(cfg)(seed=0, device=cpu)
+
+    def fresh(device):
+        """A copy of the initial weights on ``device`` (steps update their
+        parameters in place)."""
+        return tu.tree_map(lambda x: x.clone().to(device), p0)
+
+    def run(device, c=cfg):
+        params = fresh(device)
+        return _run_steps(torch, st.make_train_step(c, opt), params,
+                          adamw.init_state(params), dc, t["steps"],
+                          device)[2:]
+
+    def rel(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    # the first step's gradients leaf by leaf, then the steps with float
+    # attention (no int8 rounding edge to cross) and as trained (fakequant)
+    batch = batch_for_step(dc, 0)
+    (gloss, _), ggrad = st.value_and_grad(
+        fresh(dev), {k: v.to(dev) for k, v in batch.items()}, cfg)
+    (closs, _), cgrad = st.value_and_grad(fresh(cpu), batch, cfg)
+    leaf_err, leaf = max(
+        (float((a.cpu() - b).abs().max() / b.abs().max()), tu.keystr(path))
+        for (path, a), b in zip(tu.leaves_with_path(ggrad), tu.leaves(cgrad))
+        if float(b.abs().max()) > 0)
+    (fl, fn), (fcl, fcn) = (run(d, cfg.replace(attn_mode="float"))
+                            for d in (dev, cpu))
+    (gl, gn), (cl, cn) = run(dev), run(cpu)
+    check(all(map(math.isfinite, gl + gn)), f"{arch} smoke training: {gl}")
+    err = rel(gl + gn, cl + cn)
+    print(f"[train-families] {arch} smoke, card vs CPU: the first step's "
+          f"loss {rel([float(gloss)], [float(closs)]):.3g}, gradient leaves "
+          f"within {leaf_err:.3g} of their scale (worst {leaf}); "
+          f"{t['steps']} steps, relative differences by step: losses "
+          f"{[float(f'{abs(a - b) / abs(b):.3g}') for a, b in zip(gl, cl)]}, "
+          f"grad norms "
+          f"{[float(f'{abs(a - b) / abs(b):.3g}') for a, b in zip(gn, cn)]}; "
+          f"with float attention: losses {rel(fl, fcl):.3g}, grad norms "
+          f"{rel(fn, fcn):.3g}")
+    tol = FAMILY_CARD_TOL
+    float_err = rel(fl + fn, fcl + fcn)
+    check(float_err <= tol["float"], f"{arch} smoke training with float "
+          f"attention, card vs CPU: losses {fl} vs {fcl}, grad norms {fn} vs "
+          f"{fcn}: relative difference {float_err:.3g}")
+    check(rel(gl, cl) <= tol["loss"], f"{arch} smoke training, card vs "
+          f"CPU: losses {gl} vs {cl}: relative difference {rel(gl, cl):.3g}")
+    check(rel(gn, cn) <= tol["grad_norm"] and leaf_err <= tol["grad_norm"],
+          f"{arch} smoke training, card vs CPU: grad norms {gn} vs {cn}, "
+          f"relative difference {rel(gn, cn):.3g}; the first step's "
+          f"gradient leaves within {leaf_err:.3g} of their scale")
+
+    outs = []
+    for _ in range(2):
+        params = fresh(dev)
+        batch = {k: v.to(dev) for k, v in batch_for_step(dc, 0).items()}
+        (loss, _), grads = st.value_and_grad(params, batch, cfg)
+        params, _, m = st.make_train_step(cfg, opt)(
+            params, adamw.init_state(params), batch)
+        outs.append([loss, m["grad_norm"]] + tu.leaves((grads, params)))
+    check(all(torch.equal(a, b) for a, b in zip(*outs)),
+          f"{arch} smoke training: the same step twice differs on the card")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        common = ["--arch", arch, "--smoke", "--device", "cuda", "--batch",
+                  str(t["batch"]), "--seq", str(t["seq"]), "--log-every", "3"]
+        straight = train.main(common + ["--steps", "6", "--ckpt-dir",
+                                         f"{tmp}/a"])
+        first = train.main(common + ["--steps", "3", "--ckpt-dir",
+                                      f"{tmp}/b"])
+        second = train.main(common + ["--steps", "6", "--ckpt-dir",
+                                       f"{tmp}/b"])
+    check(second["start_step"] == 3, f"{arch} CLI: the second run did not "
+          f"resume")
+    check(first["losses"] + second["losses"] == straight["losses"],
+          f"{arch} CLI resume: losses {first['losses']} + "
+          f"{second['losses']} != {straight['losses']}")
+    check(all(torch.equal(a, b) for a, b in zip(
+        tu.leaves((second["params"], second["opt_state"])),
+        tu.leaves((straight["params"], straight["opt_state"])))),
+        f"{arch} CLI resume: final parameters or moments differ from the "
+        f"straight run")
+    line = (f"[train-families] {arch} smoke ({cfg.family}): card vs CPU over "
+            f"{t['steps']} steps, losses {[round(x, 5) for x in gl]}, max "
+            f"relative difference of the losses and grad norms {err:.3g} "
+            f"(tol {tol['loss']} / {tol['grad_norm']}; float attention "
+            f"{float_err:.3g}, tol {tol['float']}); the same step twice on "
+            f"the card bit for bit (loss, "
+            f"grad norm, {len(outs[0]) - 2} gradient and parameter leaves); "
+            f"CLI 3 steps + checkpoint + resume + 3 == 6 straight, bit for "
+            f"bit")
+    n = 0
+    if cfg.family != "ssm":
+        f = FQ_INT8
+        dc = data(f["seq"], f["batch"], f["seed"])
+        params = fresh(dev)
+        params, _, losses, _ = _run_steps(
+            torch, st.make_train_step(cfg, adamw.OptimizerConfig(
+                peak_lr=1e-3, warmup_steps=5, total_steps=f["steps"])),
+            params, adamw.init_state(params), dc, f["steps"], dev)
+        batch = batch_for_step(dc, 100)
+        tok = batch["tokens"][:, :f["tokens"]].to(dev)
+        frames = (batch["frames"][:, :f["tokens"]].to(dev)
+                  if "frames" in batch else None)
+        agree, tv, n = fq_int8_agreement(torch, params, cfg, tok, frames)
+        want = int8_attention_calls(cfg)
+        check(n == want, f"{arch} int8 forward: {n} kernel-1 launches, "
+              f"want {want}")
+        line += (f"; fakequant->int8 after {f['steps']} steps (loss "
+                 f"{losses[0]:.4f} -> {losses[-1]:.4f}): top-1 agreement "
+                 f"{agree:.4f}, TV {tv:.4f} (a record; the gate is the dense "
+                 f"family's), {n} kernel-1 launches")
+    print(line)
+    return n
+
+
+def train_with_peak(torch, argv):
+    """``launch.train.main(argv)`` and the card's peak memory over it."""
+    import gc
+    from repro_torch.launch import train
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res = train.main(argv)
+    torch.cuda.synchronize()
+    return res, torch.cuda.max_memory_allocated()
+
+
+def families_full_phase(torch, dev) -> None:
+    """Phase 14 at full width: each of ``FAMILY_FULL`` through
+    ``launch.train.main`` for ``FAMILY_TRAIN["steps"]`` steps of bf16
+    compute over f32 masters.  Prints step ms (median of steps 2 on),
+    tok/s, MFU (6 x params x tokens over 989 TFLOP/s; a MoE config's
+    active parameters), peak memory, and whether the loss is finite and
+    falls, with each cut.  Falcon-Mamba's batch, then its depth, come from
+    one layer's step peak at B 1, measured first (the Mamba-1 scan's
+    backward keeps every level of its recursion)."""
+    import gc
+    import statistics
+    from repro_torch import tree as tu
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.roofline import measured_mfu
+
+    ft = FAMILY_TRAIN
+    total = torch.cuda.get_device_properties(0).total_memory
+    for arch, layers in FAMILY_FULL:
+        full = get_arch(arch).config
+        cfg = full.replace(n_layers=layers) if layers else full
+        common = ["--arch", arch, "--device", "cuda", "--warmup",
+                  str(ft["warmup"]), "--seq", str(ft["seq"]), "--seed",
+                  str(ft["seed"]), "--log-every", "100"]
+        base = common + (["--layers", str(layers)] if layers else [])
+        batch, plan = ft["batch"], "as planned"
+        if cfg.family == "ssm":
+            # one layer's step peak at B 1 sizes the batch: the scan's
+            # backward keeps every level of the recursion a chunk
+            res, peak1 = train_with_peak(torch, common + [
+                "--layers", "1", "--steps", "1", "--batch", "1"])
+            state1 = 16 * sum(p.numel() for p in tu.leaves(res["params"]))
+            del res
+            act = peak1 - state1
+
+            def predicted(n_layers, b):
+                """f32 masters, gradients and moments of ``n_layers``
+                layers, and ``b`` times one layer's activations at B 1."""
+                return 16 * full.replace(n_layers=n_layers).param_count() \
+                    + b * act
+
+            # the first batch from ``batch`` down that fits at the starting
+            # depth, then the deepest config that fits at that batch, with
+            # a fifth of the card kept for what the estimate misses
+            batch = next((b for b in (batch, 2, 1)
+                          if predicted(layers, b) <= 0.8 * total), 1)
+            layers = max(n for n in range(layers, full.n_layers + 1)
+                         if predicted(n, batch) <= 0.8 * total) \
+                if predicted(layers, batch) <= 0.8 * total else layers
+            cfg = full.replace(n_layers=layers)
+            base = common + ["--layers", str(layers)]
+            plan = (f"one layer at B 1: step peak {peak1 / 1e9:.2f} GB, "
+                    f"state {state1 / 1e9:.2f} GB; predicted at {layers} "
+                    f"layers B {batch}: {predicted(layers, batch) / 1e9:.2f} "
+                    f"GB of {total / 1e9:.1f}")
+        t0 = time.perf_counter()
+        res, peak = train_with_peak(torch, base + [
+            "--steps", str(ft["steps"]), "--batch", str(batch)])
+        wall = time.perf_counter() - t0
+        losses = res["losses"]
+        finite = all(map(math.isfinite, losses + res["grad_norms"]))
+        check(finite, f"{arch} full-width training: losses {losses}")
+        n_params = sum(p.numel() for p in tu.leaves(res["params"]))
+        n_model = (cfg.active_param_count() if cfg.family == "moe"
+                   else n_params)
+        tokens = batch * ft["seq"]
+        step_ms = statistics.median(res["step_s"][1:]) * 1e3
+        mfu = measured_mfu(6 * n_model * tokens, step_ms / 1e3)
+        cuts = []
+        if layers and layers < full.n_layers:
+            cuts.append(f"depth {layers} of {full.n_layers} layers")
+        if batch < ft["batch"]:
+            cuts.append(f"batch {batch} of {ft['batch']}")
+        print(f"[train-families] {arch} full width (d_model {cfg.d_model}, "
+              f"{cfg.n_layers} layers{', ' if cuts else ''}"
+              f"{'; '.join(cuts) or ', no cut'}; {plan}): B {batch} x "
+              f"{ft['seq']}, {ft['steps']} steps, losses "
+              f"{[round(x, 4) for x in losses]}, finite {finite}, falling "
+              f"{losses[-1] < losses[0]}; step {step_ms:.1f} ms (median of "
+              f"steps 2-{ft['steps']}; first {res['step_s'][0] * 1e3:.1f} "
+              f"ms), {tokens / step_ms * 1e3:.1f} tok/s, MFU {100 * mfu:.2f}% "
+              f"(6 x {n_model} {'active ' if cfg.family == 'moe' else ''}"
+              f"params x {tokens} tokens over 989 TFLOP/s bf16), peak "
+              f"memory {peak / 1e9:.2f} GB, {n_params} parameters; "
+              f"{wall:.1f} s")
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def rows_agree(torch, dev, params, cfg, b: int, t: int) -> bool:
@@ -4398,11 +4684,18 @@ def main() -> int:
     tinyllama_int8_vs_bf16(torch, dev)
     cim = cim_phase(torch, dev)
     print(f"[ds67b] phase 12 wall time {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    n_fq_families = sum(family_smoke_train(torch, dev, arch)
+                        for arch in FAMILY_SMOKE_ARCHS)
+    families_full_phase(torch, dev)
+    print(f"[train-families] phase 14 wall time "
+          f"{time.perf_counter() - t_phase:.1f} s")
     by_path = {"paged churn": launches["splitmax_attention"],
                "dense churn": dense.pop("splitmax_attention"),
                "pressure churn": n_pressure,
                "fakequant->int8 check, smoke": n_fq_smoke,
                "fakequant->int8 check, full width": n_fq_full,
+               "fakequant->int8 checks, other families": n_fq_families,
                "moe churn": moe["splitmax_attention"],
                "mistral-nemo churn": nemo["splitmax_attention"],
                "olmo churn": olmo["splitmax_attention"],

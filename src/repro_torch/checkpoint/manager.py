@@ -12,7 +12,8 @@
     ``keep`` are removed.
   * **Async**: ``save_async`` copies the tree to host memory at once and
     writes the files on a background thread.
-  * **Preemption**: ``install_sigterm_handler`` saves on SIGTERM.
+  * **Preemption**: the trainer (``launch/train.py``) saves on SIGTERM at
+    the end of the step the signal lands in.
 
 Format: a MessagePack index (``index.msgpack``, written by the port's own
 codec) and one ``.npy`` file per array.
@@ -21,9 +22,8 @@ from __future__ import annotations
 
 import os
 import shutil
-import signal
 import threading
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -118,16 +118,3 @@ class CheckpointManager:
         for s in steps[:-self.keep]:
             shutil.rmtree(os.path.join(self.dir, f"step_{s}"),
                           ignore_errors=True)
-
-    def install_sigterm_handler(self, get_state: Callable[[], Tuple[int, Any]]
-                                ):
-        """Preemption save: on SIGTERM, snapshot and save synchronously.
-        Returns the handler it replaced."""
-
-        def handler(signum, frame):
-            step, tree = get_state()
-            self.wait()
-            self.save(step, tree, extra={"preempted": True})
-            raise SystemExit(143)
-
-        return signal.signal(signal.SIGTERM, handler)

@@ -28,13 +28,17 @@ class DataConfig:
     global_batch: int
     seed: int = 0
     n_latent: int = 16            # HMM latent states
+    frames: bool = False          # also emit audio-frame embeddings (encdec)
+    d_model: int = 0              # frame dim when frames=True
 
 
 def batch_for_step(cfg: DataConfig, step: int, host_index: int = 0,
                    host_count: int = 1) -> Dict[str, torch.Tensor]:
     """Pure (seed, step, host) -> this host's rows: ``tokens`` and
     ``labels`` (B/host_count, S) int32, labels the tokens rolled by one
-    (the last label wraps to the first token)."""
+    (the last label wraps to the first token); with ``cfg.frames`` also
+    ``frames`` (B/host_count, S, d_model) f32, standard normal x 0.02,
+    drawn from the same generator after the tokens."""
     if cfg.global_batch % host_count:
         raise ValueError(f"global batch {cfg.global_batch} does not split "
                          f"over {host_count} hosts")
@@ -58,7 +62,12 @@ def batch_for_step(cfg: DataConfig, step: int, host_index: int = 0,
     noise = rng.integers(0, band, states.shape)
     tokens = np.minimum(states * band + noise, cfg.vocab_size - 1)
     tokens = torch.from_numpy(tokens.astype(np.int32))
-    return {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+    if cfg.frames:
+        frames = rng.standard_normal((per_host, cfg.seq_len, cfg.d_model),
+                                     dtype=np.float32) * np.float32(0.02)
+        batch["frames"] = torch.from_numpy(frames)
+    return batch
 
 
 def token_stream(cfg: DataConfig, start_step: int = 0, host_index: int = 0,

@@ -460,18 +460,21 @@ def placements(spec: Spec, mesh) -> Tuple:
     return tuple(out)
 
 
-def place(x: torch.Tensor, mesh, spec: Spec):
+def place(x: torch.Tensor, mesh, spec: Spec, src: Optional[int] = None):
     """``x`` (the global value, on every rank) as a DTensor laid out by
-    ``spec``: each rank keeps its own chunk, nothing is communicated."""
+    ``spec``: each rank keeps its own chunk, nothing is communicated.
+    With ``src``, the value is that rank's, scattered (or broadcast) from
+    there; the other ranks' ``x`` gives only its shape and dtype."""
     from torch.distributed.tensor import distribute_tensor
     return distribute_tensor(x, mesh, placements(spec, mesh),
-                             src_data_rank=None)
+                             src_data_rank=src)
 
 
-def place_tree(tree: Any, specs: Any, mesh) -> Any:
+def place_tree(tree: Any, specs: Any, mesh, src: Optional[int] = None
+               ) -> Any:
     """:func:`place` over a tree and its matching tree of specs."""
     return tu.unflatten_like(tree, [
-        place(x, mesh, s)
+        place(x, mesh, s, src)
         for x, s in zip(tu.leaves(tree), spec_leaves(specs))])
 
 

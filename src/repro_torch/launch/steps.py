@@ -41,10 +41,11 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     if vp != logical_vocab:
         lane = torch.arange(vp, device=logits.device)
         logits = torch.where(lane >= logical_vocab, -1e30, logits)
-    lse = torch.logsumexp(logits, dim=-1)
     if sh.current_axis_rules() is None:
+        lse = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     else:
+        lse = _LogSumExp.apply(logits)
         # sharding-aware: with the vocab dim sharded, a lane compare and a
         # sum leave partial sums of B x S values to reduce, where a gather
         # would need every row whole (the reference's formulation; the
@@ -53,6 +54,28 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
         gold = torch.sum(torch.where(lane == labels.long()[..., None],
                                      logits, 0.0), dim=-1)
     return torch.mean(lse - gold)
+
+
+class _LogSumExp(torch.autograd.Function):
+    """``torch.logsumexp`` over the last dim in its own ops, bit for bit
+    (the row max, infinite maxes taken as 0, ``log(sum(exp(x - max))) +
+    max``; the backward ``g * exp(x - lse)``), written out so that each op
+    keeps a sharded vocab dim sharded: the max and the sum reduce B x S
+    partial values, where DTensor's ``logsumexp`` gathers every row of
+    logits whole."""
+
+    @staticmethod
+    def forward(ctx, x):
+        m = torch.amax(x, dim=-1, keepdim=True)
+        m = torch.where(torch.isinf(m), 0.0, m)
+        lse = torch.log(torch.sum(torch.exp(x - m), dim=-1)) + m[..., 0]
+        ctx.save_for_backward(x, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, g):
+        x, lse = ctx.saved_tensors
+        return g[..., None] * torch.exp(x - lse[..., None])
 
 
 def loss_fn(params, batch: Dict, cfg: ModelConfig
@@ -97,16 +120,39 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptimizerConfig):
     return train_step
 
 
-def _stacked(tree):
-    """The per-layer leaves of ``tree["layers"]`` stacked into one leaf
-    each, as the reference's scanned segment holds them."""
-    return dict(tree, layers=tu.tree_map(lambda *xs: torch.stack(xs),
-                                         *tree["layers"]))
+def _stack_names(cfg: ModelConfig):
+    """The port's layer lists and, for each, how the reference stacks it:
+    ``(name, [count of each stacked segment])`` -- an encoder-decoder's
+    ``encoder`` and ``decoder`` one segment each; a decoder's ``layers``
+    by ``layer_segments`` (a MoE config's leading dense layers, then its
+    MoE layers; the hybrid's Mamba-2 layers one ``(groups, per)`` leaf,
+    whose per-tensor scale is that of the layers stacked flat)."""
+    if cfg.family == "encdec":
+        return [("encoder", [cfg.n_encoder_layers]),
+                ("decoder", [cfg.n_layers])]
+    return [("layers", [n for _, n in T.layer_segments(cfg)])]
 
 
-def _unstacked(tree, n: int):
-    return dict(tree, layers=[tu.tree_map(lambda x: x[i], tree["layers"])
-                              for i in range(n)])
+def _stacked(tree, cfg: ModelConfig):
+    """The per-layer leaves of each layer list of ``tree`` stacked into
+    one leaf a segment, as the reference's scanned segments hold them."""
+    out = dict(tree)
+    for name, counts in _stack_names(cfg):
+        segs, i = [], 0
+        for n in counts:
+            segs.append(tu.tree_map(lambda *xs: torch.stack(xs),
+                                    *tree[name][i:i + n]))
+            i += n
+        out[name] = segs
+    return out
+
+
+def _unstacked(tree, cfg: ModelConfig):
+    out = dict(tree)
+    for name, counts in _stack_names(cfg):
+        out[name] = [tu.tree_map(lambda x: x[i], seg)
+                     for seg, n in zip(tree[name], counts) for i in range(n)]
+    return out
 
 
 def make_compressed_train_step(cfg: ModelConfig,
@@ -116,14 +162,14 @@ def make_compressed_train_step(cfg: ModelConfig,
     (:mod:`repro_torch.dist.compression`) before the optimizer; ``err``
     comes from ``compression.init_error(params)``.  Each quantization
     scale covers a leaf of the reference's layout, so a layer weight's
-    scale is shared by all layers, as in the reference's stacked
-    segment."""
+    scale is shared by all layers of its segment, as in the reference's
+    stacked segments."""
 
     def train_step(params, opt_state, err, batch):
         (_, metrics), grads = value_and_grad(params, batch, cfg)
-        grads, err = comp.compressed_psum(_stacked(grads), _stacked(err),
-                                          axis_name=None)
-        grads, err = (_unstacked(t, cfg.n_layers) for t in (grads, err))
+        grads, err = comp.compressed_psum(_stacked(grads, cfg),
+                                          _stacked(err, cfg), axis_name=None)
+        grads, err = (_unstacked(t, cfg) for t in (grads, err))
         params, opt_state, opt_metrics = adamw.apply_updates(
             params, grads, opt_state, opt_cfg)
         metrics.update(opt_metrics)

@@ -20,7 +20,7 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.dist.sharding import per_rank, shard
+from repro_torch.dist.sharding import current_axis_rules, per_rank, shard
 
 Params = Dict[str, torch.Tensor]
 
@@ -64,6 +64,23 @@ def linear_apply(params: Params, x: torch.Tensor, *,
     return x @ w
 
 
+def split_linear_apply(params: Params, x: torch.Tensor, sizes, *,
+                       dtype: Optional[torch.dtype] = None):
+    """``linear_apply`` with its output split into parts of ``sizes`` along
+    the last dim.  On a mesh the weight is split first and each part laid
+    out over its own output columns ("mlp"), so each rank multiplies its
+    own columns of every part: a weight whose output dim is split across
+    ranks at other boundaries than the parts' would have DTensor gather
+    the product, and its weight gradient, whole on every rank."""
+    if current_axis_rules() is None:
+        return torch.split(linear_apply(params, x, dtype=dtype), sizes,
+                           dim=-1)
+    w = linear_weight(params, dtype)
+    return tuple(linear_apply({"w": shard(part, None, "mlp")}, x,
+                              dtype=dtype)
+                 for part in torch.split(w, sizes, dim=-1))
+
+
 def dequantized(tree, dtype: Optional[torch.dtype] = None):
     """``tree`` with each int8 linear weight made float once
     (``{"w": linear_weight(p, dtype)}``) and each int8 table's payload cast
@@ -100,7 +117,11 @@ def rmsnorm_apply(params: Params, x: torch.Tensor, eps: float = 1e-6
                   ) -> torch.Tensor:
     dt = x.dtype
     xf = x.to(torch.float32)
-    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    # on a mesh the mean square and its cotangent are reduced while small:
+    # a partial one would meet a split feature dim in the backward and
+    # have DTensor gather the features whole
+    var = shard(torch.mean(torch.square(xf), dim=-1, keepdim=True),
+                "batch", *[None] * (x.dim() - 1))
     y = xf * torch.rsqrt(var + eps)
     return (y * params["scale"]).to(dt)
 
@@ -178,6 +199,81 @@ class _EmbeddingGather(torch.autograd.Function):
         return onehot.T @ g.reshape(n, -1), None
 
 
+class _MeshEmbeddingGather(torch.autograd.Function):
+    """:class:`_EmbeddingGather` on a mesh, for a table whose vocab dim is
+    split over some mesh dims and ids whose rows are split over others.
+    The forward moves the fewer bytes of two ways: each rank gathers its
+    ids' rows from the whole table (an all-gather of the table), or from
+    its own vocab rows, zeros elsewhere, and the rows' partial sums are
+    reduced (one nonzero term each, so exact): a decode step's few rows
+    against a training batch's many.  The backward's one-hot product runs
+    over the rank's own vocab rows only, so the table's gradient comes out
+    split over the vocab as the table is (partial over the ids' mesh
+    dims), where a whole table's product would repeat every row's sum on
+    each rank of the vocab's mesh dims."""
+
+    @staticmethod
+    def forward(ctx, table, ids, lo: int, hi: int):
+        from torch.distributed.tensor import (DTensor, Partial, Replicate,
+                                              Shard)
+        mesh = table.device_mesh
+        ids_local = ids.to_local()
+        ctx.save_for_backward(ids_local)
+        ctx.meta = (mesh, table.placements, ids.placements, lo, hi)
+        tab = table.to_local()
+        if ids_local.numel() >= table.shape[0]:
+            whole = table.redistribute(mesh, [Replicate()] * mesh.ndim)
+            return DTensor.from_local(whole.to_local()[ids_local], mesh,
+                                      ids.placements, run_check=False)
+        inside = (ids_local >= lo) & (ids_local < hi)
+        rows = torch.where(inside[..., None],
+                           tab[torch.where(inside, ids_local - lo, 0)], 0.0)
+        part = [Partial() if p == Shard(0) else q
+                for p, q in zip(table.placements, ids.placements)]
+        return DTensor.from_local(rows, mesh, part, run_check=False
+                                  ).redistribute(mesh, ids.placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import (DTensor, Partial, Replicate,
+                                              Shard)
+        (ids,) = ctx.saved_tensors
+        mesh, tab_pl, ids_pl, lo, hi = ctx.meta
+        g = g.redistribute(mesh, ids_pl).to_local()
+        flat = ids.reshape(-1)
+        onehot = (flat[:, None] == torch.arange(lo, hi, device=g.device)
+                  ).to(g.dtype)
+        grad = onehot.T @ g.reshape(flat.numel(), -1)
+        pl = [Shard(0) if p == Shard(0) else
+              Partial() if isinstance(q, Shard) else Replicate()
+              for p, q in zip(tab_pl, ids_pl)]
+        return (DTensor.from_local(grad, mesh, pl, run_check=False), None,
+                None, None)
+
+
+def _vocab_rows(table, ids):
+    """This rank's vocab rows ``[lo, hi)`` of a DTensor ``table`` split
+    evenly over the mesh dims where its placement is ``Shard(0)`` (and
+    whole on the others), or None where the split is uneven, meets the
+    ids' split on a mesh dim, or splits the table's other dim."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = table.device_mesh
+    coord = mesh.get_coordinate()
+    idx, n = 0, 1
+    for i, (p, q) in enumerate(zip(table.placements, ids.placements)):
+        if p not in (Shard(0), Replicate()):
+            return None
+        if p == Shard(0):
+            if isinstance(q, Shard):
+                return None
+            idx = idx * mesh.size(i) + coord[i]
+            n *= mesh.size(i)
+    if table.shape[0] % n:
+        return None
+    rows = table.shape[0] // n
+    return idx * rows, (idx + 1) * rows
+
+
 def _embed_table(params: Params):
     """(table, None), or an int8 table's (payload, scale)."""
     if "table_q" in params:
@@ -199,8 +295,14 @@ def embedding_apply(params: Params, token_ids: torch.Tensor, *,
     ids = token_ids.long()
     # on a mesh each rank gathers its own rows from the whole table
     # (DTensor's gather strategies do not cover every placement of ids)
-    gather = _EmbeddingGather.apply if sc is None else (lambda t, i: t[i])
-    rows = per_rank(gather, ids, (tab, ids), ({}, {0: 0}), {0: 0})
+    span = (_vocab_rows(tab, ids) if sc is None and hasattr(tab, "placements")
+            and hasattr(ids, "placements") else None)
+    if span is not None:
+        rows = _MeshEmbeddingGather.apply(tab, ids, *span)
+    else:
+        gather = _EmbeddingGather.apply if sc is None else (
+            lambda t, i: t[i])
+        rows = per_rank(gather, ids, (tab, ids), ({}, {0: 0}), {0: 0})
     return rows.to(dtype) if sc is None else rows.to(dtype) * sc.to(dtype)
 
 

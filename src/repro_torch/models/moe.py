@@ -32,7 +32,7 @@ have that shape already while the capacity at T tokens stays at its floor
 from __future__ import annotations
 
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -114,6 +114,58 @@ def queue_positions(gate_idx: torch.Tensor, n_experts: int) -> torch.Tensor:
     return torch.sum(pos_flat.reshape(b, s, k, n_experts) * onehot, dim=-1)
 
 
+def _combine_rows(ye, gate_idx, pos_c, w, e0: Optional[int] = None):
+    """Sum over k of ``w[..., k] * ye[gate_idx, b, pos_c]`` in f32, in k
+    order.  With ``e0``, ``ye (E_local, B, C, d)`` holds the experts
+    ``[e0, e0 + E_local)`` only, and an assignment to another expert adds
+    a zero term.  The gather's backward adds into a slot twice only where
+    a dropped assignment (weight 0) was clamped onto a kept one's slot,
+    and then adds an exact zero, so its sums do not depend on the order of
+    the adds."""
+    b_idx = torch.arange(gate_idx.shape[0], device=ye.device)
+    if e0 is not None:
+        local = gate_idx - e0
+        inside = (local >= 0) & (local < ye.shape[0])
+        gate_idx = torch.where(inside, local, 0)
+        w = w * inside[..., None]
+    terms = w * ye[gate_idx, b_idx[:, None, None], pos_c].to(torch.float32)
+    acc = terms[:, :, 0]
+    for j in range(1, terms.shape[2]):
+        acc = acc + terms[:, :, j]
+    return acc
+
+
+def _combine(ye, gate_idx, pos_c, w):
+    """The combine, (B, S, d) f32.  On a mesh each rank sums the terms of
+    its own experts' rows (``ye`` stays split over the experts, where a
+    gather of each token's rows would need ``ye`` whole on every rank)
+    and the partial sums are reduced over the experts' mesh dims."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(ye, DTensor):
+        return _combine_rows(ye, gate_idx, pos_c, w)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = ye.device_mesh
+    coord = mesh.get_coordinate()
+    e0, n = 0, 1
+    tok = []                    # the tokens' layout: ye's batch split
+    for i, p in enumerate(ye.placements):
+        if p == Shard(0):
+            e0, n = e0 * mesh.size(i) + coord[i], n * mesh.size(i)
+        tok.append(Shard(0) if p == Shard(1) else Replicate())
+    e_local = ye.shape[0] // n
+    grad_w = [Partial() if p == Shard(0) else q
+              for p, q in zip(ye.placements, tok)]
+    ye_l = ye.to_local(grad_placements=ye.placements)
+    idx_l, pos_l = (t.redistribute(mesh, tok).to_local()
+                    for t in (gate_idx, pos_c))
+    w_l = w.redistribute(mesh, tok).to_local(grad_placements=grad_w)
+    acc = _combine_rows(ye_l, idx_l, pos_l, w_l, e0 * e_local)
+    part = [Partial() if p == Shard(0) else q
+            for p, q in zip(ye.placements, tok)]
+    return DTensor.from_local(acc, mesh, part, run_check=False
+                              ).redistribute(mesh, tok)
+
+
 def moe_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
               losses: bool = True, tokenwise: bool = False
               ) -> Tuple[torch.Tensor, Dict]:
@@ -166,19 +218,8 @@ def moe_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
     ye = shard(ye, "expert", "batch", None, None)
 
     # ---- combine: gate-weighted rows, cast to dt, summed in f32 ------------
-    def rows(ye, gate_idx, pos_c):
-        b_idx = torch.arange(gate_idx.shape[0], device=ye.device)
-        return ye[gate_idx, b_idx[:, None, None], pos_c]
-
-    # on a mesh each rank gathers its own tokens' rows
-    picked = per_rank(rows, gate_idx, (ye, gate_idx, pos_c),
-                      ({0: 1}, {0: 0}, {0: 0}),
-                      {0: 0}).to(torch.float32)                  # (B,S,K,d)
     w = (gate_vals * keep).to(dt).to(torch.float32)[..., None]
-    terms = w * picked
-    acc = terms[:, :, 0]
-    for j in range(1, k):
-        acc = acc + terms[:, :, j]
+    acc = _combine(ye, gate_idx, pos_c, w)
     out = acc.to(dt)
 
     # ---- shared experts ------------------------------------------------------

@@ -23,7 +23,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.dist.sharding import per_rank, shard
+from repro_torch.dist.sharding import current_axis_rules, per_rank, shard
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
@@ -182,8 +182,8 @@ def mamba1_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
     dt = cfg.compute_dtype
     n = sc.d_state
     r = _dt_rank(cfg)
-    xz = L.linear_apply(params["in_proj"], x, dtype=dt)
-    xs, z = torch.chunk(xz, 2, dim=-1)                    # (B, S, di) each
+    xs, z = L.split_linear_apply(params["in_proj"], x,
+                                 [cfg.d_inner] * 2, dtype=dt)  # (B, S, di)
     xs = shard(xs, "batch", None, "mlp")
     conv_tail = state["conv"] if state is not None else None
     xs, new_tail = _causal_conv1d(xs, params["conv_w"].to(dt), conv_tail)
@@ -295,6 +295,25 @@ def _ssd_chunked(xh: torch.Tensor, log_a: torch.Tensor, bmat: torch.Tensor,
     return y, state
 
 
+def _mamba2_in_on_mesh(params, x: torch.Tensor,
+                       conv_tail: Optional[torch.Tensor], sizes, nh: int,
+                       dt_: torch.dtype):
+    """Mamba-2's input projection and convolution on a mesh: ``(z, x, B,
+    C, dt, conv tail)``.  x, B and C are projected and convolved apart (the
+    conv is depthwise, so the values are the unsplit path's), each in its
+    own layout: their concatenation, split at other boundaries than its
+    shards', would be gathered whole."""
+    z, xs, bmat, cmat, dt_in = L.split_linear_apply(
+        params["in_proj"], x, [sizes[0], *sizes, nh], dtype=dt_)
+    tails = (torch.split(conv_tail, sizes, dim=-1) if conv_tail is not None
+             else (None,) * 3)
+    conv = [_causal_conv1d(part, w.to(dt_), tail) for part, w, tail in zip(
+        (xs, bmat, cmat), torch.split(params["conv_w"], sizes, dim=-1),
+        tails)]
+    xs, bmat, cmat = (F.silu(y) for y, _ in conv)
+    return z, xs, bmat, cmat, dt_in, torch.cat([t for _, t in conv], dim=-1)
+
+
 def mamba2_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
                  state: Optional[Dict] = None
                  ) -> Tuple[torch.Tensor, Optional[Dict]]:
@@ -306,12 +325,17 @@ def mamba2_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
     nh = di // p
     b, s, _ = x.shape
 
-    zxbcdt = L.linear_apply(params["in_proj"], x, dtype=dt_)
-    z, xbc, dt_in = torch.split(zxbcdt, [di, di + 2 * n, nh], dim=-1)
     conv_tail = state["conv"] if state is not None else None
-    xbc, new_tail = _causal_conv1d(xbc, params["conv_w"].to(dt_), conv_tail)
-    xbc = F.silu(xbc)
-    xs, bmat, cmat = torch.split(xbc, [di, n, n], dim=-1)
+    if current_axis_rules() is None:
+        zxbcdt = L.linear_apply(params["in_proj"], x, dtype=dt_)
+        z, xbc, dt_in = torch.split(zxbcdt, [di, di + 2 * n, nh], dim=-1)
+        xbc, new_tail = _causal_conv1d(xbc, params["conv_w"].to(dt_),
+                                       conv_tail)
+        xbc = F.silu(xbc)
+        xs, bmat, cmat = torch.split(xbc, [di, n, n], dim=-1)
+    else:
+        z, xs, bmat, cmat, dt_in, new_tail = _mamba2_in_on_mesh(
+            params, x, conv_tail, [di, n, n], nh, dt_)
     xs = shard(xs, "batch", None, "mlp")
 
     delta = _softplus(dt_in.to(torch.float32)

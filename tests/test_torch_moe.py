@@ -332,8 +332,9 @@ def test_verify_step_equals_decode_and_reference(models):
 
 def test_other_families_and_moe_training_are_refused(models):
     """Since the SSM slice the SSM family initialises (a config without its
-    SSMConfig does not); a hybrid still has no cache engine, and training a
-    MoE is still refused, naming its ROADMAP item."""
+    SSMConfig does not); a hybrid still has no cache engine.  Training a
+    MoE, refused until the slice that trains every family, now runs
+    (``tests/test_torch_train_families.py`` holds it against JAX)."""
     _, _, tcfg, tparams = models
     ssm = tget_arch("falcon_mamba_7b").smoke
     assert all("ssm" in lp for lp in
@@ -343,8 +344,8 @@ def test_other_families_and_moe_training_are_refused(models):
     with pytest.raises(ValueError, match="no cache engine"):
         tserve.make_engine(tparams, tcfg.replace(family="hybrid"),
                            [np.zeros(4, np.int32)], slots=1, max_len=16)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        ttrain.main(["--arch", "deepseek_moe_16b", "--smoke", "--device",
-                     "cpu", "--steps", "1"])
+    rec = ttrain.main(["--arch", "deepseek_moe_16b", "--smoke", "--device",
+                       "cpu", "--steps", "1", "--batch", "2", "--seq", "8"])
+    assert np.isfinite(rec["losses"]).all() and rec["cfg"].family == "moe"
     with pytest.raises(ValueError, match="dense model"):
         tserve.make_self_draft(tparams, tcfg, 1)

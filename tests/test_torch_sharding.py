@@ -431,3 +431,111 @@ def test_train_on_two_gloo_ranks_tracks_the_unbound_run():
             assert abs(loss - plain["losses"][step - 1]) < 1e-4, (step, got)
             want = plain["grad_norms"][step - 1]
             assert abs(gnorm - want) <= 1e-4 * want + 0.005, (step, got)
+
+
+_SPLIT_RANK = """
+import json, sys
+import numpy as np
+import torch.distributed as dist
+from torch.distributed.tensor.experimental import implicit_replication
+from repro_torch import tree as tu
+from repro_torch.data.pipeline import DataConfig, batch_for_step
+from repro_torch.dist import sharding as sh
+from repro_torch.launch import steps as st
+from repro_torch.launch import train
+from repro_torch.launch.mesh import logical_rules
+out, argv, seq = sys.argv[1], json.loads(sys.argv[2]), int(sys.argv[3])
+dist.init_process_group("gloo")
+try:
+    rec = train.main(argv)
+    cfg, mesh = rec["cfg"].replace(attn_mode="float"), rec["mesh"]
+    params = st.init_params_fn(cfg)(seed=0, device="cpu")
+    batch = batch_for_step(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=seq, global_batch=4,
+        frames=cfg.family == "encdec", d_model=cfg.d_model), 0)
+    params = sh.place_tree(params, sh.param_shardings(params, cfg, mesh),
+                           mesh)
+    batch = sh.place_tree(batch, sh.batch_shardings(batch, mesh), mesh)
+    with sh.axis_rules(mesh, logical_rules(mesh)), implicit_replication():
+        (loss, _), grads = st.value_and_grad(params, batch, cfg)
+    loss = float(loss.full_tensor())
+    grads = [g.full_tensor() if hasattr(g, "full_tensor") else g
+             for g in tu.leaves(grads)]
+    if dist.get_rank() == 0:
+        np.savez(out, loss=loss,
+                 losses=rec["losses"], grad_norms=rec["grad_norms"],
+                 *[g.numpy() for g in grads])
+finally:
+    dist.destroy_process_group()
+"""
+
+
+GRAD_SEQ = 128
+
+
+@pytest.mark.parametrize("arch", ["falcon_mamba_7b", "zamba2_2p7b",
+                                  "seamless_m4t_medium"])
+def test_model_split_on_two_gloo_ranks_tracks_the_unbound_run(arch,
+                                                              tmp_path):
+    """Two gloo ranks on a (1, 2) mesh, so the "model" axis splits: the
+    paths a mesh alone takes (Mamba-1's ``in_proj`` split by weight,
+    Mamba-2's x, B and C convolved apart, the embedding's gather over the
+    rank's vocab rows, the encoder-decoder's cross attention and frames)
+    run on DTensors with real values.  ``train.main --mesh single
+    --mesh-shape 1x2`` for 3 steps as trained (fakequant): each loss within
+    1e-5 and each grad norm within 1e-4 of the unbound run's, relatively
+    (measured 1.1e-6 and 2.9e-5, SeamlessM4T).  The first step's
+    gradients, gathered whole, with float attention: every leaf within
+    1e-5 of the largest magnitude of the unbound one (measured 5.8e-6,
+    Zamba2's ``dt_bias``; the split sums partial products in another
+    order).  Fakequant is not used there: that order moves a score across
+    an int8 rounding edge and SeamlessM4T's encoder ``wq``/``wk`` move by
+    1.2e-4 of their scale (every other leaf of the three configs within
+    6e-5).  The steps' 128 tokens a batch take the embedding's
+    rows-reduce forward, the gradient's 512 (as many as the smoke vocab's
+    rows) its whole-table gather."""
+    from repro_torch.data.pipeline import DataConfig, batch_for_step
+    from repro_torch.launch import steps as st
+    from repro_torch.launch import train
+    argv = ["--arch", arch, "--smoke", "--device", "cpu", "--steps", "3",
+            "--batch", "4", "--seq", "32", "--log-every", "1"]
+    plain = train.main(argv)
+    cfg = plain["cfg"].replace(attn_mode="float")
+    params = st.init_params_fn(cfg)(seed=0, device="cpu")
+    batch = batch_for_step(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=GRAD_SEQ, global_batch=4,
+        frames=cfg.family == "encdec", d_model=cfg.d_model), 0)
+    (loss, _), grads = st.value_and_grad(params, batch, cfg)
+
+    import json
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = str(s.getsockname()[1])
+    out = tmp_path / "rank0.npz"
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1",
+                   MASTER_ADDR="localhost", MASTER_PORT=port,
+                   RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE="2")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", _SPLIT_RANK, str(out), json.dumps(
+                argv + ["--mesh", "single", "--mesh-shape", "1x2"]),
+             str(GRAD_SEQ)],
+            env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+            text=True))
+    for p in procs:
+        _, errs = p.communicate(timeout=300)
+        assert p.returncode == 0, errs[-3000:]
+    got = np.load(out)
+    np.testing.assert_allclose(got["loss"], float(loss), rtol=1e-5)
+    np.testing.assert_allclose(got["losses"], plain["losses"], rtol=1e-5)
+    np.testing.assert_allclose(got["grad_norms"], plain["grad_norms"],
+                               rtol=1e-4)
+    want = [g.numpy() for g in tu.leaves(grads)]
+    assert len(got.files) == len(want) + 3
+    for i, w in enumerate(want):
+        g = got[f"arr_{i}"]
+        assert g.shape == w.shape, i
+        err = np.abs(g - w).max() / max(np.abs(w).max(), 1e-30)
+        assert err <= 1e-5, (i, err)
