@@ -188,6 +188,28 @@ Phases, each fatal on failure:
      child process (exit 0, one row). Lines ``[mesh]``, ``[roofline]``,
      ``[dryrun]``.
 
+ 15. the examples (``examples/*_torch.py``, run after phase 14, each
+     ``main`` in this process so that the launch counters see it; lines
+     ``[examples]``): quickstart on the card (kernel 1 once for the
+     attention modes, once a layer for the prefill; kernel 4 once a layer
+     a decode step) and on the CPU, the LUT lines equal, the greedy
+     continuation equal (and the card's trained weights decoded on the
+     CPU too), then ``python examples/quickstart_torch.py`` as a command,
+     exit 0 and its last line the in-process run's; serve_batched (8
+     served, 0 leaked, kernels 1 and 2 counted); train_lm's smoke default
+     as a command, SIGTERMed once it logs step 20 (exit 143), then the
+     same arguments again in this process, which resume and end bit for
+     bit on a straight run (losses from the resumed step, parameters and
+     moments), and ``--full --steps 3`` without a checkpoint (losses,
+     step seconds, peak memory); accuracy_study at 20 steps card vs CPU,
+     each row within ``ACCURACY_CHECK``'s tolerance, and at its default
+     200 steps on the card (the float-to-int8 delta beside the paper's
+     +-0.6%, a record); multi_pod_lower on ``EXAMPLE_CELL`` in a child
+     process started after the build, its report equal to a direct
+     ``dryrun_cell`` call's in another (host times aside), its roofline
+     terms non-zero.  The examples' launches of kernels 1, 2 and 4 stand
+     in the JSON line (``examples_launches``).
+
 Kernel 7 (dense verify) has no caller in any model, as in the reference:
 it is checked and timed in phases 3 and 4 and stands in the JSON line with
 ``"launches": 0`` and ``"path": null``.  Kernel 8's launches are the CIM
@@ -342,6 +364,26 @@ MESH_TRAIN = dict(batch=4, seq=2048, steps=3, warmup=2, seed=0)
 CARD_CELLS = (("card train", "train", 2048, 4),
               ("card decode", "decode", 290, 8))
 DRYRUN_CELL = ("olmo_1b", "train_4k")
+# the examples phase (examples/*_torch.py): the multi-pod dry-run cell of
+# multi_pod_lower_torch.py; train_lm_torch.py's smoke default is stopped by
+# SIGTERM once it logs this step (its checkpoint step); accuracy_study's
+# short run, card vs CPU, and each row's tolerance there: relative for the
+# train loss, absolute for the errors and the TV, in positions for the
+# three counts (their positions: 4 eval batches x 8 rows x 63 or 64).
+# On the CPU, weights 1e-7 apart relatively move the 20-step loss by up to
+# 1.2e-4 of itself, the TV by 9e-5 and each count by up to 4 positions
+EXAMPLE_CELL = ("olmo_1b", "decode_32k")
+EXAMPLE_SIGTERM_STEP = 20
+ACCURACY_CHECK = dict(steps=20, prob_err=1e-6, train_loss=1e-3, tv=1e-3,
+                      positions=16)
+ACCURACY_POSITIONS = {"accuracy.task_float": 4 * 8 * 63,
+                      "accuracy.task_int8_lut": 4 * 8 * 63,
+                      "accuracy.top1_agreement": 4 * 8 * 64}
+# quickstart_torch.py's card and CPU runs: drift lines within this, losses
+# within QUICKSTART_LOSS_RTOL of each other (a gross-fault bound: weights
+# 1e-7 apart move its step-15 loss by 3e-4 of itself on the CPU)
+QUICKSTART_DRIFT_TOL = 1e-3
+QUICKSTART_LOSS_RTOL = 1e-2
 # the float/fakequant decode baselines, card vs CPU: max |logit diff| over
 # the logits' scale (tests/test_torch_decode_baselines.py states the same)
 DECODE_BASELINE_TOL = 2e-3
@@ -4586,6 +4628,267 @@ def mesh_roofline_phase(torch, dev, procs, serve_p50_ms: float) -> None:
           f"launch.report, exit 0): {rows[0]}")
 
 
+_DIRECT_DRYRUN = """
+import json, sys
+from repro_torch.launch.dryrun import dryrun_cell
+print(json.dumps(dryrun_cell(sys.argv[1], sys.argv[2], multi_pod=True,
+                             verbose=False), default=float))
+"""
+
+
+def start_example_dryruns(root: Path):
+    """Phase 15's CPU-side part, started with phase 13's: the
+    ``EXAMPLE_CELL`` multi-pod dry-run through
+    ``examples/multi_pod_lower_torch.py`` and through a direct
+    ``dryrun_cell`` call, each in a child process (each sets up its own
+    ``fake`` process group).  Killed at exit if still running."""
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    arch, shape = EXAMPLE_CELL
+    procs = {
+        "example": subprocess.Popen(
+            [sys.executable, str(root / "examples" /
+                                 "multi_pod_lower_torch.py"),
+             "--arch", arch, "--shape", shape], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True),
+        "direct": subprocess.Popen(
+            [sys.executable, "-c", _DIRECT_DRYRUN, arch, shape], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)}
+
+    def stop():
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+
+    atexit.register(stop)
+    return procs
+
+
+def _load_example(root: Path, name: str):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"{name}_example", root / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _quiet(fn, *args):
+    """``fn(*args)`` with its standard output kept: (result, lines)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue().splitlines()
+
+
+def examples_phase(torch, dev, procs) -> dict:
+    """Phase 15: each of ``examples/*_torch.py`` through its ``main``, in
+    this process so that the launch counters see the kernels (reset just
+    before each call, read just after).  Returns the examples' launches of
+    kernels 1, 2 and 4 by kernel name."""
+    import signal
+    import threading
+    from repro_torch import tree as tu
+    from repro_torch.kernels import splitmax_attn
+    from repro_torch.kernels import splitmax_decode as K
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    total = {"splitmax_attention": 0, "splitmax_decode_fused_paged": 0,
+             "splitmax_decode_fused": 0}
+
+    def counted(fn, *args):
+        splitmax_attn.launches = K.launches = K.dense_launches = 0
+        out, lines = _quiet(fn, *args)
+        torch.cuda.synchronize()
+        n = (splitmax_attn.launches, K.launches, K.dense_launches)
+        for name, k in zip(total, n):
+            total[name] += k
+        return out, lines, n
+
+    # ---- quickstart: card, CPU, and the README's command ------------------
+    qs = _load_example(root, "quickstart_torch")
+    n_layers = qs.tiny_config().n_layers
+    card, card_lines, n = counted(qs.main, [])
+    want = (1 + n_layers, 0, qs.DECODE_STEPS * n_layers)
+    check(n == want, f"quickstart: kernel 1, 2, 4 launches {n}, want {want} "
+          f"(1 attention, {n_layers} layers' prefill, "
+          f"{qs.DECODE_STEPS} x {n_layers} decodes)")
+    cpu, cpu_lines = _quiet(qs.main, ["--device", "cpu"])
+    for a, b in zip(card_lines, cpu_lines):
+        if "LUT" in a or "p_lut" in a:
+            check(a == b, f"quickstart LUT line, card {a!r} vs CPU {b!r}")
+    check(card["lut"]["lut_bytes"] == cpu["lut"]["lut_bytes"],
+          "quickstart: LUT footprints differ")
+    drift = max(abs(card["attention"][k] - cpu["attention"][k])
+                for k in card["attention"])
+    check(drift <= QUICKSTART_DRIFT_TOL, f"quickstart drifts, card "
+          f"{card['attention']} vs CPU {cpu['attention']}")
+    loss_err = max(abs(a / b - 1) for a, b in zip(card["losses"],
+                                                  cpu["losses"]))
+    check(all(map(math.isfinite, card["losses"]))
+          and loss_err <= QUICKSTART_LOSS_RTOL,
+          f"quickstart losses, card {card['losses']} vs CPU {cpu['losses']}")
+    check(card["tokens"] == cpu["tokens"], f"quickstart greedy continuation,"
+          f" card {card['tokens']} vs CPU {cpu['tokens']}")
+    on_cpu, _ = _quiet(qs.int8_decode, tu.tree_map(
+        lambda t: t.cpu(), card["params"]), qs.tiny_config(), "cpu",
+        card["prompt"])
+    check(on_cpu == card["tokens"], f"quickstart: the card's trained weights "
+          f"decode to {on_cpu} on the CPU, {card['tokens']} on the card")
+    t0 = time.perf_counter()
+    child = subprocess.run([sys.executable, "examples/quickstart_torch.py"],
+                           cwd=root, env=env, capture_output=True, text=True,
+                           timeout=300)
+    t_child = time.perf_counter() - t0
+    check(child.returncode == 0, f"python examples/quickstart_torch.py: exit "
+          f"{child.returncode}\n{child.stderr[-3000:]}")
+    check(child.stdout.splitlines()[-1] == card_lines[-1],
+          f"quickstart as a command: {child.stdout.splitlines()[-1]!r} vs "
+          f"in-process {card_lines[-1]!r}")
+    print(f"[examples] quickstart: LUT {card['lut']} equal on the card and "
+          f"the CPU; drifts card {card['attention']} CPU {cpu['attention']};"
+          f" losses card {card['losses']} CPU {cpu['losses']} (max relative "
+          f"difference {loss_err:.3g}); greedy continuation {card['tokens']}"
+          f" on both, and from the card's trained weights on the CPU; "
+          f"launches kernel 1 {n[0]}, kernel 4 {n[2]}; `python "
+          f"examples/quickstart_torch.py` exit 0 in {t_child:.1f} s, its "
+          f"last line the in-process run's")
+
+    # ---- serve_batched ------------------------------------------------------
+    stats, _, n = counted(_load_example(root, "serve_batched_torch").main, [])
+    cfg = qs.tiny_config()
+    check_served(stats, [16] * 8, cfg.vocab_size, "serve_batched")
+    check(n[0] == stats["slot_prefills"] * cfg.n_layers
+          and n[1] == stats["decode_steps"] * cfg.n_layers and n[2] == 0,
+          f"serve_batched: launches {n}, want {stats['slot_prefills']} "
+          f"admissions and {stats['decode_steps']} steps x {cfg.n_layers}")
+    print(f"[examples] serve_batched: served {stats['served']} of 8, "
+          f"{stats['total_tokens']} tokens, {stats['leaked_blocks']} leaked "
+          f"blocks, {stats['tok_s']:.1f} tok/s, p50 step "
+          f"{stats['p50_step_ms']:.2f} ms; launches kernel 1 {n[0]} "
+          f"({stats['slot_prefills']} admissions), kernel 2 {n[1]} "
+          f"({stats['decode_steps']} steps)")
+
+    # ---- train_lm: SIGTERM, resume, straight; --full --steps 3 ------------
+    tl = _load_example(root, "train_lm_torch")
+    with tempfile.TemporaryDirectory() as tmp:
+        stopped = os.path.join(tmp, "stopped")
+        proc = subprocess.Popen(
+            [sys.executable, "examples/train_lm_torch.py", "--ckpt-dir",
+             stopped], cwd=root, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        guard = threading.Timer(300, proc.kill)
+        guard.start()
+        sent, seen = False, []
+        for line in proc.stdout:
+            seen.append(line)
+            if not sent and line.startswith(
+                    f"step {EXAMPLE_SIGTERM_STEP:5d} loss"):
+                proc.send_signal(signal.SIGTERM)
+                sent = True
+        rc = proc.wait()
+        guard.cancel()
+        check(sent and rc == 143, f"train_lm: SIGTERM after step "
+              f"{EXAMPLE_SIGTERM_STEP}: sent {sent}, exit {rc}\n"
+              f"{''.join(seen)[-2000:]}")
+        resumed, lines = _quiet(tl.main, ["--ckpt-dir", stopped])
+        n_at = resumed["start_step"]
+        check(f"resumed from step {n_at}" in lines
+              and n_at >= EXAMPLE_SIGTERM_STEP, f"train_lm: the second run "
+              f"printed no resume at or after step {EXAMPLE_SIGTERM_STEP}")
+        straight, _ = _quiet(tl.main, ["--ckpt-dir",
+                                       os.path.join(tmp, "straight")])
+        same = (resumed["losses"] == straight["losses"][n_at:]
+                and all(torch.equal(a, b) for a, b in zip(
+                    tu.leaves((resumed["params"], resumed["opt_state"])),
+                    tu.leaves((straight["params"], straight["opt_state"])))))
+        check(same, f"train_lm: resumed at {n_at}, final loss "
+              f"{resumed['losses'][-1]!r} vs straight "
+              f"{straight['losses'][-1]!r}, or parameters/moments differ")
+        print(f"[examples] train_lm smoke default: SIGTERM after step "
+              f"{EXAMPLE_SIGTERM_STEP}, exit 143; the same command resumed "
+              f"from step {n_at} and ended on loss "
+              f"{resumed['losses'][-1]!r}, bit for bit the straight run's "
+              f"({len(resumed['losses'])} losses from step {n_at + 1} on, "
+              f"the final parameters and moments)")
+        del resumed, straight
+        torch.cuda.reset_peak_memory_stats()
+        full, _ = _quiet(tl.main, ["--full", "--steps", "3", "--ckpt-dir", ""])
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(len(full["losses"]) == 3 and all(map(math.isfinite,
+                                               full["losses"])),
+          f"train_lm --full --steps 3: losses {full['losses']}")
+    print(f"[examples] train_lm --full --steps 3 (TinyLlama-1.1B, B 8 x 256,"
+          f" no checkpoint): losses {[round(x, 4) for x in full['losses']]}, "
+          f"step s {[round(x, 3) for x in full['step_s']]}, peak memory "
+          f"{peak:.2f} GiB")
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- accuracy_study: card vs CPU at 20 steps, the default on the card --
+    acc = _load_example(root, "accuracy_study_torch")
+    a = ACCURACY_CHECK
+    steps = ["--steps", str(a["steps"])]
+    rows_card, _, n = counted(acc.main, steps)
+    rows_cpu, _ = _quiet(acc.main, steps + ["--device", "cpu"])
+    rows, _, n_default = counted(acc.main, [])
+    for got in (n, n_default):
+        check(got == (acc.EVAL_BATCHES * cfg.n_layers, 0, 0),
+              f"accuracy_study: launches {got}, want {acc.EVAL_BATCHES} "
+              f"batches x {cfg.n_layers} layers of kernel 1")
+    cpu_of = {name: val for name, val, _ in rows_cpu}
+    for name, val, _ in rows_card:
+        want = cpu_of[name]
+        if name in ACCURACY_POSITIONS:
+            d = round(abs(val - want) * ACCURACY_POSITIONS[name])
+            ok = d <= a["positions"]
+        elif name == "accuracy.train_loss":
+            d = abs(val / want - 1)
+            ok = d <= a["train_loss"]
+        else:
+            d = abs(val - want)
+            ok = d <= (a["tv"] if name == "accuracy.next_token_tv"
+                       else a["prob_err"])
+        check(ok, f"accuracy_study at {a['steps']} steps: {name} card {val!r}"
+              f" vs CPU {want!r}")
+        print(f"[examples] accuracy {a['steps']} steps {name:24s} card "
+              f"{val:.6f} CPU {want:.6f} difference {d:.3g}")
+    for name, val, derived in rows:
+        print(f"[examples] accuracy 200 steps {name:28s} {val:10.5f}   "
+              f"{derived}")
+
+    # ---- multi_pod_lower ----------------------------------------------------
+    out = _finish(procs["example"], "multi_pod_lower_torch.py", timeout=300)
+    lines = out.splitlines()
+    report = json.loads("\n".join(lines[lines.index("{"):]))
+    direct = json.loads(_finish(procs["direct"], "dryrun_cell",
+                                timeout=300).strip().splitlines()[-1])
+    for rep in (report, direct):
+        for key in ("lower_s", "compile_s"):
+            rep.pop(key)
+    check(report == direct, "multi_pod_lower_torch.py's report differs from "
+          "dryrun_cell's")
+    roof = report["roofline"]
+    terms = ("t_compute_s", "t_memory_s", "t_collective_s")
+    check(all(roof[t] > 0 for t in terms), f"multi_pod_lower: {roof}")
+    print(f"[examples] multi_pod_lower {EXAMPLE_CELL} on {report['mesh']}: "
+          f"the report equals dryrun_cell's (host times aside); "
+          + ", ".join(f"{t} {roof[t]:.3g}" for t in terms)
+          + f", bottleneck {roof['bottleneck']}")
+    wall = time.perf_counter() - t_phase
+    print(f"[examples] kernel launches: kernel 1 "
+          f"{total['splitmax_attention']}, kernel 2 "
+          f"{total['splitmax_decode_fused_paged']}, kernel 4 "
+          f"{total['splitmax_decode_fused']}; phase 15 wall time {wall:.1f} s")
+    return total
+
+
 def main() -> int:
     t_script = time.perf_counter()
     import torch
@@ -4623,6 +4926,7 @@ def main() -> int:
                       f"{spills}")
 
     dryruns = start_dryruns(src)
+    example_dryruns = start_example_dryruns(src.parent)
     decode, decode_args = decode_phase(torch, F, dev)
     kernels = [prefill_phase(torch, F, dev), decode,
                verify_phase(torch, F, dev),
@@ -4690,6 +4994,7 @@ def main() -> int:
     families_full_phase(torch, dev)
     print(f"[train-families] phase 14 wall time "
           f"{time.perf_counter() - t_phase:.1f} s")
+    examples = examples_phase(torch, dev, example_dryruns)
     by_path = {"paged churn": launches["splitmax_attention"],
                "dense churn": dense.pop("splitmax_attention"),
                "pressure churn": n_pressure,
@@ -4701,14 +5006,17 @@ def main() -> int:
                "olmo churn": olmo["splitmax_attention"],
                "seamless churn": seamless["splitmax_attention"],
                "zamba2 dense churn": hybrid["splitmax_attention"],
-               "deepseek-67b int8 churn": ds67b["splitmax_attention"]}
+               "deepseek-67b int8 churn": ds67b["splitmax_attention"],
+               "examples (quickstart, serve_batched, accuracy_study)":
+                   examples["splitmax_attention"]}
     decode_by_path = {
         "paged churn": launches["splitmax_decode_fused_paged"],
         "moe churn": moe["splitmax_decode_fused_paged"],
         "mistral-nemo churn": nemo["splitmax_decode_fused_paged"],
         "olmo churn": olmo["splitmax_decode_fused_paged"],
         "seamless churn": seamless["splitmax_decode_fused_paged"],
-        "deepseek-67b int8 churn": ds67b["splitmax_decode_fused_paged"]}
+        "deepseek-67b int8 churn": ds67b["splitmax_decode_fused_paged"],
+        "examples (serve_batched)": examples["splitmax_decode_fused_paged"]}
     verify_by_path = {
         "speculative churn (self, self:4)":
             launches["splitmax_decode_fused_verify_paged"],
@@ -4735,6 +5043,9 @@ def main() -> int:
                        ("splitmax_decode", "zamba2 composed dense churn")):
         check(hybrid[name] > 0, f"no {name} launch on the {what}")
         launches[name] += hybrid[name]
+    check(examples["splitmax_decode_fused"] > 0,
+          "no splitmax_decode_fused launch on the quickstart example")
+    launches["splitmax_decode_fused"] += examples["splitmax_decode_fused"]
     launches["splitmax_decode_fused_verify"] = (
         splitmax_decode.dense_verify_launches)
     # kernel 8's body and its K-major pre-pass, each counted at its launch
@@ -4744,6 +5055,8 @@ def main() -> int:
         cim["pre_pass_launches_by_path"].values())
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        if k["name"] in examples:
+            k["examples_launches"] = examples[k["name"]]
     k8 = next(k for k in kernels if k["name"] == "int8_matmul")
     k8.update(pre_pass_launches=launches["int8_matmul pre-pass"],
               path="core/cim.py: nibble_split_matmul, serial_bit_matmul",

@@ -46,6 +46,12 @@ class LUTConfig:
     def recip_table_size(self) -> int:
         return 1 << self.recip_index_bits
 
+    @property
+    def lut_bytes(self) -> int:
+        """Total LUT footprint: 256 exp and the reciprocal entries, 4 bytes
+        each."""
+        return 4 * (256 + self.recip_table_size)
+
 
 def build_exp_lut(cfg: LUTConfig) -> np.ndarray:
     """256-entry exp table, indexed by ``z_q + 128``; index 255 is 2^f_e."""

@@ -39,6 +39,7 @@ reference's tests' ``FakeMesh``): they run without a process group.
 from __future__ import annotations
 
 import contextlib
+import functools
 import re
 import threading
 from typing import TYPE_CHECKING, Any, Dict, Optional, Tuple, Union
@@ -178,6 +179,42 @@ class _Constrain(torch.autograd.Function):
         if tuple(g.placements) == ctx.want:
             return g, None
         return g.redistribute(g.device_mesh, ctx.want), None
+
+
+_KEPT = threading.local()
+
+
+@contextlib.contextmanager
+def kept_for_backward():
+    """Collectives issued inside are saved by :func:`remat_context`'s
+    checkpoint, so the recompute of a checkpointed block reuses their
+    results instead of issuing them again."""
+    prev = getattr(_KEPT, "on", False)
+    _KEPT.on = True
+    try:
+        yield
+    finally:
+        _KEPT.on = prev
+
+
+def remat_context():
+    """A ``context_fn`` for ``torch.utils.checkpoint`` that saves the
+    results of the collectives issued under :func:`kept_for_backward` and
+    recomputes every other op; None (plain recompute) without a mesh
+    binding, which issues no collective."""
+    if current_axis_rules() is None:
+        return None
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+
+    def policy(ctx, func, *args, **kwargs):
+        if (getattr(_KEPT, "on", False)
+                and func.namespace == "_c10d_functional"
+                and func.overloadpacket.__name__ != "wait_tensor"):
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return functools.partial(create_selective_checkpoint_contexts, policy)
 
 
 def per_rank(fn, template, args, maps, out_maps):

@@ -61,6 +61,7 @@ from repro_torch import tree as tu
 from repro_torch.configs import ARCH_IDS, get_arch
 from repro_torch.configs.base import (SHAPES, ShapeCell, cache_len_for,
                                       cache_specs_for, input_specs_for)
+from repro_torch.core import attention as core_attn
 from repro_torch.dist import sharding as sh
 from repro_torch.launch import roofline as rl
 from repro_torch.launch import steps as st
@@ -210,6 +211,9 @@ def dryrun_cell(arch_name: str, shape_name: str, *, multi_pod: bool,
         batch = sh.place_tree(batch, sh.batch_shardings(batch, dmesh), dmesh)
         args: Tuple = ()
         counter = StepCounter()
+        # each cell counts its LUT pair's upload, whatever cell ran before
+        # it in this process (``luts_for`` keeps the tables it made)
+        core_attn.luts_for.cache_clear()
         with sh.axis_rules(dmesh, logical_rules(dmesh)), \
                 implicit_replication():
             if cell.kind == "train":

@@ -445,7 +445,8 @@ def serve(params, cfg, prompts: List[np.ndarray], *, slots: int, gen: int,
     return stats
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> Dict:
+    """Run the CLI; returns ``serve``'s stats."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="tinyllama_1p1b")
     ap.add_argument("--smoke", action="store_true")
@@ -567,6 +568,7 @@ def main(argv=None) -> None:
               f"{stats['spec_parks']} parks)", flush=True)
     for rid in sorted(stats["finished"]):
         print(f"  req {rid}: {stats['finished'][rid][:8]}...")
+    return stats
 
 
 if __name__ == "__main__":

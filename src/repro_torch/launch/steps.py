@@ -93,12 +93,18 @@ def loss_fn(params, batch: Dict, cfg: ModelConfig
 def value_and_grad(params, batch: Dict, cfg: ModelConfig):
     """``(loss, metrics), grads``: the gradient of ``loss_fn`` with respect
     to every leaf of ``params``, as a tree shaped like it (f32 for f32
-    parameters)."""
+    parameters).  On a mesh each gradient is laid out as its parameter:
+    reduced once here (a partial sum over "data" reduce-scattered), where
+    the optimizer would reduce a partial gradient whole at each of its
+    uses, and a gradient that came out whole on "model" (``wo``'s: its
+    input is gathered whole there) kept split as the weight is."""
     leaves = tu.leaves(params)
     for p in leaves:
         p.requires_grad_(True)
     loss, metrics = loss_fn(params, batch, cfg)
-    grads = torch.autograd.grad(loss, leaves)
+    grads = [g.redistribute(g.device_mesh, p.placements)
+             if hasattr(g, "placements") and g.placements != p.placements
+             else g for p, g in zip(leaves, torch.autograd.grad(loss, leaves))]
     metrics = {k: v.detach() for k, v in metrics.items()}
     return (loss.detach(), metrics), tu.unflatten_like(params, list(grads))
 

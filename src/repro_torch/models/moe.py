@@ -37,7 +37,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.dist.sharding import per_rank, shard
+from repro_torch.dist.sharding import kept_for_backward, per_rank, shard
 from repro_torch.models import layers as L
 from repro_torch.models import mlp as M
 from repro_torch.models.config import ModelConfig, MoEConfig
@@ -136,10 +136,12 @@ def _combine_rows(ye, gate_idx, pos_c, w, e0: Optional[int] = None):
 
 
 def _combine(ye, gate_idx, pos_c, w):
-    """The combine, (B, S, d) f32.  On a mesh each rank sums the terms of
-    its own experts' rows (``ye`` stays split over the experts, where a
-    gather of each token's rows would need ``ye`` whole on every rank)
-    and the partial sums are reduced over the experts' mesh dims."""
+    """The combine, (B, S, d): f32, or on a mesh in ``ye``'s dtype.  On a
+    mesh each rank sums the terms of its own experts' rows in f32 (``ye``
+    stays split over the experts, where a gather of each token's rows
+    would need ``ye`` whole on every rank), casts them to ``ye``'s dtype
+    and reduces them over the experts' mesh dims, as the reference's
+    einsum reduces its partial products in the model dtype."""
     from torch.distributed.tensor import DTensor
     if not isinstance(ye, DTensor):
         return _combine_rows(ye, gate_idx, pos_c, w)
@@ -159,11 +161,12 @@ def _combine(ye, gate_idx, pos_c, w):
     idx_l, pos_l = (t.redistribute(mesh, tok).to_local()
                     for t in (gate_idx, pos_c))
     w_l = w.redistribute(mesh, tok).to_local(grad_placements=grad_w)
-    acc = _combine_rows(ye_l, idx_l, pos_l, w_l, e0 * e_local)
+    acc = _combine_rows(ye_l, idx_l, pos_l, w_l, e0 * e_local).to(ye.dtype)
     part = [Partial() if p == Shard(0) else q
             for p, q in zip(ye.placements, tok)]
-    return DTensor.from_local(acc, mesh, part, run_check=False
-                              ).redistribute(mesh, tok)
+    with kept_for_backward():   # reduced once, not again in the recompute
+        return DTensor.from_local(acc, mesh, part, run_check=False
+                                  ).redistribute(mesh, tok)
 
 
 def moe_apply(params, x: torch.Tensor, cfg: ModelConfig, *,

@@ -44,7 +44,7 @@ from repro_torch import resolve_device
 from repro_torch.core import attention as core_attn
 from repro_torch.core import paged_kv
 from repro_torch.core import quantization as qlib
-from repro_torch.dist.sharding import shard
+from repro_torch.dist.sharding import remat_context, shard
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mlp as M
@@ -320,10 +320,14 @@ def _block_apply_serve(lp, x: torch.Tensor, cfg: ModelConfig,
 
 def _remat(fn, lp, x: torch.Tensor, cfg: ModelConfig):
     """``fn(lp, x, cfg)`` under ``torch.utils.checkpoint`` when
-    ``cfg.remat``."""
+    ``cfg.remat``; a MoE block on a mesh keeps its combine's reduce for
+    the backward (``sharding.remat_context``)."""
     if cfg.remat:
+        ctx = remat_context() if "moe" in lp else None
+        kw = {"context_fn": ctx} if ctx is not None else {}
         return checkpoint(functools.partial(fn, lp, cfg=cfg), x,
-                          use_reentrant=False, preserve_rng_state=False)
+                          use_reentrant=False, preserve_rng_state=False,
+                          **kw)
     return fn(lp, x, cfg)
 
 
@@ -336,13 +340,18 @@ def _shared_attn(sp, x: torch.Tensor, x0: torch.Tensor, cfg: ModelConfig,
                  attend):
     """The hybrid's shared attention + MLP block on concat(x, x0), its
     attention ``attend(attn_params, h) -> (out, kv)`` (training, serve or
-    decode); returns the new ``x`` and ``kv``."""
+    decode); returns the new ``x`` and ``kv``.  On a mesh the new ``x``
+    takes the residual stream's placement (``_residual``), so the MLP's
+    partial sums are reduced here and its cotangent arrives whole: a
+    partial one would have DTensor gather the MLP's split hidden features
+    in the backward, and a partial ``x`` would reach the Mamba-2 block's
+    input projection."""
     norm = L.NORM_APPLY[cfg.norm]
     h = norm(sp["norm"], torch.cat([x, x0], dim=-1))
     out, kv = attend(sp["attn"], h)
     x = x + out
     h = norm(sp["mlp_norm"], x)
-    return x + M.mlp_apply(sp["mlp"], h, cfg), kv
+    return _residual(x + M.mlp_apply(sp["mlp"], h, cfg), cfg), kv
 
 
 def _hybrid_forward(params, x: torch.Tensor, cfg: ModelConfig, *,

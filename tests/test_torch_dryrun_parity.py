@@ -15,20 +15,28 @@ Bounds, port over reference, per device:
   reference's a scatter-add; the reference's MoE combine is an einsum
   against a one-hot tensor (forward and two backward products), the
   port's a gather.  Measured 0.9515 (OLMo train), 1.0000 (decode),
-  0.9707, 1.0001, 1.0862 (Zamba2: the shared block's and the SSD's
-  products), 0.9800.
+  0.9707, 1.0001, 0.9885, 0.9800.
 * collective bytes (result sizes, all kinds) within 5% of the ratio
-  measured after this slice's fixes, so that neither side's count moves
-  unseen: 1.0860, 0.7954 (the decode's embedding reduces its few rows
-  where the reference gathers the table over "data"), 1.5574 (DeepSeekMoE:
-  the combine reduces each rank's f32 partial sums over its own experts,
-  (B, S, d), in the forward and again in its recompute), 0.2259
-  (Falcon-Mamba: the reference's 85.9 GB of collective-permute, which
-  moves the halves of Mamba-1's ``in_proj`` output, split at a boundary
-  that is not the shards'; the port splits the weight instead,
-  ``layers.split_linear_apply``), 1.1368 (Zamba2: the backward gathers
-  the Mamba-2 block's split inner features at its output projection, its
-  gate and its norm, and the shared block's MLP input), 1.1966.
+  measured after the last fix, so that neither side's count moves
+  unseen; a fix updates its bound.  Each gradient is laid out as its
+  parameter once, after the backward (``steps.value_and_grad``), where
+  the optimizer reduced a partial gradient at each of its three uses and
+  kept ``wo``'s whole on every "model" rank.  1.0805 (OLMo), 0.7954 (the
+  decode's embedding reduces its few rows where the reference gathers
+  the table over "data"), 1.3241 (DeepSeekMoE: the combine reduces each
+  rank's partial sums over its own experts, (B, S, d), in the model
+  dtype as the reference's einsum, and its checkpointed recompute reuses
+  that result, ``sharding.kept_for_backward``; what remains above the
+  reference is mostly the attention's and the MLPs' reduces, issued
+  again in the recompute, where XLA's are fewer), 0.2231 (Falcon-Mamba:
+  the reference's 85.9 GB of collective-permute, which moves the halves
+  of Mamba-1's ``in_proj`` output, split at a boundary that is not the
+  shards'; the port splits the weight instead,
+  ``layers.split_linear_apply``), 0.2573 (Zamba2: the shared block's
+  output takes the residual stream's placement, so neither the Mamba-2
+  block's input nor the shared MLP's cotangent is a partial sum; the
+  reference's 168.2 GB of collective-permute has no counterpart),
+  1.1942.
 """
 import json
 import os
@@ -43,12 +51,12 @@ ROOT = Path(__file__).resolve().parent.parent
 FLOPS_TOL = 0.10
 COLL_TOL = 0.05
 COLL_RATIO = {
-    ("olmo_1b", "train_4k"): 1.0860,
+    ("olmo_1b", "train_4k"): 1.0805,
     ("olmo_1b", "decode_32k"): 0.7954,
-    ("deepseek_moe_16b", "train_4k"): 1.5574,
-    ("falcon_mamba_7b", "train_4k"): 0.2259,
-    ("zamba2_2p7b", "train_4k"): 1.1368,
-    ("seamless_m4t_medium", "train_4k"): 1.1966,
+    ("deepseek_moe_16b", "train_4k"): 1.3241,
+    ("falcon_mamba_7b", "train_4k"): 0.2231,
+    ("zamba2_2p7b", "train_4k"): 0.2573,
+    ("seamless_m4t_medium", "train_4k"): 1.1942,
 }
 
 
