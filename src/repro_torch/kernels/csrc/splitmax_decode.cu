@@ -8,7 +8,12 @@
 //                              (B, Hkv, S_max, D) cache, walked in tiles of
 //                              block_k positions, the last one ragged;
 // and each has a kExactRecip instance (the exact_recip option: the
-// finalize divides in place of the reciprocal LUT).
+// finalize divides in place of the reciprocal LUT).  The dense entries also
+// have the tile instances that the tile sweep (kernels/autotune.py) times
+// and kernels/ops.py launches for a swept winner: kStage in {1, 2, 4, 8, 16}
+// tiles of 32 keys a rank holds in flight, the reference's block_k = 32 *
+// kStage (no kExactRecip tile instances; kStage 0 is the default instance,
+// whose launcher picks the stage).
 //
 // Replaces: repro/kernels/splitmax_decode.py::splitmax_decode_fused_paged_pallas,
 //           ::splitmax_decode_paged_pallas (_paged_decode_call,
@@ -33,8 +38,9 @@
 //    an IEEE division, then clip), bit for bit what the composed entry's
 //    caller does with torch.round(q / s_q);
 //  * a block issues the cp.async copies of all its tiles (up to a stage of
-//    kMaxStage that fits the shared-memory budget) at once and waits once:
-//    at the churn shape a rank has 1 or 2 tiles, so one round;
+//    kMaxStage that fits the shared-memory budget, or kStage in a tile
+//    instance) at once and waits once: at the churn shape a rank has 1 or 2
+//    tiles, so one round;
 //  * each block loads its own cache length and table entries (no scalar
 //    prefetch) and touches only live tiles: past the length, window-dead
 //    and trash-block (id 0) tiles are never read.  A live slot never has a
@@ -69,9 +75,10 @@ namespace {
 
 using namespace splitmax;
 
-constexpr int kMaxStage = 4;              // tiles a block holds in flight
+constexpr int kMaxStage = 4;              // tiles a block holds in flight (default)
 constexpr int kMaxWords = kMaxOut / 4;    // packed V words (4 outputs) per thread
 constexpr size_t kSmemBudget = 48 * 1024; // a stage larger than 1 tile stays under it
+constexpr size_t kSmemMax = 227 * 1024;   // an H100 block's dynamic shared memory
 
 struct Smem {
   size_t exp, recip, q, part_acc, part_s, tile_off, tile_in, e, k, v, total;
@@ -90,8 +97,9 @@ __host__ __device__ inline Smem smem_layout(int group, int d, int block_k, int r
   m.q = off;         off += align16(static_cast<size_t>(group) * d);
   m.part_acc = off;  off += align16(static_cast<size_t>(group) * d * 8);
   m.part_s = off;    off += align16(static_cast<size_t>(group) * 8);
-  m.tile_off = off;  off += align16(kMaxStage * 8);
-  m.tile_in = off;   off += align16(kMaxStage * 4);
+  const size_t slots = stage > kMaxStage ? stage : kMaxStage;
+  m.tile_off = off;  off += align16(slots * 8);
+  m.tile_in = off;   off += align16(slots * 4);
   m.e = off;         off += align16(stage * m.e_tile);
   m.k = off;         off += align16(stage * m.k_tile);
   m.v = off;         off += stage * align16(m.v_tile);
@@ -100,8 +108,9 @@ __host__ __device__ inline Smem smem_layout(int group, int d, int block_k, int r
 }
 
 // ``extent`` is the table width (paged) or S_max (dense); ``table`` is
-// unused when dense.
-template <bool kQuantizeQ, bool kDense, bool kExactRecip>
+// unused when dense.  ``kStage`` > 0 fixes the tiles in flight (a tile
+// instance); 0 takes the launcher's ``stage``.
+template <bool kQuantizeQ, bool kDense, bool kExactRecip, int kStage>
 __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads)
 decode_kernel(const void* __restrict__ q_in, const int8_t* __restrict__ k_cache,
               const int8_t* __restrict__ v_cache, const int* __restrict__ table,
@@ -109,8 +118,9 @@ decode_kernel(const void* __restrict__ q_in, const int8_t* __restrict__ k_cache,
               const float* __restrict__ s_v_ptr, const int* __restrict__ cache_len,
               const int* __restrict__ exp_lut, const int* __restrict__ recip_lut_g,
               float* __restrict__ out, int hq, int hkv, int d, int block_k, int extent,
-              int window, int recip_bits, int recip_frac_bits, int stage) {
+              int window, int recip_bits, int recip_frac_bits, int stage_arg) {
   extern __shared__ __align__(16) unsigned char smem[];
+  const int stage = kStage > 0 ? kStage : stage_arg;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int group = hq / hkv;
@@ -282,26 +292,32 @@ decode_kernel(const void* __restrict__ q_in, const int8_t* __restrict__ k_cache,
   cluster.sync();  // no block exits while another still reads its partials
 }
 
-template <bool kQuantizeQ, bool kDense, bool kExactRecip>
+template <bool kQuantizeQ, bool kDense, bool kExactRecip, int kStage>
 int launch_one(const void* q, const void* k_cache, const void* v_cache, const void* table,
                const void* m_z, const void* s_q, const void* s_v, const void* cache_len,
                const void* exp_lut, const void* recip_lut, void* out, int b, int hq,
                int hkv, int d, int block_k, int extent, int window, int recip_bits,
                int recip_frac_bits, void* stream) {
   const int group = hq / hkv;
-  const Smem one = smem_layout(group, d, block_k, recip_bits, 1);
-  const size_t per_tile = align16(one.e_tile) + align16(one.k_tile) + align16(one.v_tile);
-  int stage = 1;
-  while (stage < kMaxStage && one.total + stage * per_tile <= kSmemBudget) ++stage;
+  int stage = kStage;
+  if (kStage == 0) {  // the default instance: as many tiles as the budget takes
+    const Smem one = smem_layout(group, d, block_k, recip_bits, 1);
+    const size_t per_tile = align16(one.e_tile) + align16(one.k_tile) + align16(one.v_tile);
+    stage = 1;
+    while (stage < kMaxStage && one.total + stage * per_tile <= kSmemBudget) ++stage;
+  }
   const size_t smem = smem_layout(group, d, block_k, recip_bits, stage).total;
-  if (smem > 48 * 1024) {
+  if (smem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
+  static size_t allowed = 48 * 1024;  // raised once per size, never inside a capture
+  if (smem > allowed) {
     const cudaError_t err = cudaFuncSetAttribute(
-        decode_kernel<kQuantizeQ, kDense, kExactRecip>,
+        decode_kernel<kQuantizeQ, kDense, kExactRecip, kStage>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
+    allowed = smem;
   }
   const dim3 grid(hkv * kRanks, b);
-  decode_kernel<kQuantizeQ, kDense, kExactRecip>
+  decode_kernel<kQuantizeQ, kDense, kExactRecip, kStage>
       <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
           q, static_cast<const int8_t*>(k_cache), static_cast<const int8_t*>(v_cache),
           static_cast<const int*>(table), static_cast<const float*>(m_z),
@@ -312,24 +328,44 @@ int launch_one(const void* q, const void* k_cache, const void* v_cache, const vo
   return static_cast<int>(cudaGetLastError());
 }
 
-// exact_recip != 0 launches the kExactRecip instance.
+// exact_recip != 0 launches the kExactRecip instance; stage > 0 (dense, not
+// exact_recip) the tile instance of that stage.
 template <bool kQuantizeQ, bool kDense>
 int launch(const void* q, const void* k_cache, const void* v_cache, const void* table,
            const void* m_z, const void* s_q, const void* s_v, const void* cache_len,
            const void* exp_lut, const void* recip_lut, void* out, int b, int hq, int hkv,
            int d, int block_k, int extent, int window, int recip_bits,
-           int recip_frac_bits, int exact_recip, void* stream) {
-  return (exact_recip ? launch_one<kQuantizeQ, kDense, true>
-                      : launch_one<kQuantizeQ, kDense, false>)(
-      q, k_cache, v_cache, table, m_z, s_q, s_v, cache_len, exp_lut, recip_lut, out, b, hq,
-      hkv, d, block_k, extent, window, recip_bits, recip_frac_bits, stream);
+           int recip_frac_bits, int exact_recip, int stage, void* stream) {
+  using Launch = int (*)(const void*, const void*, const void*, const void*, const void*,
+                         const void*, const void*, const void*, const void*, const void*,
+                         void*, int, int, int, int, int, int, int, int, int, void*);
+  Launch fn = nullptr;
+  if (stage == 0) {
+    fn = exact_recip ? launch_one<kQuantizeQ, kDense, true, 0>
+                     : launch_one<kQuantizeQ, kDense, false, 0>;
+  } else if constexpr (kDense) {
+    if (!exact_recip) {
+      switch (stage) {
+        case 1: fn = launch_one<kQuantizeQ, kDense, false, 1>; break;
+        case 2: fn = launch_one<kQuantizeQ, kDense, false, 2>; break;
+        case 4: fn = launch_one<kQuantizeQ, kDense, false, 4>; break;
+        case 8: fn = launch_one<kQuantizeQ, kDense, false, 8>; break;
+        case 16: fn = launch_one<kQuantizeQ, kDense, false, 16>; break;
+        default: break;
+      }
+    }
+  }
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return fn(q, k_cache, v_cache, table, m_z, s_q, s_v, cache_len, exp_lut, recip_lut, out,
+            b, hq, hkv, d, block_k, extent, window, recip_bits, recip_frac_bits, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Each returns the cudaError_t of the launch (0 = cudaSuccess).
+// Each returns the cudaError_t of the launch (0 = cudaSuccess); the dense
+// entries' ``stage`` names a tile instance (0: the default instance).
 int splitmax_decode_fused_paged_launch(const void* q, const void* k_pages,
                                        const void* v_pages, const void* table,
                                        const void* m_z, const void* s_q, const void* s_v,
@@ -340,7 +376,7 @@ int splitmax_decode_fused_paged_launch(const void* q, const void* k_pages,
                                        int exact_recip, void* stream) {
   return launch<true, false>(q, k_pages, v_pages, table, m_z, s_q, s_v, cache_len,
                              exp_lut, recip_lut, out, b, hq, hkv, d, block_k, max_blocks,
-                             window, recip_bits, recip_frac_bits, exact_recip, stream);
+                             window, recip_bits, recip_frac_bits, exact_recip, 0, stream);
 }
 
 int splitmax_decode_paged_launch(const void* q_q, const void* k_pages, const void* v_pages,
@@ -352,7 +388,7 @@ int splitmax_decode_paged_launch(const void* q_q, const void* k_pages, const voi
                                  void* stream) {
   return launch<false, false>(q_q, k_pages, v_pages, table, m_z, nullptr, s_v, cache_len,
                               exp_lut, recip_lut, out, b, hq, hkv, d, block_k, max_blocks,
-                              window, recip_bits, recip_frac_bits, exact_recip, stream);
+                              window, recip_bits, recip_frac_bits, exact_recip, 0, stream);
 }
 
 int splitmax_decode_fused_dense_launch(const void* q, const void* k_cache,
@@ -362,10 +398,10 @@ int splitmax_decode_fused_dense_launch(const void* q, const void* k_cache,
                                        const void* recip_lut, void* out, int b, int hq,
                                        int hkv, int d, int block_k, int s_max, int window,
                                        int recip_bits, int recip_frac_bits, int exact_recip,
-                                       void* stream) {
+                                       int stage, void* stream) {
   return launch<true, true>(q, k_cache, v_cache, nullptr, m_z, s_q, s_v, cache_len,
                             exp_lut, recip_lut, out, b, hq, hkv, d, block_k, s_max,
-                            window, recip_bits, recip_frac_bits, exact_recip, stream);
+                            window, recip_bits, recip_frac_bits, exact_recip, stage, stream);
 }
 
 int splitmax_decode_dense_launch(const void* q_q, const void* k_cache, const void* v_cache,
@@ -373,10 +409,10 @@ int splitmax_decode_dense_launch(const void* q_q, const void* k_cache, const voi
                                  const void* exp_lut, const void* recip_lut, void* out,
                                  int b, int hq, int hkv, int d, int block_k, int s_max,
                                  int window, int recip_bits, int recip_frac_bits,
-                                 int exact_recip, void* stream) {
+                                 int exact_recip, int stage, void* stream) {
   return launch<false, true>(q_q, k_cache, v_cache, nullptr, m_z, nullptr, s_v, cache_len,
                              exp_lut, recip_lut, out, b, hq, hkv, d, block_k, s_max,
-                             window, recip_bits, recip_frac_bits, exact_recip, stream);
+                             window, recip_bits, recip_frac_bits, exact_recip, stage, stream);
 }
 
 const char* splitmax_decode_error_string(int code) {

@@ -12,16 +12,19 @@ There is no fallback: a missing ``nvcc`` or a failed compile raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 KERNELS = ("splitmax_attn", "splitmax_decode", "splitmax_verify",
+           "splitmax_verify_tiles", "splitmax_verify_tiles_pad",
            "int8_matmul")
 
 # No --use_fast_math: quantize divides by the scale and rounds half to even,
@@ -30,6 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+# seconds each source's nvcc took in this process's builds
+BUILD_SECONDS: Dict[str, float] = {}
 
 
 def nvcc_path() -> str:
@@ -43,7 +48,10 @@ def nvcc_path() -> str:
                        "the port's CUDA kernels are built from source")
 
 
+@functools.lru_cache(maxsize=None)
 def library_path(name: str) -> Path:
+    """The library of ``csrc/<name>.cu``, named by a hash of the flags, its
+    source and every shared header (read once a process)."""
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
     for src in sorted(CSRC.glob("*.cu*")):
         if src.suffix == ".cuh" or src.stem == name:
@@ -62,17 +70,28 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
         if out.exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        log = open(out.with_name(f"{out.name}.{os.getpid()}.log"), "w+")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        jobs.append((name, out, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        jobs.append((name, out, tmp, log, time.perf_counter(), subprocess.Popen(
+            cmd, stdout=log, stderr=subprocess.STDOUT, text=True)))
     logs = {}
-    for name, out, tmp, proc in jobs:
-        log, _ = proc.communicate()
+    pending = list(jobs)
+    while pending:                 # each source's own wall time
+        for job in list(pending):
+            if job[5].poll() is not None:
+                BUILD_SECONDS[job[0]] = time.perf_counter() - job[4]
+                pending.remove(job)
+        time.sleep(0.05)
+    for name, out, tmp, log, _, proc in jobs:
+        log.seek(0)
+        text = log.read()
+        log.close()
+        os.unlink(log.name)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}.cu "
-                               f"(exit {proc.returncode}):\n{log}")
+                               f"(exit {proc.returncode}):\n{text}")
         os.replace(tmp, out)           # atomic: concurrent builds agree
-        logs[name] = log
+        logs[name] = text
     return logs
 
 

@@ -30,6 +30,16 @@ same function (f64 sums of integers, rounded once), and by default the f32
 matmul of the reference.  Every entry takes ``exact_recip`` (a division in
 place of the reciprocal LUT; a compile-time variant of each kernel).
 
+The dense decode and the dense verify also launch tile instances, picked by
+the reference's ``(block_k, g_pad_min)`` (:func:`tile_instance`; the
+mapping is set out in ``kernels/autotune.py``), and the paged verify a
+row-padding instance for ``g_pad_min`` 16 (``csrc/splitmax_verify_tiles.cuh``).
+``block_k=None`` launches the default instance, the kernel as it was before
+tiles were parameters.  A tile with no compiled instance raises.  The plain
+dense versions take ``block_k`` too: with ``exact=True`` it cuts their
+exact sums into chunks of that many keys (the same bits at every
+``block_k``); the f32 default ignores it, as the reference's ref path does.
+
 Tiles whose table entry is the trash block (id 0) are dead.  A live slot
 never has one inside its length (the allocator never hands out block 0), so
 this changes nothing for live slots; an idle slot (length 0, row all trash)
@@ -39,7 +49,7 @@ whatever it holds.  Idle rows are discarded by the scheduler either way.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -58,8 +68,19 @@ verify_launches = 0
 dense_launches = 0
 dense_composed_launches = 0
 dense_verify_launches = 0
+# launches of each tile instance, keyed (kind, stage, row_pad), kind
+# "decode", "decode_composed", "verify" or "verify_paged"; the default
+# instances are not counted here
+tile_launches: Dict[Tuple[str, int, int], int] = {}
 
-DENSE_BLOCK_K = 32            # dense k-tile: the serving pool's block_k
+DENSE_BLOCK_K = 32            # dense k-tile: the serving pool's block_k;
+                              # also the verify's kTileK
+TILE_STAGES = (1, 2, 4, 8, 16)  # tiles a rank holds in flight: block_k / 32
+TILE_BLOCK_KS = tuple(DENSE_BLOCK_K * s for s in TILE_STAGES)
+G_PADS = (8, 16)              # the reference's g_pad_min: rows padded to 2x
+SMEM_MAX = 227 * 1024         # an H100 block's dynamic shared memory
+# the verify's tile instances by row padding (csrc/splitmax_verify_tiles*.cu)
+TILE_LIBS = {16: "splitmax_verify_tiles", 32: "splitmax_verify_tiles_pad"}
 
 THREADS = 128                 # kThreads in csrc/splitmax_common.cuh
 MAX_OUT_PER_THREAD = 16       # kMaxOut in csrc/splitmax_common.cuh
@@ -78,11 +99,15 @@ def _lib(name: str) -> ctypes.CDLL:
         if name == "splitmax_decode":
             sigs = {"splitmax_decode_fused_paged_launch": [p] * 11 + [i] * 10,
                     "splitmax_decode_paged_launch": [p] * 10 + [i] * 10,
-                    "splitmax_decode_fused_dense_launch": [p] * 10 + [i] * 10,
-                    "splitmax_decode_dense_launch": [p] * 9 + [i] * 10}
-        else:
+                    "splitmax_decode_fused_dense_launch": [p] * 10 + [i] * 11,
+                    "splitmax_decode_dense_launch": [p] * 9 + [i] * 11}
+        elif name == "splitmax_verify":
             sigs = {"splitmax_verify_paged_launch": [p] * 11 + [i] * 11,
                     "splitmax_verify_dense_launch": [p] * 10 + [i] * 11}
+        else:          # the verify's tile instances, rows padded to 16 or 32
+            sigs = {"splitmax_verify_tile_dense_launch": [p] * 10 + [i] * 12}
+            if name.endswith("_pad"):
+                sigs["splitmax_verify_tile_paged_launch"] = [p] * 11 + [i] * 11
         for fn_name, args in sigs.items():
             getattr(lib, fn_name).argtypes = args + [p]
             getattr(lib, fn_name).restype = i
@@ -113,17 +138,105 @@ def live_positions(block_table, cache_len, block_k: int,
                    != paged_kv.TRASH_BLOCK)
 
 
+# ------------------------------------------------------------ tile instances --
+
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def tile_instance(block_k: Optional[int], g_pad_min: int, s_max: int
+                  ) -> Tuple[int, int]:
+    """``(stage, row_pad)`` of the instance for the reference's tile
+    ``(block_k, g_pad_min)`` over ``s_max`` cached positions: ``stage =
+    block_k / 32`` tiles of 32 keys a rank holds in flight, 0 for the
+    default instance (``block_k`` None, or ``s_max`` itself: the
+    reference's one tile over a cache that no candidate divides, which the
+    ragged tiles here need no instance for); ``row_pad = 2 * g_pad_min``
+    query rows (16: one m16 tile).  Raises for any other tile."""
+    if g_pad_min not in G_PADS:
+        raise ValueError(f"g_pad_min {g_pad_min}: no compiled instance "
+                         f"(candidates {G_PADS})")
+    if block_k is None or (block_k == s_max
+                           and block_k not in TILE_BLOCK_KS):
+        return 0, 2 * g_pad_min
+    if block_k not in TILE_BLOCK_KS:
+        raise ValueError(f"block_k {block_k}: no compiled instance "
+                         f"(candidates {TILE_BLOCK_KS} or s_max {s_max})")
+    return block_k // DENSE_BLOCK_K, 2 * g_pad_min
+
+
+def decode_smem_bytes(group: int, d: int, stage: int,
+                      cfg: LUTConfig) -> int:
+    """Dynamic shared memory of a dense decode instance with ``stage``
+    tiles of 32 keys (``smem_layout`` of ``csrc/splitmax_decode.cu``)."""
+    e_tile = group * (DENSE_BLOCK_K + 1) * 4
+    k_tile = DENSE_BLOCK_K * (d // 4 + 1) * 4
+    v_tile = DENSE_BLOCK_K * d
+    fixed = (_align16(256 * 4) + _align16((1 << cfg.recip_index_bits) * 4)
+             + _align16(group * d) + _align16(group * d * 8)
+             + _align16(group * 8) + _align16(max(stage, 4) * 8)
+             + _align16(max(stage, 4) * 4))
+    return (fixed + _align16(stage * e_tile) + _align16(stage * k_tile)
+            + stage * _align16(v_tile))
+
+
+def verify_smem_bytes(rows: int, d: int, stage: int, row_pad: int,
+                      cfg: LUTConfig) -> int:
+    """Dynamic shared memory of a verify instance with ``rows`` query rows
+    (group x T) padded to ``row_pad`` and ``stage`` tiles of 32 keys
+    (``smem_layout`` of ``csrc/splitmax_verify.cuh``)."""
+    dp = (d + 31) // 32 * 32
+    pitch = dp + 16
+    rows_pad = (rows + row_pad - 1) // row_pad * row_pad
+    return (_align16(256 * 4) + _align16((1 << cfg.recip_index_bits) * 4)
+            + _align16(rows_pad * pitch) + _align16(rows * d * 8)
+            + _align16(rows * 8) + _align16((rows + 7) // 8 * 8)
+            + _align16(stage * DENSE_BLOCK_K * 8)
+            + _align16(stage * DENSE_BLOCK_K * pitch)
+            + _align16(stage * DENSE_BLOCK_K * d)
+            + _align16(stage * d * (DENSE_BLOCK_K + 16)))
+
+
+def tile_refusal(kind: str, block_k: int, g_pad_min: int, *, group: int,
+                 d: int, s_max: int, cfg: LUTConfig, tokens: int = 1
+                 ) -> Optional[str]:
+    """Why the card cannot run the tile instance of ``kind`` ("decode" or
+    "verify") for ``(block_k, g_pad_min)``, or None: a tile with no
+    instance, or a layout past the 227 KB of shared memory a block may
+    hold.  The default instance (stage 0) sizes itself and is never
+    refused here."""
+    try:
+        stage, row_pad = tile_instance(block_k, g_pad_min, s_max)
+    except ValueError as err:
+        return str(err)
+    if stage == 0:
+        if kind == "verify" and row_pad != 16:
+            return (f"block_k {block_k} = s_max with g_pad_min {g_pad_min}: "
+                    f"no compiled dense verify instance")
+        return None
+    smem = (decode_smem_bytes(group, d, stage, cfg) if kind == "decode"
+            else verify_smem_bytes(group * tokens, d, stage, row_pad, cfg))
+    if smem > SMEM_MAX:
+        return (f"{smem / 1024:.1f} KB of shared memory at D {d}, group "
+                f"{group}" + (f", T {tokens}" if kind == "verify" else "")
+                + f" > {SMEM_MAX // 1024} KB")
+    return None
+
+
 # ------------------------------------------------------------ plain versions --
 
 def _grouped_decode(q_q, k_c, v_c, live, m_z, s_v, exp_lut, recip_lut,
                     cfg: LUTConfig, exact_recip: bool = False,
-                    exact: bool = False) -> torch.Tensor:
+                    exact: bool = False,
+                    block_k: Optional[int] = None) -> torch.Tensor:
     """The grouped int8 split-softmax decode of ``q_q (B, Hq, D)`` over a
     contiguous int8 cache ``(B, Hkv, S, D)`` at the ``live (B, S)``
     positions; ``m_z`` is per-slot ``(B,)``.  ``exact`` takes ``e @ v`` and
     ``e.sum`` in f64 (every partial sum is an integer below 2^53) and rounds
-    each to f32 once: the CUDA kernels' contract, bit for bit.
-    ``exact_recip`` divides in place of the reciprocal LUT."""
+    each to f32 once: the CUDA kernels' contract, bit for bit; with
+    ``block_k`` it sums them over chunks of that many keys, one after the
+    other (the same integers).  ``exact_recip`` divides in place of the
+    reciprocal LUT."""
     b, hq, d = q_q.shape
     hkv = k_c.shape[1]
     g = hq // hkv
@@ -134,9 +247,19 @@ def _grouped_decode(q_q, k_c, v_c, live, m_z, s_v, exp_lut, recip_lut,
     e = lut_lib.exp_lookup(z_q, exp_lut).to(torch.float32)   # (B,Hkv,G,S)
     dt = torch.float64 if exact else torch.float32
     e = torch.where(live[:, None, None, :], e, 0.0).to(dt)
-    acc = (e @ v_c.to(dt)).to(torch.float32)                 # (B,Hkv,G,D)
-    r = lut_lib.recip_factor(e.sum(-1, keepdim=True), recip_lut, cfg,
-                             exact_recip)
+    v_c = v_c.to(dt)
+    if exact and block_k is not None:
+        acc = torch.zeros(e.shape[:3] + (d,), dtype=dt, device=e.device)
+        s = torch.zeros(e.shape[:3] + (1,), dtype=dt, device=e.device)
+        for k0 in range(0, e.shape[-1], block_k):
+            ec = e[..., k0:k0 + block_k]
+            acc = acc + ec @ v_c[:, :, k0:k0 + block_k]
+            s = s + ec.sum(-1, keepdim=True)
+        acc = acc.to(torch.float32)
+    else:
+        acc = (e @ v_c).to(torch.float32)                    # (B,Hkv,G,D)
+        s = e.sum(-1, keepdim=True)
+    r = lut_lib.recip_factor(s, recip_lut, cfg, exact_recip)
     out = acc * r * s_v
     return out.reshape(b, hq, d)
 
@@ -176,11 +299,13 @@ def splitmax_decode_fused_verify_paged_plain(q, k_pages, v_pages, block_table,
                                              cfg: LUTConfig,
                                              window: Optional[int] = None,
                                              exact_recip: bool = False,
-                                             exact: bool = False
+                                             exact: bool = False,
+                                             g_pad_min: int = 8
                                              ) -> torch.Tensor:
     """The verify kernel's function in plain PyTorch, the reference's
     ``_verify_fallback``: token t is the fused decode at ``cache_len -
-    (T-1-t)`` with ``s_q[:, t]`` and ``m_z[:, t]``, stacked on axis 2."""
+    (T-1-t)`` with ``s_q[:, t]`` and ``m_z[:, t]``, stacked on axis 2
+    (``g_pad_min``, the kernel's row padding, changes nothing here)."""
     t = q.shape[2]
     outs = [splitmax_decode_fused_paged_plain(
         q[:, :, i].contiguous(), k_pages, v_pages, block_table,
@@ -194,25 +319,31 @@ def splitmax_decode_plain(q_q, k_cache, v_cache, m_z, s_v, cache_len,
                           exp_lut, recip_lut, *, cfg: LUTConfig,
                           window: Optional[int] = None,
                           exact_recip: bool = False,
-                          exact: bool = False) -> torch.Tensor:
+                          exact: bool = False,
+                          block_k: Optional[int] = None,
+                          g_pad_min: int = 8) -> torch.Tensor:
     """The composed dense kernel's function in plain PyTorch: int8 ``q_q
-    (B, Hq, D)`` against the dense cache ``(B, Hkv, S_max, D)``."""
+    (B, Hq, D)`` against the dense cache ``(B, Hkv, S_max, D)``.  A plain
+    version pads no rows: ``g_pad_min`` is taken for the kernel's
+    signature only."""
     live = dense_live_positions(cache_len, k_cache.shape[2], window)
     return _grouped_decode(q_q, k_cache, v_cache, live, m_z, s_v, exp_lut,
-                           recip_lut, cfg, exact_recip, exact)
+                           recip_lut, cfg, exact_recip, exact, block_k)
 
 
 def splitmax_decode_fused_plain(q, k_cache, v_cache, m_z, s_q, s_v,
                                 cache_len, exp_lut, recip_lut, *,
                                 cfg: LUTConfig, window: Optional[int] = None,
                                 exact_recip: bool = False,
-                                exact: bool = False) -> torch.Tensor:
+                                exact: bool = False,
+                                block_k: Optional[int] = None,
+                                g_pad_min: int = 8) -> torch.Tensor:
     """The fused dense kernel's function in plain PyTorch: quantize each
     slot's query with its own ``s_q (B,)``, then the composed decode."""
     return splitmax_decode_plain(
         qlib.quantize(q, s_q[:, None, None]), k_cache, v_cache, m_z, s_v,
         cache_len, exp_lut, recip_lut, cfg=cfg, window=window,
-        exact_recip=exact_recip, exact=exact)
+        exact_recip=exact_recip, exact=exact, block_k=block_k)
 
 
 def splitmax_decode_fused_verify_plain(q, k_cache, v_cache, m_z, s_q, s_v,
@@ -220,7 +351,9 @@ def splitmax_decode_fused_verify_plain(q, k_cache, v_cache, m_z, s_q, s_v,
                                        cfg: LUTConfig,
                                        window: Optional[int] = None,
                                        exact_recip: bool = False,
-                                       exact: bool = False) -> torch.Tensor:
+                                       exact: bool = False,
+                                       block_k: Optional[int] = None,
+                                       g_pad_min: int = 8) -> torch.Tensor:
     """The dense verify kernel's function in plain PyTorch, the reference's
     ``_verify_fallback``: token t is the fused dense decode at ``cache_len
     - (T-1-t)``, stacked on axis 2."""
@@ -229,7 +362,7 @@ def splitmax_decode_fused_verify_plain(q, k_cache, v_cache, m_z, s_q, s_v,
         q[:, :, i].contiguous(), k_cache, v_cache, m_z[:, i].contiguous(),
         s_q[:, i].contiguous(), s_v, cache_len - (t - 1 - i), exp_lut,
         recip_lut, cfg=cfg, window=window, exact_recip=exact_recip,
-        exact=exact) for i in range(t)]
+        exact=exact, block_k=block_k) for i in range(t)]
     return torch.stack(outs, dim=2)
 
 
@@ -299,20 +432,42 @@ def _check(q, q_dtype, per_slot, k_pages, v_pages, block_table, s_v,
 
 
 def _launch(name: str, fn_name: str, q, pointers, dims, cfg, window,
-            exact_recip, out):
+            exact_recip, out, instance=()):
     """Launch ``fn_name`` of ``csrc/<name>.cu`` (its ``exact_recip``
-    instance when asked) on PyTorch's current stream; raises on a refused
-    launch."""
+    instance when asked; ``instance``, the ints naming a tile instance,
+    after it, or in its place for a tile library) on PyTorch's current
+    stream; raises on a refused launch."""
     lib = _lib(name)
+    flags = (() if name.startswith("splitmax_verify_tiles")
+             else (int(exact_recip),)) + tuple(instance)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, fn_name)(
             *(t.data_ptr() for t in pointers), out.data_ptr(), *dims,
             window or 0, cfg.recip_index_bits, cfg.recip_frac_bits,
-            int(exact_recip), stream)
+            *flags, stream)
     if err:
         raise RuntimeError(f"{fn_name} failed: "
                            + getattr(lib, f"{name}_error_string")(err).decode())
+
+
+def _instance(kind: str, block_k, g_pad_min, s_max, exact_recip
+              ) -> Tuple[int, int]:
+    """The wrapper's ``(stage, row_pad)`` (:func:`tile_instance`); raises
+    for a tile instance with ``exact_recip``, which has none."""
+    stage, row_pad = tile_instance(block_k, g_pad_min, s_max)
+    if kind.startswith("decode"):
+        row_pad = 16                   # the decode pads no rows
+    if (stage, row_pad) != (0, 16) and exact_recip:
+        raise ValueError(f"tile (block_k {block_k}, g_pad_min {g_pad_min}): "
+                         f"no compiled exact_recip instance")
+    return stage, row_pad
+
+
+def _count_tile(kind: str, stage: int, row_pad: int) -> None:
+    if (stage, row_pad) != (0, 16):
+        key = (kind, stage, row_pad)
+        tile_launches[key] = tile_launches.get(key, 0) + 1
 
 
 def splitmax_decode_fused_paged_cuda(q, k_pages, v_pages, block_table, m_z,
@@ -380,11 +535,13 @@ def splitmax_decode_fused_verify_paged_cuda(q, k_pages, v_pages, block_table,
                                             exp_lut, recip_lut, *,
                                             cfg: LUTConfig,
                                             window: Optional[int] = None,
-                                            exact_recip: bool = False
+                                            exact_recip: bool = False,
+                                            g_pad_min: int = 8
                                             ) -> torch.Tensor:
     """Launch the fused verify kernel: f32 ``q (B, Hq, T, D)``, ``m_z`` and
     ``s_q`` per (slot, token) ``(B, T)``, ``cache_len`` counting all T
-    tokens; raises on bad input or a refused launch."""
+    tokens; ``g_pad_min`` 16 launches the instance whose query rows are
+    padded to 32.  Raises on bad input or a refused launch."""
     global verify_launches
     if not q.is_cuda:
         raise ValueError("splitmax_decode_fused_verify_paged_cuda takes CUDA "
@@ -396,25 +553,36 @@ def splitmax_decode_fused_verify_paged_cuda(q, k_pages, v_pages, block_table,
            block_table, s_v, cache_len, exp_lut, recip_lut, cfg, window,
            tokens=t, threads=None)
     _, hkv, bk, _ = k_pages.shape
+    _, row_pad = _instance("verify_paged", None, g_pad_min, 0, exact_recip)
     out = torch.empty((b, hq, t, d), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out
-    _launch("splitmax_verify", "splitmax_verify_paged_launch", q,
+    lib, fn_name, inst = (
+        ("splitmax_verify", "splitmax_verify_paged_launch", ())
+        if row_pad == 16 else
+        ("splitmax_verify_tiles_pad", "splitmax_verify_tile_paged_launch",
+         (row_pad,)))
+    _launch(lib, fn_name, q,
             (q, k_pages, v_pages, block_table, m_z, s_q, s_v, cache_len,
              exp_lut, recip_lut),
             (b, hq, hkv, t, d, bk, block_table.shape[1]), cfg, window,
-            exact_recip, out)
+            exact_recip, out, inst)
     verify_launches += 1
+    _count_tile("verify_paged", 0, row_pad)
     return out
 
 
 def splitmax_decode_fused_cuda(q, k_cache, v_cache, m_z, s_q, s_v, cache_len,
                                exp_lut, recip_lut, *, cfg: LUTConfig,
                                window: Optional[int] = None,
-                               exact_recip: bool = False) -> torch.Tensor:
+                               exact_recip: bool = False,
+                               block_k: Optional[int] = None,
+                               g_pad_min: int = 8) -> torch.Tensor:
     """Launch the fused dense decode kernel: f32 ``q (B, Hq, D)`` against
-    the dense cache ``(B, Hkv, S_max, D)``; raises on bad input or a
-    refused launch."""
+    the dense cache ``(B, Hkv, S_max, D)``, the instance of the tile
+    ``(block_k, g_pad_min)`` (:func:`tile_instance`; the decode pads no
+    rows, so ``g_pad_min`` picks nothing); raises on bad input, a tile
+    with no instance or a refused launch."""
     global dense_launches
     if not q.is_cuda:
         raise ValueError("splitmax_decode_fused_cuda takes CUDA tensors")
@@ -425,23 +593,29 @@ def splitmax_decode_fused_cuda(q, k_cache, v_cache, m_z, s_q, s_v, cache_len,
            threads=THREADS)
     b, hq, d = q.shape
     _, hkv, s_max, _ = k_cache.shape
+    stage, _ = _instance("decode", block_k, g_pad_min, s_max, exact_recip)
     out = torch.empty((b, hq, d), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out
     _launch("splitmax_decode", "splitmax_decode_fused_dense_launch", q,
             (q, k_cache, v_cache, m_z, s_q, s_v, cache_len, exp_lut,
              recip_lut), (b, hq, hkv, d, DENSE_BLOCK_K, s_max), cfg, window,
-            exact_recip, out)
+            exact_recip, out, (stage,))
     dense_launches += 1
+    _count_tile("decode", stage, 16)
     return out
 
 
 def splitmax_decode_cuda(q_q, k_cache, v_cache, m_z, s_v, cache_len, exp_lut,
                          recip_lut, *, cfg: LUTConfig,
                          window: Optional[int] = None,
-                         exact_recip: bool = False) -> torch.Tensor:
+                         exact_recip: bool = False,
+                         block_k: Optional[int] = None,
+                         g_pad_min: int = 8) -> torch.Tensor:
     """Launch the composed dense decode kernel (int8 ``q_q``, no in-kernel
-    quantize); raises on bad input or a refused launch."""
+    quantize), the instance of the tile ``(block_k, g_pad_min)`` as
+    :func:`splitmax_decode_fused_cuda`; raises on bad input, a tile with
+    no instance or a refused launch."""
     global dense_composed_launches
     if not q_q.is_cuda:
         raise ValueError("splitmax_decode_cuda takes CUDA tensors")
@@ -452,14 +626,17 @@ def splitmax_decode_cuda(q_q, k_cache, v_cache, m_z, s_v, cache_len, exp_lut,
            threads=THREADS)
     b, hq, d = q_q.shape
     _, hkv, s_max, _ = k_cache.shape
+    stage, _ = _instance("decode_composed", block_k, g_pad_min, s_max,
+                         exact_recip)
     out = torch.empty((b, hq, d), dtype=torch.float32, device=q_q.device)
     if out.numel() == 0:
         return out
     _launch("splitmax_decode", "splitmax_decode_dense_launch", q_q,
             (q_q, k_cache, v_cache, m_z, s_v, cache_len, exp_lut, recip_lut),
             (b, hq, hkv, d, DENSE_BLOCK_K, s_max), cfg, window,
-            exact_recip, out)
+            exact_recip, out, (stage,))
     dense_composed_launches += 1
+    _count_tile("decode_composed", stage, 16)
     return out
 
 
@@ -467,11 +644,14 @@ def splitmax_decode_fused_verify_cuda(q, k_cache, v_cache, m_z, s_q, s_v,
                                       cache_len, exp_lut, recip_lut, *,
                                       cfg: LUTConfig,
                                       window: Optional[int] = None,
-                                      exact_recip: bool = False
-                                      ) -> torch.Tensor:
+                                      exact_recip: bool = False,
+                                      block_k: Optional[int] = None,
+                                      g_pad_min: int = 8) -> torch.Tensor:
     """Launch the dense verify kernel: f32 ``q (B, Hq, T, D)``, ``m_z`` and
     ``s_q`` per (slot, token) ``(B, T)``, ``cache_len`` counting all T
-    tokens; raises on bad input or a refused launch."""
+    tokens; the instance of the tile ``(block_k, g_pad_min)``
+    (:func:`tile_instance`).  Raises on bad input, a tile with no
+    instance or a refused launch."""
     global dense_verify_launches
     if not q.is_cuda:
         raise ValueError("splitmax_decode_fused_verify_cuda takes CUDA tensors")
@@ -482,12 +662,23 @@ def splitmax_decode_fused_verify_cuda(q, k_cache, v_cache, m_z, s_q, s_v,
            s_v, cache_len, exp_lut, recip_lut, cfg, window, tokens=t,
            threads=None)
     _, hkv, s_max, _ = k_cache.shape
+    stage, row_pad = _instance("verify", block_k, g_pad_min, s_max,
+                               exact_recip)
+    if stage == 0 and row_pad != 16:
+        raise ValueError(f"tile (block_k {block_k}, g_pad_min {g_pad_min}): "
+                         f"no compiled dense verify instance")
     out = torch.empty((b, hq, t, d), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out
-    _launch("splitmax_verify", "splitmax_verify_dense_launch", q,
+    lib, fn_name, inst = (
+        ("splitmax_verify", "splitmax_verify_dense_launch", ())
+        if stage == 0 else
+        (TILE_LIBS[row_pad], "splitmax_verify_tile_dense_launch",
+         (stage, row_pad)))
+    _launch(lib, fn_name, q,
             (q, k_cache, v_cache, m_z, s_q, s_v, cache_len, exp_lut,
              recip_lut), (b, hq, hkv, t, d, DENSE_BLOCK_K, s_max), cfg, window,
-            exact_recip, out)
+            exact_recip, out, inst)
     dense_verify_launches += 1
+    _count_tile("verify", stage, row_pad)
     return out

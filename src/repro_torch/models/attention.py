@@ -40,14 +40,29 @@ def split_heads(x: torch.Tensor, n: int, hd: int,
     return x.reshape(b, s, n, hd)
 
 
-def out_proj(params, out: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The output projection ``wo`` of the heads' outputs ``(B, S, H*hd)``.
+def _linear(params, x: torch.Tensor, dt: torch.dtype, tokenwise: bool
+            ) -> torch.Tensor:
+    """``layers.linear_apply``; ``tokenwise`` (the verify step) runs it one
+    token at a time, at the decode step's shape (``layers.per_token``), its
+    int8 weight dequantized once: a BLAS may sum a GEMM's rows in an order
+    chosen by the row count (the CPU's f32 SGEMM does at 1 and 2 rows
+    against 8)."""
+    if tokenwise:
+        return L.per_token(functools.partial(
+            L.linear_apply, L.dequantized(params, dt), dtype=dt), x)
+    return L.linear_apply(params, x, dtype=dt)
+
+
+def out_proj(params, out: torch.Tensor, cfg: ModelConfig, *,
+             tokenwise: bool = False) -> torch.Tensor:
+    """The output projection ``wo`` of the heads' outputs ``(B, S, H*hd)``
+    (one token at a time with ``tokenwise``, see :func:`_linear`).
     Under a mesh binding its partial sums over the head-sharded ``model``
     axis are reduced here: left partial, the norm that follows keeps them
     partial (it is linear in them), and DTensor then gathers the next
     weight whole rather than reduce them, repeating that product on every
     ``model`` rank."""
-    return shard(L.linear_apply(params["wo"], out, dtype=cfg.compute_dtype),
+    return shard(_linear(params["wo"], out, cfg.compute_dtype, tokenwise),
                  "batch", None, "embed")
 
 
@@ -130,13 +145,13 @@ def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig,
     on the contiguous (B, S, H, hd) heads (each row's mean is the same
     function as on the reference's transposed layout), and ``tokenwise``
     (the verify step) runs them one token at a time, at the decode step's
-    shape (``layers.per_token``)."""
+    shape (``layers.per_token``), as it does the q, k and v projections."""
     b, s, _ = x.shape
     dt = cfg.compute_dtype
     hd = cfg.hd
-    q = L.linear_apply(params["wq"], x, dtype=dt)
-    k = L.linear_apply(params["wk"], x, dtype=dt)
-    v = L.linear_apply(params["wv"], x, dtype=dt)
+    q = _linear(params["wq"], x, dt, tokenwise)
+    k = _linear(params["wk"], x, dt, tokenwise)
+    v = _linear(params["wv"], x, dt, tokenwise)
     q = split_heads(q, cfg.n_heads, hd, cfg.n_kv_heads)
     k = split_heads(k, cfg.n_kv_heads, hd)
     if cfg.qk_norm:
@@ -325,4 +340,4 @@ def attn_block_verify_paged(params, x: torch.Tensor,
         q, k_pages, v_pages, table, s_k, s_v, base_len + t,
         cfg.attn_spec(serve=True))
     out = out.transpose(1, 2).reshape(b, t, cfg.n_heads * cfg.hd)
-    return out_proj(params, out, cfg)
+    return out_proj(params, out, cfg, tokenwise=True)

@@ -610,13 +610,14 @@ def verify_step(params, tokens: torch.Tensor, cfg: ModelConfig,
     The T-token twin of :func:`decode_step`: every layer appends all T
     tokens' K/V through the block table and runs the verify attention with
     per-token lengths, so ``logits[:, t]`` is bit for bit what
-    ``decode_step`` gives after accepting ``tokens[:, :t+1]``.  The
-    attention projections run on all B * T rows at once (their bf16 GEMM
-    rows do not depend on the row count, which ``chip_smoke.py`` checks on
-    the card); the norms (the q/k norms too), the MLP (its down projection's long K sums in a
-    row-count-dependent order at DeepSeekMoE's d_ff 10944), the MoE
-    router and shared experts and the f32 LM head run per token
-    (``layers.per_token``).  The MoE expert GEMMs have the decode step's
+    ``decode_step`` gives after accepting ``tokens[:, :t+1]``, whatever
+    BLAS sums the products: every float stage that reduces along a row
+    runs one token at a time, at the decode step's B rows
+    (``layers.per_token``), since a GEMM or a mean may sum in an order
+    chosen by the row count (the card's bf16 GEMMs at a long K, the CPU's
+    f32 SGEMM at 1 and 2 rows against 8).  These are the norms (the q/k
+    norms too), the q, k, v and output projections, the MLP, the MoE
+    router and shared experts and the f32 LM head.  The MoE expert GEMMs have the decode step's
     shape while the capacity at T tokens stays at ``top_k`` (see
     ``moe``).  Where that capacity is below T, verify can drop assignments
     that decode keeps, as the reference does.  Every slot's length grows

@@ -883,3 +883,101 @@ def test_dense_decode_kernels_at_the_hybrid_head_dim(rng, cuda, window):
     assert torch.equal(comp, fused)
     assert torch.equal(paged, fused)
     assert not fused[0].any()
+
+
+TILE_CASES = [
+    # d, hq, hkv, s_max: TinyLlama's heads at 2048, Zamba2's D 80, the wide
+    # group-8 D 128 shape, and a cache no candidate divides
+    (64, 32, 4, 2048), (80, 32, 32, 512), (128, 64, 8, 2048),
+    (64, 32, 4, 290),
+]
+
+
+def _tile_keys(s_max):
+    from repro_torch.kernels import autotune
+    return [(bk, gp) for bk in autotune.candidate_block_ks(s_max)
+            for gp in autotune.CANDIDATE_G_PAD]
+
+
+@pytest.mark.parametrize("d,hq,hkv,s_max", TILE_CASES)
+@pytest.mark.parametrize("window", [None, 48])
+def test_dense_decode_tile_instances_equal_exact_plain(rng, cuda, d, hq, hkv,
+                                                       s_max, window):
+    """Every tile instance of kernels 4 and 6 that the sweep can pick is
+    bit for bit the ``exact=True`` plain version at that ``block_k``; a
+    candidate the sweep refuses (``tile_refusal``) is refused by the
+    launcher too, and a launched one is counted under its instance."""
+    lens = [0, 1, 33, s_max // 2 + 5, 250, s_max - 1, s_max, 97]
+    q, k, v, m_z, s_q, s_v, lens_t = _dense_case(rng, cuda, lens, hq, hkv,
+                                                 s_max, d)
+    q_q = qlib.quantize(q, s_q[:, None, None])
+    luts = _luts(cuda)
+    want = splitmax_decode.splitmax_decode_fused_plain(
+        q, k, v, m_z, s_q, s_v, lens_t, *luts, cfg=CFG, window=window,
+        exact=True)
+    for bk, gp in _tile_keys(s_max):
+        why = splitmax_decode.tile_refusal("decode", bk, gp, group=hq // hkv,
+                                           d=d, s_max=s_max, cfg=CFG)
+        kw = dict(cfg=CFG, window=window, block_k=bk, g_pad_min=gp)
+        if why is not None:
+            with pytest.raises(RuntimeError):
+                splitmax_decode.splitmax_decode_fused_cuda(
+                    q, k, v, m_z, s_q, s_v, lens_t, *luts, **kw)
+            continue
+        stage = splitmax_decode.tile_instance(bk, gp, s_max)[0]
+        before = dict(splitmax_decode.tile_launches)
+        got = splitmax_decode.splitmax_decode_fused_cuda(
+            q, k, v, m_z, s_q, s_v, lens_t, *luts, **kw)
+        comp = splitmax_decode.splitmax_decode_cuda(
+            q_q, k, v, m_z, s_v, lens_t, *luts, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (bk, gp)
+        assert torch.equal(comp, want), (bk, gp)
+        if stage:
+            key = ("decode", stage, 16)
+            assert (splitmax_decode.tile_launches[key]
+                    == before.get(key, 0) + 1)
+
+
+@pytest.mark.parametrize("d,hq,hkv,s_max", TILE_CASES)
+@pytest.mark.parametrize("gamma", [4, 8])
+def test_verify_tile_instances_equal_exact_plain(rng, cuda, d, hq, hkv,
+                                                 s_max, gamma):
+    """Every tile instance of kernel 7 (and kernel 3's g_pad_min 16
+    instance) is bit for bit the ``exact=True`` plain version, with and
+    without a window; refusals agree with the launcher."""
+    lens = [gamma, 33, s_max // 2 + 5, 250, s_max - 1, s_max, 97, gamma + 1]
+    q, k, v, m_z, s_q, s_v, lens_t = _dense_case(rng, cuda, lens, hq, hkv,
+                                                 s_max, d, gamma)
+    luts = _luts(cuda)
+    args = (q, k, v, m_z, s_q, s_v, lens_t, *luts)
+    if hq // hkv * gamma * d > splitmax_decode.VERIFY_MAX_ROWS_D:
+        pytest.skip("past the verify kernels' rows x D")
+    for window in (None, 48):
+        want = splitmax_decode.splitmax_decode_fused_verify_plain(
+            *args, cfg=CFG, window=window, exact=True)
+        for bk, gp in _tile_keys(s_max):
+            why = splitmax_decode.tile_refusal(
+                "verify", bk, gp, group=hq // hkv, d=d, s_max=s_max, cfg=CFG,
+                tokens=gamma)
+            kw = dict(cfg=CFG, window=window, block_k=bk, g_pad_min=gp)
+            if why is not None:
+                with pytest.raises((RuntimeError, ValueError)):
+                    splitmax_decode.splitmax_decode_fused_verify_cuda(
+                        *args, **kw)
+                continue
+            got = splitmax_decode.splitmax_decode_fused_verify_cuda(*args,
+                                                                    **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (bk, gp, window)
+    kp, vp, table, plens = _paged_case(rng, cuda, lens, hq, hkv, d, 32)
+    pargs = (q, kp, vp, table, m_z, s_q, s_v, plens, *luts)
+    before = splitmax_decode.tile_launches.get(("verify_paged", 0, 32), 0)
+    got = splitmax_decode.splitmax_decode_fused_verify_paged_cuda(
+        *pargs, cfg=CFG, g_pad_min=16)
+    want = splitmax_decode.splitmax_decode_fused_verify_paged_plain(
+        *pargs, cfg=CFG, exact=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert splitmax_decode.tile_launches[("verify_paged", 0, 32)] == \
+        before + 1
