@@ -1,0 +1,9 @@
+"""The device: the share of the traced span in which no kernel, copy or
+memset ran (``torch.profiler``)."""
+
+
+def read(ctx):
+    tr = ctx["trace"]
+    if tr is None or tr["window_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - tr["busy_s"] / tr["window_s"])

@@ -1,0 +1,134 @@
+"""The plain reference against the port's CPU path (the plain versions of
+its kernels) at small sizes of both cells, float32: every served token is
+the reference's best.  Then the check with the timed path broken
+underneath, and the control, each of which must come out not correct."""
+import pytest
+import torch
+
+import bench_tiny
+import cell
+import control
+import spec
+from bench_tiny import CELLS
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_reference_agrees_with_the_port(name):
+    bench, c, out = bench_tiny.run(name)
+    chk = out["check"]
+    assert chk["tokens"] >= 10
+    # float32 on both sides: only an int8 rounding edge that the two
+    # GEMMs' summation orders put on different sides flips a near tie
+    assert chk["max_logit_gap"] < 0.1
+    line = cell.result_line(bench, c, out, False, "cpu")
+    assert line["correct"] is True
+    assert list(line)[:5] == ["correct", "attempted", "failed", "metrics",
+                              "device"]
+    assert list(line)[-1] == "check"
+    assert set(line["metrics"]) == {
+        m["name"] for m in spec.metrics_for(bench, name, "end_to_end")}
+    assert out["counters"]["early_releases"] == 0
+
+
+class _Wrap:
+    def __init__(self, engine):
+        self.e = engine
+
+    def __getattr__(self, name):
+        return getattr(self.e, name)
+
+
+class AlteredToken(_Wrap):
+    """A decode's token altered where it is produced."""
+
+    def decode(self, tokens, cache):
+        lg, cache = self.e.decode(tokens, cache)
+        lg = lg.clone()
+        lg[:, 7] += 100.0
+        return lg, cache
+
+
+class AlteredFirstToken(_Wrap):
+    """An admission's token altered where it is produced."""
+
+    def admit(self, cache, slot, rid):
+        lg, cache = self.e.admit(cache, slot, rid)
+        lg = lg.clone()
+        lg[:, 11] += 100.0
+        return lg, cache
+
+
+class StateUnchanged(_Wrap):
+    """A decode step that returns its state (the int8 KV pool, the
+    lengths) unchanged."""
+
+    def decode(self, tokens, cache):
+        saved = {k: v.clone() for k, v in cache.items()}
+        lg, cache = self.e.decode(tokens, cache)
+        for k, v in saved.items():
+            cache[k].copy_(v)
+        return lg, cache
+
+
+class HalfTheBatch(_Wrap):
+    """A decode that computes the first half of its slots and gives the
+    rest the first half's rows."""
+
+    def decode(self, tokens, cache):
+        lg, cache = self.e.decode(tokens, cache)
+        h = lg.shape[0] // 2
+        lg = lg.clone()
+        lg[h:2 * h] = lg[:h]
+        return lg, cache
+
+
+@pytest.mark.parametrize("fault", [AlteredToken, AlteredFirstToken,
+                                   StateUnchanged, HalfTheBatch])
+@pytest.mark.parametrize("name", CELLS)
+def test_a_broken_path_is_not_correct(name, fault):
+    bench, c, out = bench_tiny.run(name, wrap=fault)
+    lim = out["limits"]
+    assert any(out["check"][k] > lim[k] for k in lim)
+    assert cell.result_line(bench, c, out, False, "cpu")["correct"] is False
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_the_control_reads_far_above_the_program(name):
+    """At this size the cell's limits, set at the cell's own size, do not
+    carry over; the control still reads at least three times the program
+    (which reads 0 here, float32 on both sides) on every compared number."""
+    got = {}
+
+    def extra(W, conf, prompts, served):
+        got.update(control.readings(W, conf, prompts, served))
+        return got
+
+    _, _, out = bench_tiny.run(name, extra=extra)
+    for k in out["limits"]:
+        assert got[k] > max(3 * out["check"][k], 0.05)
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_the_control_is_judged_not_correct(name):
+    """The control's readings through the run's own judge, under limits
+    this size reaches (the chat cell's own; the kept MoE configuration's
+    stand-in): the program is correct, the control is not."""
+    got = {}
+
+    def extra(W, conf, prompts, served):
+        got.update(control.readings(W, conf, prompts, served))
+        return got
+
+    _, _, out = bench_tiny.run(name, seed=2 ** 31 + 19, extra=extra)
+    assert cell.judge(out["check"], out["limits"])[0] is True
+    correct, read = cell.judge(got, out["limits"])
+    assert correct is False
+    assert all(read[k] == got[k] for k in out["limits"])
+
+
+def test_control_precisions():
+    w = torch.linspace(-1, 1, 64).reshape(2, 4, 8)
+    q4 = control.Int4Weights.weight(w)
+    assert len(torch.unique(q4[0])) <= 15
+    assert torch.allclose(control.Fp8.weight(w), w, rtol=0.07)
+    assert not torch.equal(control.Fp8.act(w), w)
