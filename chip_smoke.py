@@ -5272,6 +5272,7 @@ def main() -> int:
     import torch.nn.functional as F
     from repro_torch import resolve_device
     from repro_torch.kernels import cuda_build
+    from repro_torch import trace
 
     card = gpu_line()
     print(card)
@@ -5280,11 +5281,14 @@ def main() -> int:
     dev = resolve_device("cuda")
 
     t0 = time.perf_counter()
+    trace.enable()
     logs = cuda_build.build()
+    built = {s["attrs"]["source"]: (s["t1"] - s["t0"]) * 1e-9
+             for s in trace.drain()["spans"]}
+    trace.disable()
     print(f"[build] {sorted(cuda_build.KERNELS)} in "
           f"{time.perf_counter() - t0:.1f} s, in parallel; each source's nvcc "
-          + ", ".join(f"{n} {t:.1f} s" for n, t in
-                      sorted(cuda_build.BUILD_SECONDS.items())))
+          + ", ".join(f"{n} {t:.1f} s" for n, t in sorted(built.items())))
     for name, log in logs.items():
         entry, spills = "?", ""
         for line in log.splitlines():        # ptxas -v, one block per kernel

@@ -21,6 +21,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
+from repro_torch import trace
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 KERNELS = ("splitmax_attn", "splitmax_decode", "splitmax_verify",
@@ -33,8 +35,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
-# seconds each source's nvcc took in this process's builds
-BUILD_SECONDS: Dict[str, float] = {}
 
 
 def nvcc_path() -> str:
@@ -62,7 +62,9 @@ def library_path(name: str) -> Path:
 
 def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
     """Compile every named source that has no current library; returns each
-    compiled source's ``nvcc`` output (``-Xptxas -v`` register report)."""
+    compiled source's ``nvcc`` output (``-Xptxas -v`` register report).
+    Each compile is a ``build`` span (``repro_torch/trace.py``) of its own
+    ``nvcc``'s wall time."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
     for name in names:
@@ -79,7 +81,8 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
     while pending:                 # each source's own wall time
         for job in list(pending):
             if job[5].poll() is not None:
-                BUILD_SECONDS[job[0]] = time.perf_counter() - job[4]
+                trace.record("build", job[4], time.perf_counter(),
+                             source=job[0])
                 pending.remove(job)
         time.sleep(0.05)
     for name, out, tmp, log, _, proc in jobs:

@@ -4,7 +4,9 @@
 The allocator makes the same decisions in the same order as the
 reference's, and every step rewrites the pool tensors in place.  The first
 admitted request calibrates the pool's static per-layer scales; every later
-admission quantizes with them.
+admission quantizes with them.  Each admission is an ``engine.admit``
+span (``repro_torch/trace.py``) with its ``rid``, ``slot`` and
+``prompt_len``.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core import paged_kv
 from repro_torch.launch import steps as st
 from repro_torch.launch.engines import base
@@ -95,17 +98,20 @@ class PagedKVEngine(base.CacheEngine):
                                        self.block_k)
 
     def admit(self, cache, slot: int, rid: int):
-        row = self.pager.admit_row(slot, len(self.prompts[rid]) + 1)
-        if self.calib_rid is None:
-            self.calib_rid = rid
-        fn = self.calib_prefill if rid == self.calib_rid else \
-            self.slot_prefill
-        dev = self.device
-        tokens = torch.as_tensor(self.prompts[rid], dtype=torch.int64,
-                                 device=dev)[None]
-        return fn(self.params, tokens, cache,
-                  torch.tensor([slot], dtype=torch.int32, device=dev),
-                  torch.as_tensor(row[None], dtype=torch.int32, device=dev))
+        plen = len(self.prompts[rid])
+        with trace.span("engine.admit", rid=rid, slot=slot, prompt_len=plen):
+            row = self.pager.admit_row(slot, plen + 1)
+            if self.calib_rid is None:
+                self.calib_rid = rid
+            fn = self.calib_prefill if rid == self.calib_rid else \
+                self.slot_prefill
+            dev = self.device
+            tokens = torch.as_tensor(self.prompts[rid], dtype=torch.int64,
+                                     device=dev)[None]
+            return fn(self.params, tokens, cache,
+                      torch.tensor([slot], dtype=torch.int32, device=dev),
+                      torch.as_tensor(row[None], dtype=torch.int32,
+                                      device=dev))
 
     def short(self, slot: int, upto: int) -> int:
         return self.pager.short(slot, upto)

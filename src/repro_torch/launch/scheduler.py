@@ -21,6 +21,9 @@ Both loops record every degradation (preemption, resume, stall, park,
 deadline, NaN retirement, injected fault) in a
 :class:`repro_torch.launch.health.ServeHealth` and time every iteration
 through a :class:`repro_torch.dist.straggler.StragglerWatchdog`.
+:func:`run_schedule`'s iterations, first-token reads, decode calls and
+sampling reads are spans (``repro_torch/trace.py``), on the watchdog's own
+stamps where it takes them.
 
 Token selection (:func:`make_sampler`): greedy is argmax on the device,
 first maximum on ties, as in the reference, so greedy token streams are
@@ -38,6 +41,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core import paged_kv
 from repro_torch.dist import straggler as strag
 from repro_torch.launch import faults as faults_mod
@@ -300,6 +304,7 @@ def run_schedule(engine: engines_base.CacheEngine,
         t0 = time.perf_counter()
         while active or queue:
             ts_iter = time.perf_counter()
+            it = trace.span("sched.iteration", start=ts_iter, step=step)
             prefills0 = stats["slot_prefills"]
             preempts0 = health.counters["preemptions"]
             inj.on_step(step)
@@ -380,9 +385,10 @@ def run_schedule(engine: engines_base.CacheEngine,
                 else:
                     admit_step0[rid] = step
                     admit_t0[rid] = time.perf_counter()
-                    t1, ok1 = select(last1, [(rid, 0)])
-                    first, ok = torch.stack(
-                        [t1[0], ok1[0].to(t1.dtype)]).tolist()
+                    with trace.span("sched.first_token", rid=rid):
+                        t1, ok1 = select(last1, [(rid, 0)])
+                        first, ok = torch.stack(
+                            [t1[0], ok1[0].to(t1.dtype)]).tolist()
                     if not ok:
                         del active[slot]
                         failed[rid] = []
@@ -401,6 +407,7 @@ def run_schedule(engine: engines_base.CacheEngine,
             if not active:
                 # stalled (every slot preempted or waiting on the pool): no
                 # decode this step
+                it.end()
                 step += 1
                 if queue:
                     continue
@@ -408,16 +415,23 @@ def run_schedule(engine: engines_base.CacheEngine,
 
             # ---- decode one token per slot ------------------------------
             ts = time.perf_counter()
+            dec = (trace.span("engine.decode", start=ts,
+                              rids=[active[s] for s in sorted(active)])
+                   if trace.enabled() else trace.OFF)
             logits, cache = engine.decode(tokens, cache)
+            dec.end()
             logits = inj.corrupt_logits(step, logits)
             rows: List = [None] * slots
             for slot, rid in active.items():
                 rows[slot] = (rid, len(generated[rid]))
+            read = trace.span("sched.sample_read")
             toks, okv = select(logits, rows)
             # tokens and the finite guard in one host read
             tok_host, ok_host = torch.stack(
                 [toks, okv.to(toks.dtype)]).cpu().numpy()
-            stats["step_s"].append(time.perf_counter() - ts)
+            t_read = time.perf_counter()
+            read.end(t_read)
+            stats["step_s"].append(t_read - ts)
             stats["decode_steps"] += 1
             tokens = toks
 
@@ -454,10 +468,12 @@ def run_schedule(engine: engines_base.CacheEngine,
                     health.count("deadline_cancelled")
                     health.event("deadline", step, rid=rid, slot=slot,
                                  tokens=len(expired[rid]))
+            t_end = time.perf_counter()
             watchdog.observe(
-                step, time.perf_counter() - ts_iter,
+                step, t_end - ts_iter,
                 expect_slow=(stats["slot_prefills"] != prefills0
                              or health.counters["preemptions"] != preempts0))
+            it.end(t_end)
             step += 1
 
         engine.finalize(health, inj)

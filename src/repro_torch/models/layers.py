@@ -20,6 +20,7 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch import trace
 from repro_torch.dist.sharding import current_axis_rules, per_rank, shard
 
 Params = Dict[str, torch.Tensor]
@@ -46,13 +47,14 @@ def linear_weight(params: Params, dtype: Optional[torch.dtype] = None
     ``f32(w_q) * w_s`` rounded once to ``dtype`` (f32 when None), in one
     pass: the int8 payload and the f32 scale promote to f32, and the
     product is stored into a ``dtype`` tensor (3 bytes a parameter in
-    bf16)."""
+    bf16).  The dequant is a ``dequant`` span (``repro_torch/trace.py``)."""
     if "w_q" not in params:
         return params["w"]
     w_q = params["w_q"]
-    out = torch.empty(w_q.shape, dtype=dtype or torch.float32,
-                      device=w_q.device)
-    return torch.mul(w_q, params["w_s"], out=out)
+    with trace.span("dequant"):
+        out = torch.empty(w_q.shape, dtype=dtype or torch.float32,
+                          device=w_q.device)
+        return torch.mul(w_q, params["w_s"], out=out)
 
 
 def linear_apply(params: Params, x: torch.Tensor, *,

@@ -37,6 +37,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import trace
 from repro_torch.dist.sharding import kept_for_backward, per_rank, shard
 from repro_torch.models import layers as L
 from repro_torch.models import mlp as M
@@ -89,6 +90,17 @@ def route(params, x: torch.Tensor, cfg: ModelConfig):
     gate_vals = gate_vals / torch.clamp_min(
         torch.sum(gate_vals, dim=-1, keepdim=True), 1e-9)
     return logits, probs, gate_vals, gate_idx
+
+
+def _routing_margin(logits, probs, k: int) -> torch.Tensor:
+    """Each token's k-th largest router logit less its (k+1)-th, in the
+    order ``route`` ranks them (inf where there is no (k+1)-th)."""
+    if k >= logits.shape[-1]:
+        return torch.full(logits.shape[:-1], float("inf"),
+                          device=logits.device)
+    order = torch.sort(probs, dim=-1, descending=True, stable=True)[1]
+    pair = torch.gather(logits, -1, order[..., k - 1:k + 1])
+    return pair[..., 0] - pair[..., 1]
 
 
 def aux_losses(logits, probs, gate_idx, cfg: ModelConfig) -> Dict:
@@ -175,7 +187,11 @@ def moe_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
     """x (B, S, d) -> (out (B, S, d) in the compute dtype, aux), with aux
     ``{"aux_loss", "z_loss"}``; ``losses=False`` (the serve steps) leaves
     aux empty.  ``tokenwise`` runs the router and the shared experts one
-    token at a time (``layers.per_token``).  Groups are the B sequences."""
+    token at a time (``layers.per_token``).  Groups are the B sequences.
+    While the recorder (``repro_torch/trace.py``) is on, each call's top-k
+    expert ids and the margin of each token's k-th over its (k+1)-th router
+    logit (inf with no (k+1)-th) are kept, on their device, as its
+    routing."""
     mc = cfg.moe
     dt = cfg.compute_dtype
     b, s, d = x.shape
@@ -192,6 +208,8 @@ def moe_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
     logits, probs, gate_vals, gate_idx = rowwise(
         functools.partial(route, params, cfg=cfg))
     aux = aux_losses(logits, probs, gate_idx, cfg) if losses else {}
+    if trace.enabled():
+        trace.routing(gate_idx, _routing_margin(logits, probs, k))
 
     # ---- capacity-limited dispatch ----------------------------------------
     pos = queue_positions(gate_idx, e)                           # (B,S,K)

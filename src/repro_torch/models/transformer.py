@@ -40,7 +40,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, trace
 from repro_torch.core import attention as core_attn
 from repro_torch.core import paged_kv
 from repro_torch.core import quantization as qlib
@@ -404,13 +404,14 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     elif serve:
         positions = torch.arange(tokens.shape[1], device=x.device)
         kvs, states = [], []
-        for lp in params["layers"]:
-            if "ssm" in lp:
-                x, st = _mamba_block_serve(lp, x, cfg)
-                states.append(st)
-            else:
-                x, kv = _block_apply_serve(lp, x, cfg, positions)
-                kvs.append(kv)
+        for i, lp in enumerate(params["layers"]):
+            with trace.span("model.layer", i=i):
+                if "ssm" in lp:
+                    x, st = _mamba_block_serve(lp, x, cfg)
+                    states.append(st)
+                else:
+                    x, kv = _block_apply_serve(lp, x, cfg, positions)
+                    kvs.append(kv)
     else:
         for lp in params["layers"]:
             x, losses = _remat(_block_apply, lp, x, cfg)
@@ -514,26 +515,30 @@ def prefill_paged(params, tokens: torch.Tensor, cfg: ModelConfig,
     allocator; the prompt's K/V land in its leading ``ceil(S / block_k)``
     blocks.  ``calibrate=True`` (first admission only) sets the pool's
     static per-layer scales from this prompt's absmax; later admissions
-    quantize with the existing scales, like decode.
+    quantize with the existing scales, like decode.  The whole call is a
+    ``model.step`` span of kind ``prefill``, each block a ``model.layer``.
     """
-    b, s = tokens.shape
-    logits, aux = forward(params, tokens, cfg, serve=True)
-    kvs = aux["kv"]
-    block_k = cache["k_pages"].shape[3]
-    mb = cache["block_table"].shape[1]
-    if block_ids.shape[1] != mb:
-        raise ValueError(f"block_ids {tuple(block_ids.shape)} vs table width {mb}")
-    n_blk = paged_kv.blocks_per_seq(s, block_k)
-    if n_blk > mb:
-        raise ValueError(f"prompt of {s} tokens needs {n_blk} blocks > {mb}")
-    k_all = torch.stack([k for k, _ in kvs])        # (L, B, Hkv, S, hd)
-    v_all = torch.stack([v for _, v in kvs])
-    write_prompt_kv(cache, k_all, v_all, block_ids[:, :n_blk],
-                    calibrate=calibrate)
-    slots = slot_ids.long()
-    cache["block_table"][slots] = block_ids.to(torch.int32)
-    cache["length"][slots] = s
-    return logits[:, s - 1], cache
+    with trace.span("model.step", kind="prefill"):
+        b, s = tokens.shape
+        logits, aux = forward(params, tokens, cfg, serve=True)
+        kvs = aux["kv"]
+        block_k = cache["k_pages"].shape[3]
+        mb = cache["block_table"].shape[1]
+        if block_ids.shape[1] != mb:
+            raise ValueError(
+                f"block_ids {tuple(block_ids.shape)} vs table width {mb}")
+        n_blk = paged_kv.blocks_per_seq(s, block_k)
+        if n_blk > mb:
+            raise ValueError(
+                f"prompt of {s} tokens needs {n_blk} blocks > {mb}")
+        k_all = torch.stack([k for k, _ in kvs])    # (L, B, Hkv, S, hd)
+        v_all = torch.stack([v for _, v in kvs])
+        write_prompt_kv(cache, k_all, v_all, block_ids[:, :n_blk],
+                        calibrate=calibrate)
+        slots = slot_ids.long()
+        cache["block_table"][slots] = block_ids.to(torch.int32)
+        cache["length"][slots] = s
+        return logits[:, s - 1], cache
 
 
 def write_prompt_kv(pool: Dict[str, torch.Tensor], k_all: torch.Tensor,
@@ -580,26 +585,30 @@ def decode_step(params, token: torch.Tensor, cfg: ModelConfig,
     writes its own row (a ring with a window).  A Mamba layer steps its
     state in place; the hybrid's shared block runs before every
     ``hybrid_attn_every`` of them on the group's slice of the dense
-    cache."""
-    block = (A.attn_block_decode_paged if "k_pages" in cache
-             else A.attn_block_decode)
-    norm = L.NORM_APPLY[cfg.norm]
-    x = embed_tokens(params, token[:, None], cfg)       # (B, 1, d)
-    x0 = x
-    for i, lp in enumerate(params["layers"]):
-        if cfg.family == "hybrid" and i % cfg.hybrid_attn_every == 0:
-            group = _layer_cache(cache, i // cfg.hybrid_attn_every)
-            x, _ = _shared_attn(params["shared_attn"], x, x0, cfg,
-                                lambda p, h: (block(p, h, group, cfg), None))
-        if "ssm" in lp:
-            x = _mamba_decode(lp, x, cfg, cache, i)
-            continue
-        h = norm(lp["norm1"], x)
-        x = x + block(lp["attn"], h, _layer_cache(cache, i), cfg)
-        h = norm(lp["norm2"], x)
-        x = x + _ffn(lp, h, cfg)
-    cache["length"] += 1
-    return unembed(params, x, cfg)[:, 0], cache
+    cache.  The whole call is a ``model.step`` span of kind ``decode``,
+    each layer a ``model.layer``."""
+    with trace.span("model.step", kind="decode"):
+        block = (A.attn_block_decode_paged if "k_pages" in cache
+                 else A.attn_block_decode)
+        norm = L.NORM_APPLY[cfg.norm]
+        x = embed_tokens(params, token[:, None], cfg)       # (B, 1, d)
+        x0 = x
+        for i, lp in enumerate(params["layers"]):
+            with trace.span("model.layer", i=i):
+                if cfg.family == "hybrid" and i % cfg.hybrid_attn_every == 0:
+                    group = _layer_cache(cache, i // cfg.hybrid_attn_every)
+                    x, _ = _shared_attn(
+                        params["shared_attn"], x, x0, cfg,
+                        lambda p, h: (block(p, h, group, cfg), None))
+                if "ssm" in lp:
+                    x = _mamba_decode(lp, x, cfg, cache, i)
+                    continue
+                h = norm(lp["norm1"], x)
+                x = x + block(lp["attn"], h, _layer_cache(cache, i), cfg)
+                h = norm(lp["norm2"], x)
+                x = x + _ffn(lp, h, cfg)
+        cache["length"] += 1
+        return unembed(params, x, cfg)[:, 0], cache
 
 
 def verify_step(params, tokens: torch.Tensor, cfg: ModelConfig,

@@ -981,3 +981,40 @@ def test_verify_tile_instances_equal_exact_plain(rng, cuda, d, hq, hkv,
     assert torch.equal(got, want)
     assert splitmax_decode.tile_launches[("verify_paged", 0, 32)] == \
         before + 1
+
+
+def test_recorder_spans_lie_on_the_profiler_clock(cuda):
+    """The recorder's stamps, moved by its drain onto the clock of
+    ``torch.profiler``'s events, hold the launch (the CUDA runtime call
+    that shares the kernel's correlation id) of the one kernel run inside
+    a span, within 50 us."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import trace
+
+    x = torch.zeros(1 << 20, device=cuda)
+    x.add_(1)
+    torch.cuda.synchronize()
+    trace.disable()
+    trace.drain()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trace.enable()
+        try:
+            with trace.span("add"):
+                x.add_(1)
+            torch.cuda.synchronize()
+            out = trace.drain()
+        finally:
+            trace.disable()
+    span, = out["spans"]
+    dev = torch.autograd.DeviceType.CUDA
+    events = list(prof.profiler.kineto_results.events())
+    kernels = [e for e in events
+               if e.device_type() == dev and e.duration_ns() > 0]
+    calls = {e.correlation_id(): e for e in events
+             if e.device_type() != dev and e.correlation_id()}
+    assert len(kernels) == 1, [e.name() for e in kernels]
+    call = calls[kernels[0].correlation_id()]
+    slack = 50_000
+    assert span["t0"] - slack <= call.start_ns() <= span["t1"] + slack, (
+        span["t0"], call.start_ns(), span["t1"])

@@ -32,7 +32,7 @@ from repro.launch import steps as jsteps
 from repro.models import layers as JL
 from repro.models import moe as JMOE
 from repro.models import transformer as JT
-from repro_torch import bridge
+from repro_torch import bridge, trace
 from repro_torch.configs import ARCH_IDS
 from repro_torch.configs import get_arch as tget_arch
 from repro_torch.launch import serve as tserve
@@ -127,6 +127,57 @@ def test_moe_apply_matches_reference(models, s):
                                   tokenwise=tokenwise)
         assert aux == {}
         assert torch.equal(out, tout)
+
+
+def test_routing_record_equals_route_and_reference(models):
+    """With the recorder on, ``moe_apply`` keeps each call's top-k expert
+    ids and the margin of the k-th over the (k+1)-th router logit, tagged
+    with the ``model.layer`` span open: the ids equal ``route()``'s, and
+    the reference's on the bridged parameters (near-ties left out as
+    above); a tie goes to the lower expert in both packages.  A serve
+    forward tags one record a MoE layer with its index."""
+    jcfg, jparams, tcfg, tparams = models
+    mc = jcfg.moe
+    fd = mc.first_dense_layers
+    jlayer = jax.tree.map(lambda a: a[0], jparams["segments"][-1]["moe"])
+    tlayer = tparams["layers"][fd]["moe"]
+    x = np.random.default_rng(5).normal(size=(3, 16, jcfg.d_model)
+                                        ).astype(np.float32)
+    zero = dict(tlayer, router=jax.tree.map(torch.zeros_like,
+                                            tlayer["router"]))
+    jzero = dict(jlayer, router=jax.tree.map(jnp.zeros_like,
+                                             jlayer["router"]))
+    tokens = torch.from_numpy(np.random.default_rng(6).integers(
+        0, tcfg.vocab_size, (2, 12)))
+    trace.disable()
+    trace.drain()
+    trace.enable()
+    try:
+        with trace.span("model.layer", i=fd):
+            TMOE.moe_apply(tlayer, _t(x), tcfg, losses=False)
+            TMOE.moe_apply(zero, _t(x), tcfg, losses=False)
+        got, tied = trace.drain()["routes"]
+        TT.forward(tparams, tokens, tcfg, serve=True)
+        served = trace.drain()["routes"]
+    finally:
+        trace.disable()
+    assert got["layer"] == tied["layer"] == fd
+    assert torch.equal(got["idx"], TMOE.route(tlayer, _t(x), tcfg)[3])
+    _, jidx, _, jtop = _jax_routing(jlayer, x, jcfg)
+    ok = ~(jtop[..., -2] - jtop[..., -1] <= TIE)
+    np.testing.assert_array_equal(got["idx"].numpy()[ok], jidx[ok])
+    jlogits = np.asarray(JL.linear_apply(jlayer["router"], jnp.asarray(x)))
+    top = -np.sort(-jlogits, axis=-1)
+    margin = top[..., mc.top_k - 1] - top[..., mc.top_k]
+    np.testing.assert_allclose(got["margin"].numpy()[ok], margin[ok], rtol=0,
+                               atol=1e-5)
+    lower = np.broadcast_to(np.arange(mc.top_k), jidx.shape)
+    np.testing.assert_array_equal(tied["idx"].numpy(), lower)
+    np.testing.assert_array_equal(_jax_routing(jzero, x, jcfg)[1], lower)
+    assert torch.equal(tied["margin"], torch.zeros(x.shape[:2]))
+    assert [r["layer"] for r in served] == \
+        [i for i, lp in enumerate(tparams["layers"]) if "moe" in lp]
+    assert all(r["idx"].shape == (2, 12, mc.top_k) for r in served)
 
 
 def test_dropped_tokens_fall_through_the_residual(models):
