@@ -1555,6 +1555,73 @@ def int8_gemm_phase(torch, dev):
     return out
 
 
+# DeepSeek-67B's four (K, N) of a layer's seven int8 linears (q and o, k and
+# v, in and gate, out), each linear's count, and the decode step's rows
+W8_SHAPES = {(8192, 8192): 2, (8192, 1024): 2, (8192, 22016): 2,
+             (22016, 8192): 1}
+W8_ROWS = 16
+W8_SUBS = tuple(f"w8 {k}x{n}" for k, n in list(W8_SHAPES)[1:])
+
+
+def w8_linear_phase(torch, dev):
+    """Kernel 9, the int8-weight linear, at DeepSeek-67B's shapes and the
+    chat cell's 16 rows: bit for bit ``linear_weight``'s dequant on one-hot
+    rows and within cuBLAS's error on random ones, timed by graph replay
+    beside its bound (the int8 bytes at 3.35 TB/s) and the path it replaces
+    (``torch.mul`` into a bf16 weight, then ``x @ w``; the plain version's
+    function, which the port runs everywhere else).  Returns the (8192,
+    8192) entry with the other shapes under ``W8_SUBS``."""
+    from repro_torch.kernels import w8_linear as W8
+    from repro_torch.models import layers as L
+
+    gen = torch.Generator(device=dev).manual_seed(32)
+    entries = {}
+    for (k, n), count in W8_SHAPES.items():
+        w_q = torch.randint(-128, 128, (k, n), generator=gen, device=dev,
+                            dtype=torch.int8)
+        w_s = torch.rand((1, 1), generator=gen, device=dev) * 0.02
+        x = torch.randn((W8_ROWS, k), generator=gen, device=dev
+                        ).to(torch.bfloat16)
+        w = L.linear_weight({"w_q": w_q, "w_s": w_s}, torch.bfloat16)
+        ks = torch.randint(0, k, (W8_ROWS,), generator=gen, device=dev)
+        one_hot = torch.zeros_like(x)
+        one_hot[torch.arange(W8_ROWS, device=dev), ks] = 1
+        check(torch.equal(W8.w8_linear_cuda(one_hot, w_q, w_s), w[ks]),
+              f"w8_linear {k}x{n}: one-hot rows differ from the dequant")
+        exact = x.double() @ w.double()
+        got = W8.w8_linear_cuda(x, w_q, w_s)
+        err = float((got.double() - exact).abs().max())
+        lib_err = float(((x @ w).double() - exact).abs().max())
+        check(err <= 2 * lib_err, f"w8_linear {k}x{n}: error {err:.3g} over "
+              f"twice cuBLAS's {lib_err:.3g}")
+        key = f"w8 {k}x{n}"
+        GRAPHED[key] = lambda x=x, w_q=w_q, w_s=w_s: W8.w8_linear_cuda(
+            x, w_q, w_s)
+        GRAPHED[f"{key} dequant+gemm"] = lambda x=x, w_q=w_q, w_s=w_s: (
+            x @ L.linear_weight({"w_q": w_q, "w_s": w_s}, torch.bfloat16))
+        ms = time_ms(torch, GRAPHED[key], iters=20)
+        plain_ms = time_ms(torch, lambda: W8.w8_linear_plain(x, w_q, w_s),
+                           iters=5, warm=1)
+        bms, by = bound_ms(k * n, 0)
+        print(f"[w8-linear] {k}x{n} (x{count} a layer) at {W8_ROWS} rows: "
+              f"one-hot == dequant bit for bit, max error {err:.3g} (cuBLAS "
+              f"{lib_err:.3g}), kernel host-inclusive {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bms:.5f} ms ({by}); K split in "
+              f"{-(-k // W8.split_rows(k, n))}")
+        entries[key] = {"shape": [W8_ROWS, k, n], "per_layer": count,
+                        "max_abs_err": err, "exact_equal": False,
+                        "graph": key, "library_graph": f"{key} dequant+gemm",
+                        "host_ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                        "bound_by": by}
+    first = entries.pop(f"w8 {8192}x{8192}")
+    first.update({"name": "w8_linear", "route": "cuda",
+                  "source": "src/repro_torch/kernels/csrc/w8_linear.cu",
+                  "replaces": None,
+                  "path": "models/layers.py: linear_apply (w8_kernel_takes)"},
+                 **entries)
+    return first
+
+
 # ------------------------------------------------------ graph-replay times --
 
 def options_phase(torch, dev, kernels):
@@ -1657,7 +1724,7 @@ def graph_phase(torch, dev, kernels):
     for k in kernels:
         fill(k)
         for sub in ("reprefill", "int8_check", "moe", *DENSE_HEADS,
-                    "exact_recip"):
+                    "exact_recip", *W8_SUBS):
             if sub in k:
                 fill(k[sub])
     return floor
@@ -3233,6 +3300,7 @@ def dense_full_phase(torch, dev, arch: str, *, speculative: bool,
     with ``int8``, 5 (the composed churn)."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels import splitmax_attn, splitmax_decode as K
+    from repro_torch.kernels import w8_linear
     from repro_torch.launch import serve as srv
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
@@ -3290,10 +3358,11 @@ def dense_full_phase(torch, dev, arch: str, *, speculative: bool,
               f"dequantizes {w_bytes / 1e9:.1f} GB of int8 weights)"
               if int8 else f"[{tag}] {name}: the churn cut to {requests} "
               f"requests, gens in [{gen // 2}, {gen}]")
-    splitmax_attn.launches = K.launches = 0
+    splitmax_attn.launches = K.launches = w8_linear.launches = 0
     stats = srv.serve_paged(params, cfg, prompts, warmup=True, **kw)
     torch.cuda.synchronize()
     n_prefill, n_decode = splitmax_attn.launches, K.launches
+    n_w8 = w8_linear.launches
     check_served(stats, gens, cfg.vocab_size, f"{name} churn")
     # more requests than slots and unequal first gens: a slot retires while
     # the others decode, and the next request is admitted into it
@@ -3309,6 +3378,12 @@ def dense_full_phase(torch, dev, arch: str, *, speculative: bool,
     check(n_decode == (stats["decode_steps"] + n_warm[1]) * cfg.n_layers,
           f"{name} decode launches {n_decode} != ({stats['decode_steps']} "
           f"steps + {n_warm[1]} warm-up) x {cfg.n_layers} layers")
+    # kernel 9: seven linears a layer at each decode step's rows of int8
+    # weights in bf16 (the prompts' admissions take more than 64 rows)
+    w8_decode = 7 * (stats["decode_steps"] + n_warm[1]) * cfg.n_layers
+    on_w8 = int8 and cfg.compute_dtype == torch.bfloat16
+    check(n_w8 == w8_decode * on_w8, f"{name} w8_linear launches {n_w8} "
+          f"!= {w8_decode} decode-step linears (int8 in bf16: {on_w8})")
     print(f"[{tag}] {name} churn of {requests} requests, {SERVE['slots']} "
           f"slots, {SERVE['prompt_len']}-token prompts, gens to {gen}: "
           f"served {stats['served']}, "
@@ -3320,7 +3395,8 @@ def dense_full_phase(torch, dev, arch: str, *, speculative: bool,
           f"{stats['p50_step_ms']:.2f}/{stats['p99_step_ms']:.2f} ms, leaked "
           f"{stats['leaked_blocks']}, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, launches "
-          f"prefill {n_prefill} decode {n_decode} (warm-up included)")
+          f"prefill {n_prefill} decode {n_decode} w8_linear {n_w8} (warm-up "
+          f"included)")
     n_ver = 0
     if speculative:
         profile_serving(torch, srv, params, cfg, prompts[:SERVE["slots"]])
@@ -3362,7 +3438,7 @@ def dense_full_phase(torch, dev, arch: str, *, speculative: bool,
               f"decode {n_dec} verify {n_ver}")
     out = {"splitmax_attention": n_prefill,
            "splitmax_decode_fused_paged": n_decode,
-           "splitmax_decode_fused_verify_paged": n_ver}
+           "splitmax_decode_fused_verify_paged": n_ver, "w8_linear": n_w8}
     if int8:
         K.launches = K.composed_launches = 0
         comp = srv.serve_paged(params, cfg.replace(attn_fused=False), prompts,
@@ -5307,7 +5383,8 @@ def main() -> int:
                verify_phase(torch, F, dev),
                composed_phase(torch, dev, decode_args),
                *dense_decode_phase(torch, F, dev),
-               dense_verify_phase(torch, F, dev), int8_gemm_phase(torch, dev)]
+               dense_verify_phase(torch, F, dev), int8_gemm_phase(torch, dev),
+               w8_linear_phase(torch, dev)]
     options_phase(torch, dev, kernels)
     graph_phase(torch, dev, kernels)
     smoke_reference_phase(torch, dev)
@@ -5432,6 +5509,8 @@ def main() -> int:
     launches["int8_matmul"] = sum(cim["launches_by_path"].values())
     launches["int8_matmul pre-pass"] = sum(
         cim["pre_pass_launches_by_path"].values())
+    # kernel 9 on DeepSeek-67B's int8 churn: its decode steps' linears
+    launches["w8_linear"] = ds67b["w8_linear"]
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if k["name"] in examples:
@@ -5459,7 +5538,7 @@ def main() -> int:
     for name in ("splitmax_attention", "splitmax_decode_fused_paged",
                  "splitmax_decode_fused_verify_paged", "splitmax_decode_paged",
                  "splitmax_decode_fused", "splitmax_decode", "int8_matmul",
-                 "int8_matmul pre-pass"):
+                 "int8_matmul pre-pass", "w8_linear"):
         check(launches[name] > 0, f"{name} never launched on the main path")
     check(launches["splitmax_decode_fused_verify"] > 0,
           "the tile sweep never launched the dense verify")

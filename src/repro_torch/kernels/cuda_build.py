@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 KERNELS = ("splitmax_attn", "splitmax_decode", "splitmax_verify",
            "splitmax_verify_tiles", "splitmax_verify_tiles_pad",
-           "int8_matmul")
+           "int8_matmul", "w8_linear")
 
 # No --use_fast_math: quantize divides by the scale and rounds half to even,
 # and the requant multiply must round to nearest; fast math changes both.

@@ -44,12 +44,14 @@ def _linear(params, x: torch.Tensor, dt: torch.dtype, tokenwise: bool
             ) -> torch.Tensor:
     """``layers.linear_apply``; ``tokenwise`` (the verify step) runs it one
     token at a time, at the decode step's shape (``layers.per_token``), its
-    int8 weight dequantized once: a BLAS may sum a GEMM's rows in an order
-    chosen by the row count (the CPU's f32 SGEMM does at 1 and 2 rows
-    against 8)."""
+    int8 weight dequantized once unless the decode step reads it int8
+    (``layers.dequantized`` with the rows): a BLAS may sum a GEMM's rows in
+    an order chosen by the row count (the CPU's f32 SGEMM does at 1 and 2
+    rows against 8)."""
     if tokenwise:
         return L.per_token(functools.partial(
-            L.linear_apply, L.dequantized(params, dt), dtype=dt), x)
+            L.linear_apply, L.dequantized(params, dt, rows=x.shape[0]),
+            dtype=dt), x)
     return L.linear_apply(params, x, dtype=dt)
 
 

@@ -12,7 +12,11 @@ linear dequantizes at use, ``f32(w_q) * w_s`` rounded once to the compute
 dtype: the reference's ``w_q.astype(dtype) * w_s`` promotes to f32 because
 its scale is an f32 array (a product with the scale cast to bf16 first
 would change the bits).  The embedding scales its gathered
-rows and the tied head its logits.
+rows and the tied head its logits.  On the card a bf16 linear of a few
+rows takes the int8 weight to ``kernels/w8_linear.py`` instead
+(:func:`w8_kernel_takes`), which computes from the same bits without
+writing the dequantized weight; the speculative verify's token slices
+keep such a weight int8 too (:func:`dequantized` with ``rows``).
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import torch
 
 from repro_torch import trace
 from repro_torch.dist.sharding import current_axis_rules, per_rank, shard
+from repro_torch.kernels import w8_linear
 
 Params = Dict[str, torch.Tensor]
 
@@ -57,8 +62,41 @@ def linear_weight(params: Params, dtype: Optional[torch.dtype] = None
         return torch.mul(w_q, params["w_s"], out=out)
 
 
+# Rows (tokens) at or under which a bf16 linear over an int8 weight on the
+# card runs the w8_linear kernel, which reads the int8 payload once, in
+# place of the dequant pass and cuBLAS (PERF.md, the kernel's row sweep).
+W8_ROWS = 64
+
+
+def w8_rows_take(params: Params, rows: int, dtype: Optional[torch.dtype]
+                 ) -> bool:
+    """Whether :func:`linear_apply` runs ``kernels/w8_linear.py``'s kernel
+    on ``rows`` tokens through ``params``: an int8 weight on the card with
+    one f32 scale, a bf16 compute dtype, no mesh binding, 1 to ``W8_ROWS``
+    rows and a (K, N) the kernel takes."""
+    w_q = params.get("w_q")
+    if (w_q is None or dtype != torch.bfloat16 or not w_q.is_cuda
+            or current_axis_rules() is not None):
+        return False
+    w_s = params["w_s"]
+    return (tuple(w_s.shape) == (1, 1) and w_s.dtype == torch.float32
+            and 0 < rows <= W8_ROWS and w_q.dim() == 2
+            and w8_linear.takes(*w_q.shape))
+
+
+def w8_kernel_takes(params: Params, x: torch.Tensor,
+                    dtype: Optional[torch.dtype]) -> bool:
+    """:func:`w8_rows_take` for ``x (..., K)`` on the card.  It reads only
+    what the call can observe."""
+    w_q = params.get("w_q")
+    return (w_q is not None and x.is_cuda and x.shape[-1] == w_q.shape[0]
+            and w8_rows_take(params, x.numel() // w_q.shape[0], dtype))
+
+
 def linear_apply(params: Params, x: torch.Tensor, *,
                  dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    if w8_kernel_takes(params, x, dtype):
+        return w8_linear.launch(x.to(dtype), params["w_q"], params["w_s"])
     w = linear_weight(params, dtype)
     if dtype is not None:
         w = w.to(dtype)
@@ -83,20 +121,26 @@ def split_linear_apply(params: Params, x: torch.Tensor, sizes, *,
                  for part in torch.split(w, sizes, dim=-1))
 
 
-def dequantized(tree, dtype: Optional[torch.dtype] = None):
+def dequantized(tree, dtype: Optional[torch.dtype] = None,
+                rows: Optional[int] = None):
     """``tree`` with each int8 linear weight made float once
     (``{"w": linear_weight(p, dtype)}``) and each int8 table's payload cast
     to ``dtype`` (f32 if None; its scale kept), for a caller that applies
     them several times (``per_token``): the values every use would
-    compute."""
+    compute.  With ``rows``, an int8 weight that :func:`linear_apply` reads
+    through the w8_linear kernel at that many rows (:func:`w8_rows_take`)
+    stays int8: the decode step reads it so at its B rows, and the
+    verify's (B, 1) token slices then compute the decode step's bits."""
     if not isinstance(tree, dict):
         return tree
     if "w_q" in tree:
+        if rows is not None and w8_rows_take(tree, rows, dtype):
+            return tree
         return {"w": linear_weight(tree, dtype)}
     if "table_q" in tree:
         return {"table_q": tree["table_q"].to(dtype or torch.float32),
                 "table_s": tree["table_s"]}
-    return {k: dequantized(v, dtype) for k, v in tree.items()}
+    return {k: dequantized(v, dtype, rows) for k, v in tree.items()}
 
 
 def per_token(fn, x: torch.Tensor):

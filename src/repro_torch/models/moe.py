@@ -203,7 +203,7 @@ def moe_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
     if tokenwise:       # int8 weights dequantized once, not per token
         params = dict(params, router=L.dequantized(params["router"]))
         if mc.n_shared:
-            params["shared"] = L.dequantized(params["shared"], dt)
+            params["shared"] = L.dequantized(params["shared"], dt, rows=b)
 
     logits, probs, gate_vals, gate_idx = rowwise(
         functools.partial(route, params, cfg=cfg))

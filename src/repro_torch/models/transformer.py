@@ -254,7 +254,8 @@ def _ffn(lp, h: torch.Tensor, cfg: ModelConfig, *, tokenwise: bool = False
     experts, one token at a time (``layers.per_token``)."""
     if "mlp" in lp:
         if tokenwise:       # int8 weights dequantized once, not per token
-            mlp = L.dequantized(lp["mlp"], cfg.compute_dtype)
+            mlp = L.dequantized(lp["mlp"], cfg.compute_dtype,
+                                rows=h.shape[0])
             return L.per_token(functools.partial(M.mlp_apply, mlp, cfg=cfg),
                                h)
         return M.mlp_apply(lp["mlp"], h, cfg)
@@ -643,8 +644,9 @@ def verify_step(params, tokens: torch.Tensor, cfg: ModelConfig,
         x = x + _ffn(lp, h, cfg, tokenwise=True)
     cache["length"] += t
     # the head's int8 weights dequantized once, not per token
-    head = {k: L.dequantized(params[k], cfg.head_dtype) for k in
-            ("final_norm", "embed" if cfg.tie_embeddings else "lm_head")}
+    head = {k: L.dequantized(params[k], cfg.head_dtype, rows=x.shape[0])
+            for k in ("final_norm",
+                      "embed" if cfg.tie_embeddings else "lm_head")}
     return L.per_token(lambda y: unembed(head, y, cfg), x), cache
 
 

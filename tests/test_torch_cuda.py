@@ -1018,3 +1018,253 @@ def test_recorder_spans_lie_on_the_profiler_clock(cuda):
     slack = 50_000
     assert span["t0"] - slack <= call.start_ns() <= span["t1"] + slack, (
         span["t0"], call.start_ns(), span["t1"])
+
+
+# ---- the int8-weight linear (kernels/csrc/w8_linear.cu) -------------------
+# The four (K, N) of DeepSeek-67B's seven layer linears (q and o, k and v,
+# in and gate, out) and the rows the kernel's four instances take.
+W8_SHAPES = [(8192, 8192), (8192, 1024), (8192, 22016), (22016, 8192)]
+W8_ROWS = [1, 3, 8, 16, 33, 64]
+
+
+@pytest.fixture(scope="module")
+def w8_weights():
+    """One int8 weight and its f32 scale a shape, on the card (every byte
+    value, -128 included), with its ``linear_weight`` bf16 dequant."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    from repro_torch.models import layers as L
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    out = {}
+    for k, n in W8_SHAPES:
+        w_q = torch.randint(-128, 128, (k, n), generator=gen, device="cuda",
+                            dtype=torch.int8)
+        w_s = torch.rand((1, 1), generator=gen, device="cuda") * 0.02
+        out[(k, n)] = (w_q, w_s, L.linear_weight({"w_q": w_q, "w_s": w_s},
+                                                 torch.bfloat16))
+    return out
+
+
+def _w8_x(k, m, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("m", W8_ROWS)
+@pytest.mark.parametrize("kn", W8_SHAPES)
+def test_w8_linear_one_hot_rows_are_the_dequant_bits(cuda, w8_weights, kn, m):
+    """(a) Row r of x a single 1.0 at column k_r: the output row is row k_r
+    of ``linear_weight(params, bf16)`` bit for bit (one exact product, the
+    f32 sum of it and zeros, rounded to bf16: the dequant's own bits)."""
+    from repro_torch.kernels import w8_linear
+    w_q, w_s, w = w8_weights[kn]
+    ks = torch.randint(0, kn[0], (m,), device=cuda,
+                       generator=torch.Generator(device="cuda").manual_seed(m))
+    x = torch.zeros((m, kn[0]), device=cuda, dtype=torch.bfloat16)
+    x[torch.arange(m, device=cuda), ks] = 1
+    before = w8_linear.launches
+    assert torch.equal(w8_linear.w8_linear_cuda(x, w_q, w_s), w[ks])
+    assert w8_linear.launches == before + 1
+
+
+@pytest.mark.parametrize("m", W8_ROWS)
+@pytest.mark.parametrize("kn", W8_SHAPES)
+def test_w8_linear_error_within_twice_cublas(cuda, w8_weights, kn, m):
+    """(b) Against the f64 product of the same bf16 operands, the kernel's
+    largest error is at most twice cuBLAS's on the same inputs.  Both sum
+    the same exact bf16 products in f32 and round once to bf16; only the
+    order of the sums differs, so an order much worse than cuBLAS's (or a
+    wrong term) shows as a larger error."""
+    from repro_torch.kernels import w8_linear
+    w_q, w_s, w = w8_weights[kn]
+    x = _w8_x(kn[0], m, 100 + m)
+    exact = x.double() @ w.double()
+    err = (w8_linear.w8_linear_cuda(x, w_q, w_s).double() - exact).abs().max()
+    ref = ((x @ w).double() - exact).abs().max()
+    assert float(err) <= 2 * float(ref)
+
+
+@pytest.mark.parametrize("kn", W8_SHAPES)
+def test_w8_linear_rows_do_not_depend_on_the_batch(cuda, w8_weights, kn):
+    """(c) Each row at M 16 (and at M 64, another instance) equals that row
+    computed alone at M 1, bit for bit: the split of K and every sum's
+    order depend on (K, N) alone."""
+    from repro_torch.kernels import w8_linear
+    w_q, w_s, _ = w8_weights[kn]
+    x = _w8_x(kn[0], 64, 7)
+    y16 = w8_linear.w8_linear_cuda(x[:16].contiguous(), w_q, w_s)
+    y64 = w8_linear.w8_linear_cuda(x, w_q, w_s)
+    for r in range(16):
+        alone = w8_linear.w8_linear_cuda(x[r:r + 1].contiguous(), w_q, w_s)
+        assert torch.equal(alone[0], y16[r]) and torch.equal(alone[0], y64[r])
+
+
+@pytest.mark.parametrize("kn", W8_SHAPES)
+def test_w8_linear_is_deterministic(cuda, w8_weights, kn):
+    """(d) Two calls give the same bits (no atomics)."""
+    from repro_torch.kernels import w8_linear
+    w_q, w_s, _ = w8_weights[kn]
+    for m in (16, 64):
+        x = _w8_x(kn[0], m, 11)
+        assert torch.equal(w8_linear.w8_linear_cuda(x, w_q, w_s),
+                           w8_linear.w8_linear_cuda(x, w_q, w_s))
+
+
+def test_w8_linear_raises_on_bad_input(cuda):
+    """(e) A wrong dtype, device, scale shape or a non-contiguous input
+    raises before anything launches."""
+    from repro_torch.kernels import w8_linear
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    w_q = torch.randint(-128, 128, (64, 32), generator=gen, device=cuda,
+                        dtype=torch.int8)
+    w_s = torch.full((1, 1), 0.01, device=cuda)
+    x = torch.randn((4, 64), generator=gen, device=cuda).to(torch.bfloat16)
+    bad = [(x.float(), w_q, w_s), (x, w_q.to(torch.int16), w_s),
+           (x, w_q, w_s.double()), (x.cpu(), w_q, w_s), (x, w_q.cpu(), w_s),
+           (x, w_q, w_s.cpu()), (x, w_q, w_s.reshape(1)),
+           (x, w_q, torch.full((2, 1), 0.01, device=cuda)),
+           (torch.randn((64, 4), device=cuda).to(torch.bfloat16).T, w_q, w_s),
+           (x, torch.randint(-128, 128, (32, 64), device=cuda,
+                             dtype=torch.int8).T, w_s),
+           (x[:, :48].contiguous(), w_q, w_s),
+           (torch.zeros((65, 64), device=cuda, dtype=torch.bfloat16), w_q,
+            w_s)]
+    before = w8_linear.launches
+    for args in bad:
+        with pytest.raises(ValueError):
+            w8_linear.w8_linear_cuda(*args)
+    assert w8_linear.launches == before
+
+
+@pytest.fixture(scope="module")
+def ds67b_int8():
+    """DeepSeek-67B at full width, two layers, int8 serve weights in bf16
+    (the f32 head and its int8 weight as served), on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+    cfg = get_arch("deepseek_67b").config.replace(n_layers=2,
+                                                  serve_param_dtype="int8")
+    return cfg, T.init_params(cfg, seed=0, device="cuda", serving=True)
+
+
+def _ds67b_prefilled(cfg, params, b, plen, max_len, seed):
+    """A paged cache of ``b`` slots, each prefilled with its own
+    ``plen``-token prompt (the old path: more than 64 rows), and the
+    prompts."""
+    from repro_torch.models import transformer as T
+    dev = params["lm_head"]["w_q"].device
+    cache = T.make_paged_cache(cfg, b, max_len, block_k=32, device=dev)
+    bps = cache["block_table"].shape[1]
+    rows = torch.arange(1, 1 + b * bps, dtype=torch.int32,
+                        device=dev).reshape(b, bps)
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (b, plen), generator=gen,
+                           dtype=torch.int32).to(dev)
+    for slot in range(b):
+        T.prefill_paged(params, tokens[slot:slot + 1], cfg, cache,
+                        torch.tensor([slot], dtype=torch.int32, device=dev),
+                        rows[slot:slot + 1], calibrate=slot == 0)
+    return cache, tokens
+
+
+def test_w8_linear_serves_deepseek_67b_tokens_of_the_old_path(
+        cuda, ds67b_int8, monkeypatch):
+    """(f) DeepSeek-67B at full width, two layers, int8 weights in bf16.
+    Served (80-token prompts, whose admissions keep the old path), the
+    kernel runs seven times a layer a decode step.  Then sixteen decode
+    steps of eight slots from one prefilled cache, three ways, each fed
+    the greedy tokens of the third: through the kernel; through the
+    dequant and cuBLAS (the old path, ``W8_ROWS`` 0); and the exact step,
+    whose every bf16 linear is the f64 product of the same bf16 operands
+    rounded once to bf16.  As in (b), the kernel's logits lie no further
+    from the exact step's than twice the old path's do.  Both paths sum
+    the same exact products in f32 in other orders, so a rounding of a
+    linear's output may flip by one bf16 step either way, and the flips
+    run on through the int8 cache and the layers; only an order much
+    worse than cuBLAS's, or a wrong term, gives a larger error.  The error
+    is the root mean square over the run's logits, which follows every
+    slot's hidden state (a row's largest logit error follows one slot's
+    flips alone).  Greedy tokens of the two paths can then differ only
+    at near ties of the exact step; the count is printed."""
+    from repro_torch.kernels import w8_linear
+    from repro_torch.launch import serve as srv
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    cfg, params = ds67b_int8
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, 80, dtype=np.int32)
+               for _ in range(6)]
+    w8_linear.launches = 0
+    served = srv.serve_paged(params, cfg, prompts, slots=4, gen=8,
+                             gens=[int(g) for g in rng.integers(4, 9, 6)],
+                             block_k=32)
+    assert w8_linear.launches == served["decode_steps"] * cfg.n_layers * 7
+    assert served["served"] == 6 and served["decode_steps"] > 0
+
+    linear_apply = L.linear_apply
+
+    def exact_linear(p, x, *, dtype=None):
+        if "w_q" not in p or dtype != torch.bfloat16:
+            return linear_apply(p, x, dtype=dtype)
+        w = L.linear_weight(p, dtype).double()
+        return (x.to(dtype).double() @ w).to(dtype)
+
+    b, steps = 8, 16
+    with torch.no_grad():
+        exact, tokens = _ds67b_prefilled(cfg, params, b, 80, 80 + steps, 3)
+        kernel = {k: v.clone() for k, v in exact.items()}
+        old = {k: v.clone() for k, v in exact.items()}
+        tok = tokens[:, -1].contiguous()
+        sq_kernel = sq_old = 0.0
+        same = 0
+        for _ in range(steps):
+            before = w8_linear.launches
+            got, kernel = T.decode_step(params, tok, cfg, kernel)
+            assert w8_linear.launches == before + 7 * cfg.n_layers
+            with monkeypatch.context() as m:
+                m.setattr(L, "W8_ROWS", 0)
+                lib, old = T.decode_step(params, tok, cfg, old)
+                m.setattr(L, "linear_apply", exact_linear)
+                want, exact = T.decode_step(params, tok, cfg, exact)
+            assert w8_linear.launches == before + 7 * cfg.n_layers
+            sq_kernel += float(((got - want).double() ** 2).sum())
+            sq_old += float(((lib - want).double() ** 2).sum())
+            same += int((got.argmax(-1) == lib.argmax(-1)).sum())
+            tok = want.argmax(-1).to(torch.int32)
+    n = steps * b * want.shape[-1]
+    rms_kernel, rms_old = (sq_kernel / n) ** 0.5, (sq_old / n) ** 0.5
+    print(f"w8_linear (f): logits' rms error against the exact step "
+          f"{rms_kernel:.4g} (cuBLAS {rms_old:.4g}); greedy tokens of the "
+          f"two paths equal in {same} of {steps * b} decisions")
+    assert 0 < rms_old and rms_kernel <= 2 * rms_old
+
+
+def test_w8_linear_verify_logits_equal_the_decode_steps(cuda, ds67b_int8):
+    """The speculative verify of int8 weights in bf16 keeps the weights
+    that the decode step reads through the kernel int8
+    (``layers.dequantized`` with the rows), and runs each token's (B, 1)
+    slice through the kernel at the decode step's B rows: its logits for T
+    tokens equal T ``decode_step`` calls' bit for bit, so speculative
+    tokens equal plain ones."""
+    from repro_torch.kernels import w8_linear
+    from repro_torch.models import transformer as T
+
+    cfg, params = ds67b_int8
+    b, t = 4, 4
+    with torch.no_grad():
+        cache, _ = _ds67b_prefilled(cfg, params, b, 16, 16 + t, 7)
+        gen = torch.Generator(device="cpu").manual_seed(8)
+        tokens = torch.randint(0, cfg.vocab_size, (b, t), generator=gen,
+                               dtype=torch.int32).to(cuda)
+        seq = {k: v.clone() for k, v in cache.items()}
+        before = w8_linear.launches
+        logits, _ = T.verify_step(params, tokens, cfg, cache)
+        assert w8_linear.launches == before + t * 7 * cfg.n_layers
+        for i in range(t):
+            step, seq = T.decode_step(params, tokens[:, i].contiguous(), cfg,
+                                      seq)
+            assert torch.equal(logits[:, i], step)
+        assert w8_linear.launches == before + 2 * t * 7 * cfg.n_layers
