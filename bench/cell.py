@@ -10,7 +10,11 @@ engine through :class:`spans.SpanEngine` and closes after ``seconds``.
 Then ``correct``: a sample of the requests finished in the window, drawn
 from the seed with the longest in it, is run through the plain reference
 once the program's state is freed, and every served token's reference
-logit is held against the reference's best at that position.
+logit is held against the reference's best at that position.  For a
+configuration with routed experts (its adapter's ``routed``), the
+program's routing is recorded through the window (``spans.py``), the
+reference follows it at every position, and the routing is held against
+the reference's own router by itself (``max_layer_route_gap``).
 """
 from __future__ import annotations
 
@@ -25,7 +29,6 @@ import devtrace
 import measure
 import spans
 import spec
-import system
 import traffic
 import weights
 
@@ -51,39 +54,66 @@ def check_sample(sp, mix: Dict, seed: int) -> List[int]:
     return pick
 
 
-def reference_gaps(W: Dict, conf: Dict, prompts, served: Dict[int, List[int]],
-                   low=None) -> Dict:
-    """Each served token's gap below the reference's best logit at its
-    position: the widest and the mean over the tokens judged.  With
-    ``low`` (the control), the gap of the token that the reference at
-    ``low``'s precision puts first at each position instead."""
-    ref = spec.reference_module(conf["reference"])
+def sequences(prompts, served: Dict[int, List[int]]):
+    """What the reference reads for the requests ``served``: each one's
+    prompt and served tokens but its last, judged at every served token's
+    position, and request 0's prompt after them, judged nowhere, where it
+    is not served (it set the pool's scales).  Returns (the request of
+    each sequence, the sequences, their prompt lengths, the calibrating
+    sequence's index, the positions judged)."""
     rids = list(served)
-    calib = rids.index(0) if 0 in rids else len(rids)
     seqs, plens, at = [], [], []
     for r in rids:
         p = prompts[r]
         seqs.append(np.concatenate([p, np.asarray(served[r][:-1], np.int64)]))
         plens.append(len(p))
         at.append(range(len(p) - 1, len(p) - 1 + len(served[r])))
-    if calib == len(rids):
+    if 0 not in rids:
+        rids.append(0)
         seqs.append(prompts[0])
         plens.append(len(prompts[0]))
         at.append([])
-    logits = ref.logits_at(W, conf, seqs, plens, calib, at)
+    return rids, seqs, plens, rids.index(0), at
+
+
+def reference_gaps(W: Dict, conf: Dict, prompts, served: Dict[int, List[int]],
+                   routes: Optional[Dict] = None, low=None) -> Dict:
+    """Each served token's gap below the reference's best logit at its
+    position: the widest and the mean over the tokens judged.  With
+    ``routes`` (``SpanEngine.routes_of``, request 0's among them), the
+    reference follows the program's routing, and ``max_layer_route_gap``
+    is the largest over MoE layers of the mean amount, over every position,
+    by which that routing departs from the reference's own, so that a
+    router that errs in one layer shows.  With ``low``
+    (the control), the reference at ``low``'s precision routes by itself
+    and puts a token first at each position; the f32 reference follows
+    that routing, and the gaps are those of that routing and those
+    tokens."""
+    ref = spec.reference_module(conf["reference"])
+    keys, seqs, plens, calib, at = sequences(prompts, served)
+    follow = None
+    if routes is not None:
+        follow = [{layer: ids[:len(s)] for layer, ids in routes[r].items()}
+                  for r, s in zip(keys, seqs)]
     picks = None
     if low is not None:
-        picks = [o.argmax(-1) for o in
-                 ref.logits_at(W, conf, seqs, plens, calib, at, low=low)]
+        lo = ref.logits_at(W, conf, seqs, plens, calib, at, low=low)
+        picks = [o.argmax(-1) for o in lo["logits"]]
+        follow = lo["routes"] if any(lo["routes"]) else None
+        del lo
+    out = ref.logits_at(W, conf, seqs, plens, calib, at, routes=follow)
     gaps = []
-    for i, r in enumerate(rids):
-        lg = logits[i]
+    for i, r in enumerate(served):
+        lg = out["logits"][i]
         tok = (picks[i] if picks is not None else
                torch.as_tensor(served[r], device=lg.device))
         gaps.append(lg.max(-1).values - lg.gather(1, tok[:, None])[:, 0])
     g = torch.cat(gaps)
-    return {"max_logit_gap": float(g.max()), "mean_logit_gap": float(g.mean()),
-            "tokens": int(g.numel()), "flips": int((g > 0).sum())}
+    res = {"max_logit_gap": float(g.max()), "mean_logit_gap": float(g.mean()),
+           "tokens": int(g.numel()), "flips": int((g > 0).sum())}
+    if follow is not None:
+        res["max_layer_route_gap"] = max(out["route_gap_layers"])
+    return res
 
 
 def run_cell(bench: Dict, cell: Dict, seed: int, seconds: float, trace: bool,
@@ -91,22 +121,23 @@ def run_cell(bench: Dict, cell: Dict, seed: int, seconds: float, trace: bool,
              conf: Optional[Dict] = None, mix: Optional[Dict] = None,
              wrap: Optional[Callable] = None,
              extra: Optional[Callable] = None,
-             probe: Optional[Callable] = None,
-             limits: Optional[Dict] = None) -> Dict:
-    """``conf``, ``mix`` and ``limits`` replace the cell's files (the
-    tests' small sizes); ``wrap`` wraps the engine (the tests' planted faults);
-    ``extra(W, conf, prompts, served)`` runs after the check (the
+             probe: Optional[Callable] = None) -> Dict:
+    """``conf`` and ``mix`` replace the cell's files (the tests' small
+    sizes); ``wrap`` wraps the engine (the tests' planted faults);
+    ``extra(W, conf, prompts, served, routes)`` runs after the check (the
     control's readings); ``probe()`` reads the card as the window closes."""
     clock = time.perf_counter
     conf = conf or spec.load_config(bench, cell["config"])
     mix = mix or spec.load_traffic(cell["traffic"])
-    limits = limits or spec.load_limits(cell["name"])
+    limits = spec.load_limits(cell["name"])
     dev = torch.device(device)
     if dev.type == "cuda":
         from repro_torch.kernels import cuda_build
         cuda_build.build(KERNELS)
     prompts, gens = traffic.make_requests(mix, seed, conf["config"]["vocab_size"])
     W = weights.make_weights(conf, seed, dev)
+    system = spec.system_module(conf["system"])
+    routed = system.routed(conf)
     engine = system.make_engine(conf, W, prompts, slots=mix["clients"],
                                 max_len=traffic.max_len(mix))
     if wrap is not None:
@@ -115,13 +146,16 @@ def run_cell(bench: Dict, cell: Dict, seed: int, seconds: float, trace: bool,
     if trace:
         devtrace.warm()
         tracer = devtrace.Tracer(seconds, clock)
-    sp = spans.SpanEngine(engine, gens, seconds, clock=clock, on_decode=tracer)
+    sp = spans.SpanEngine(engine, gens, seconds, clock=clock, on_decode=tracer,
+                          routes=routed)
     from repro_torch.launch.scheduler import run_schedule
     try:
         run_schedule(sp, prompts, gens=gens, warmup=True)
         raise spans.TrafficDrained("the schedule ended inside the window")
     except spans.WindowClosed:
         pass
+    finally:
+        sp.stop_routes()
     if dev.type == "cuda":
         torch.cuda.synchronize()
     at_close = probe() if probe is not None else None
@@ -133,20 +167,23 @@ def run_cell(bench: Dict, cell: Dict, seed: int, seconds: float, trace: bool,
     ctx = measure.context(sp, conf, plens, mix["clients"], tr)
     sample = check_sample(sp, mix, seed)
     served = sp.served_tokens(sample)
+    routes = sp.routes_of(sample + [0]) if routed and served else None
     counters = {"early_releases": sp.early_releases,
                 "admission_stalls": sp.admission_stalls,
                 "finished": len(sp.finished), "checked_requests": len(sample),
                 "card_at_close": at_close,
+                "route_bytes": sum(t.nbytes for t in [
+                    *sp.admit_routes.values(), *sp.decode_routes]),
                 **{k: e2e[k] for k in ("tokens", "itl_gaps", "ttft_requests")}}
     del engine, sp, tracer
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     t_check = clock()
-    chk = reference_gaps(W, conf, prompts, served) if served else None
+    chk = reference_gaps(W, conf, prompts, served, routes) if served else None
     counters["check_s"] = clock() - t_check
     if extra is not None and served:
-        counters["extra"] = extra(W, conf, prompts, served)
+        counters["extra"] = extra(W, conf, prompts, served, routes)
     return {"setup_s": setup_s, "e2e": e2e, "ctx": ctx, "trace": tr,
             "peak": peak, "check": chk, "limits": limits,
             "counters": counters}

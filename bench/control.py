@@ -1,21 +1,24 @@
-"""The control of ``correct``, and the readings its limits are set from:
+"""The controls of ``correct``, and the readings its limits are set from:
 for each seed, one run of the cell (its own traffic, sizes and window),
-the program's numbers (those a run compares) and the control's: the plain
-reference put in the program's place at the precision below the
+the program's numbers (those a run compares) and each control's: the
+plain reference put in the program's place at a precision below the
 configuration's, each position's gap read for the token that the lower
-precision puts first.
+precision puts first.  With routed experts the lower precision also
+routes by itself, and the f32 reference follows its routing, as it
+follows the program's (``cell.reference_gaps``).
 
 * int8 serve weights -> int4 weights (symmetric, one absmax scale a
   matrix, each expert's own in a stack);
 * bf16 -> fp8 (e4m3) weights (one scale a matrix) and fp8 inputs to every
-  matrix product (one scale a row): an fp8 serving path.
+  matrix product (one scale a row): an fp8 serving path; and int8
+  weights (symmetric, one absmax scale a matrix, each expert's own).
 
     python3 bench/control.py --workload <cell> --seeds 11,12,13 --control 3
 
-One JSON line a seed; the control is read on the first ``--control``
+One JSON line a seed; the controls are read on the first ``--control``
 seeds, the program on all.  Each reading goes through the cell's limits
 by the run's own judge (:func:`cell.judge`), and the line gives the
-``correct`` it comes to: true for the program, false for the control.
+``correct`` it comes to: true for the program, false for each control.
 The benchmark's own runs never run this.
 """
 from __future__ import annotations
@@ -41,14 +44,18 @@ def _matrix_dims(w: torch.Tensor):
     return (w.dim() - 2, w.dim() - 1) if w.dim() >= 2 else (w.dim() - 1,)
 
 
-class Int4Weights:
-    name = "int4 weights"
+class IntWeights:
+    """Symmetric integer weights of ``qmax`` levels a side, one absmax
+    scale a matrix; the matrix products' inputs as they are."""
 
-    @staticmethod
-    def weight(w: torch.Tensor) -> torch.Tensor:
+    def __init__(self, bits: int):
+        self.name = f"int{bits} weights"
+        self.qmax = 2 ** (bits - 1) - 1
+
+    def weight(self, w: torch.Tensor) -> torch.Tensor:
         s = torch.clamp_min(w.abs().amax(dim=_matrix_dims(w), keepdim=True),
-                            1e-8) / 7
-        return torch.clamp(torch.round(w / s), -7, 7) * s
+                            1e-8) / self.qmax
+        return torch.clamp(torch.round(w / s), -self.qmax, self.qmax) * s
 
     @staticmethod
     def act(x: torch.Tensor) -> torch.Tensor:
@@ -72,14 +79,18 @@ class Fp8:
         return _fp8(x, (-1,))
 
 
-def control_for(conf):
-    return Int4Weights if conf["serve"]["serve_param_dtype"] == "int8" else Fp8
+def controls_for(conf):
+    if conf["serve"]["serve_param_dtype"] == "int8":
+        return [IntWeights(4)]
+    return [Fp8, IntWeights(8)]
 
 
-def readings(W, conf, prompts, served):
-    low = control_for(conf)
-    return {"control": low.name,
-            **cell.reference_gaps(W, conf, prompts, served, low=low)}
+def readings(W, conf, prompts, served, routes=None):
+    """Each control's numbers (``routes``, the program's, go unused: a
+    control routes by itself)."""
+    return [{"control": low.name,
+             **cell.reference_gaps(W, conf, prompts, served, low=low)}
+            for low in controls_for(conf)]
 
 
 def main(argv=None) -> int:
@@ -101,8 +112,8 @@ def main(argv=None) -> int:
         print(json.dumps({"seed": seed, "program": out["check"],
                           "program_correct": cell.judge(out["check"], lim)[0],
                           "control": ctl,
-                          "control_correct": (cell.judge(ctl, lim)[0]
-                                              if ctl else None),
+                          "control_correct": ([cell.judge(x, lim)[0]
+                                               for x in ctl] if ctl else None),
                           "tok_s": out["e2e"]["tok_s"],
                           "wall_s": time.perf_counter() - t0}), flush=True)
         torch.cuda.empty_cache()

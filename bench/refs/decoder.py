@@ -1,9 +1,11 @@
 """Plain reference of a served decoder (dense SwiGLU or DeepSeekMoE), in
 float32 PyTorch, for the benchmark's ``correct``.  It imports nothing of
 the system under test and takes nothing the system made: it reads the
-benchmark's weights (``weights.py``) and the tokens that were served, and
-works everything the system derived again (the int8 KV pool's scales, the
-LUTs, each attention's scales).
+benchmark's weights (``weights.py``), the tokens that were served and,
+for a model with routed experts, the expert ids that the program's router
+chose at every position fed to it, and it checks both.  Everything the
+system derived it works out again (the int8 KV pool's scales, the LUTs,
+each attention's scales, the gates and the capacity drops).
 
 What it computes is the configuration as stated in its file: a
 Llama-style decoder (RMSNorm eps 1e-6, rotary positions over the two
@@ -12,6 +14,17 @@ experts (an f32 softmax router, the top-k gates renormalised, a
 sequence's prompt dropping the assignments past ``int(S * k * cf / E)``
 in token-major then k order, the shared experts beside), served through
 CIMple's int8 attention:
+
+* with ``routes``, each MoE layer takes the program's expert ids in place
+  of its own top-k: the gates are its own f32 softmax probabilities at
+  those ids (renormalised where the file says), the prompt's drops follow
+  from those ids by the same rule, and the routing is checked by itself:
+  a position's route gap is the amount by which the reference's k-th
+  largest router logit lies above its router logit of an expert the
+  program chose (0 where the program chose the reference's own top-k),
+  read by a router that reads the reference's own hidden state, which
+  follows the program's routing upstream, and averaged over the positions
+  of each MoE layer;
 
 * a prompt position attends through the prefill datapath: q, k and v of
   the prompt int8 with one absmax scale each over all heads and
@@ -33,7 +46,7 @@ float64).  Logits come back only at the positions asked for.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -174,15 +187,24 @@ def swiglu(x, w_in, w_gate, w_out, low=None):
 
 
 def moe(h_all: List[torch.Tensor], prompt_lens: Sequence[int], m: Dict,
-        c: Dict, serve: Dict, low=None) -> List[torch.Tensor]:
+        c: Dict, serve: Dict, low=None, follow=None):
     """The MoE layer over every sequence at once; capacity per sequence's
-    prompt."""
+    prompt.  ``follow`` (every sequence's rows, ``(sum S, k)``) replaces
+    the top-k.  Returns the outputs, the ids taken and, with ``follow``,
+    each row's route gap (zeros without)."""
     e_n, k = c["n_routed_experts"], c["num_experts_per_tok"]
     router = dense(m["router"], low)
     xs = torch.cat(h_all)
-    probs = torch.softmax(mm(xs, router, low), dim=-1)
-    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gates, idx = vals[:, :k], idx[:, :k]
+    logits = mm(xs, router, low)
+    probs = torch.softmax(logits, dim=-1)
+    if follow is None:
+        idx = torch.sort(probs, dim=-1, descending=True, stable=True)[1][:, :k]
+        gap = torch.zeros(xs.shape[0], device=xs.device)
+    else:
+        idx = follow
+        kth = torch.topk(logits, k, dim=-1).values[:, -1]
+        gap = kth - logits.gather(1, idx).amin(-1)
+    gates = probs.gather(1, idx)
     if serve["moe_renormalize_top_k"]:
         gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
     keep = torch.ones_like(gates, dtype=torch.bool)
@@ -208,19 +230,27 @@ def moe(h_all: List[torch.Tensor], prompt_lens: Sequence[int], m: Dict,
         sh = m["shared"]
         out = out + swiglu(xs, *(dense(sh[n], low)
                                  for n in ("w_in", "w_gate", "w_out")), low)
-    return list(torch.split(out, [h.shape[0] for h in h_all]))
+    return list(torch.split(out, [h.shape[0] for h in h_all])), idx, gap
 
 
 @torch.no_grad()
 def logits_at(W: Dict, conf: Dict, seqs: Sequence[np.ndarray],
               prompt_lens: Sequence[int], calib: int,
-              at: Sequence[Sequence[int]],
-              low=None) -> List[torch.Tensor]:
+              at: Sequence[Sequence[int]], low=None,
+              routes: Optional[Sequence[Dict[int, torch.Tensor]]] = None
+              ) -> Dict:
     """f32 logits (len(at[i]), vocab) of each sequence ``seqs[i]`` at the
     positions ``at[i]``.  ``seqs[calib]``'s prompt is the one that set the
     pool's scales.  ``low`` (the control) rounds every weight matrix
     (``low.weight``) and every matrix product's input (``low.act``) to a
-    lower precision."""
+    lower precision.  ``routes[i][layer]``, the ``(len(seqs[i]), k)``
+    expert ids at every position of ``seqs[i]`` in each MoE layer (the
+    index of ``W["layers"]``), replaces the reference's own top-k.
+
+    Returns ``logits`` (that list), ``routes`` (the ids each MoE layer
+    took, in ``routes``' form) and ``route_gap_layers``, each MoE layer's
+    mean route gap over every sequence and position (0 without
+    ``routes``)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     c, serve = conf["config"], conf["serve"]
@@ -237,7 +267,9 @@ def logits_at(W: Dict, conf: Dict, seqs: Sequence[np.ndarray],
         emb = dense(W["embed"], low)
         xs = [emb[i] for i in ids]
         del emb
-    for lw in W["layers"]:
+    taken: List[Dict[int, torch.Tensor]] = [{} for _ in seqs]
+    gaps: List[torch.Tensor] = []
+    for li, lw in enumerate(W["layers"]):
         wq, wk, wv = (dense(lw[n], low) for n in ("wq", "wk", "wv"))
         qkv = []
         for x in xs:
@@ -254,7 +286,16 @@ def logits_at(W: Dict, conf: Dict, seqs: Sequence[np.ndarray],
         del qkv, wo
         hs = [rms(x, norm) for x in xs]
         if "moe" in lw:
-            ys = moe(hs, prompt_lens, lw["moe"], c, serve, low)
+            follow = None
+            if routes is not None:
+                if any(r[li].shape[0] != len(t) for r, t in zip(routes, seqs)):
+                    raise ValueError(f"layer {li}: routes of another length "
+                                     f"than their sequences")
+                follow = torch.cat([r[li] for r in routes])
+            ys, idx, g = moe(hs, prompt_lens, lw["moe"], c, serve, low, follow)
+            gaps.append(g)
+            for t, ids in zip(taken, torch.split(idx, [len(x) for x in seqs])):
+                t[li] = ids
         else:
             mats = [dense(lw[n], low) for n in ("w_in", "w_gate", "w_out")]
             ys = [swiglu(h, *mats, low) for h in hs]
@@ -265,4 +306,5 @@ def logits_at(W: Dict, conf: Dict, seqs: Sequence[np.ndarray],
     out = [mm(rms(x[torch.as_tensor(list(pos), dtype=torch.long, device=dev)],
                   norm), head, low)
            for x, pos in zip(xs, at)]
-    return out
+    return {"logits": out, "routes": taken,
+            "route_gap_layers": [float(g.mean()) for g in gaps] or [0.0]}

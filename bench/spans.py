@@ -19,6 +19,21 @@ Served tokens are read back from the program's own outputs: a request's
 tokens but its last are the ones the scheduler feeds to the decodes that
 follow (the ``tokens`` tensors, kept by reference), and its last is the
 greedy choice of its final decode's logits row.
+
+With ``routes`` (a configuration with routed experts), the program's own
+routing is kept beside them: :meth:`SpanEngine.start_run`, after the
+warm-up and before the first admission, switches the port's recorder
+(``repro_torch/trace.py``) on, and each admission and decode drains it and
+keeps that call's top-k expert ids of every MoE layer, stacked on the
+device into one ``(layers, B, S, k)`` tensor (one device op a call, no
+host copy, no sync; the stack lets the sorted ``(B, S, E)`` tensors that
+the recorded views hold go).  The stacks are slices of an arena of
+``ROUTE_ARENA`` ids that :meth:`SpanEngine.start_run` reserves, so that
+the ids the window keeps take no memory from the device's allocator in
+the window: a request there that the cache cannot serve calls
+``cudaMalloc``, which stalls the host.  A window that fills the arena
+reserves another.  :meth:`SpanEngine.stop_routes`, which the caller
+calls as the window closes, switches it off.
 """
 from __future__ import annotations
 
@@ -26,6 +41,12 @@ import time
 from typing import Callable, Dict, List, Optional
 
 import torch
+
+from repro_torch import trace
+
+# ids an arena of kept routing holds: 2 GiB of int64, ~2.9 times what the
+# code cell's 51 s window keeps
+ROUTE_ARENA = 1 << 28
 
 
 class WindowClosed(Exception):
@@ -41,7 +62,8 @@ class SpanEngine:
 
     def __init__(self, engine, gens: List[int], seconds: float, *,
                  clock: Callable[[], float] = time.perf_counter,
-                 on_decode: Optional[Callable] = None):
+                 on_decode: Optional[Callable] = None,
+                 routes: bool = False):
         self._engine = engine
         self._gens = gens
         self._seconds = seconds
@@ -66,6 +88,12 @@ class SpanEngine:
         self._last_logits = None
         self._admit_rid: Optional[int] = None
         self._decode_rows: List[tuple] = []
+        self._routes = routes
+        self.route_layers: Optional[List[int]] = None
+        self.admit_routes: Dict[int, torch.Tensor] = {}  # rid -> (L, S, k)
+        self.decode_routes: List[torch.Tensor] = []      # (L, B, k) a decode
+        self._arena: Optional[torch.Tensor] = None
+        self._arena_used = 0
 
     def __getattr__(self, name):
         return getattr(self._engine, name)
@@ -98,13 +126,45 @@ class SpanEngine:
         self.calls.append((kind, t_in, self._clock(), None))
         return out
 
+    def _drain_routes(self) -> torch.Tensor:
+        """The top-k ids that the call just made recorded, one entry an MoE
+        layer, as one ``(L, B, S, k)`` tensor."""
+        got = trace.drain()["routes"]
+        layers = [r["layer"] for r in got]
+        if self.route_layers is None:
+            self.route_layers = layers
+        if not layers or layers != self.route_layers:
+            raise RuntimeError(f"a call recorded the routing of the layers "
+                               f"{layers}, not {self.route_layers}")
+        ids = [r["idx"] for r in got]
+        n = len(ids) * ids[0].numel()
+        if self._arena_used + n > self._arena.numel():
+            self._reserve(max(ROUTE_ARENA, n))
+        out = self._arena[self._arena_used:self._arena_used + n]
+        self._arena_used += n
+        return torch.stack(ids, out=out.view(len(ids), *ids[0].shape))
+
+    def _reserve(self, n: int) -> None:
+        self._arena = torch.empty(n, dtype=torch.int64,
+                                  device=self._engine.device)
+        self._arena_used = 0
+
     # -- the engine protocol -------------------------------------------------
     def start_run(self):
-        return self._call("start_run", self._enter("start_run"),
-                          self._engine.start_run)
+        out = self._call("start_run", self._enter("start_run"),
+                         self._engine.start_run)
+        if self._routes:
+            self._reserve(ROUTE_ARENA)
+            trace.enable()
+            trace.drain()
+        return out
 
     def warmup(self):
         return self._call("warmup", self._enter("warmup"), self._engine.warmup)
+
+    def stop_routes(self) -> None:
+        if self._routes:
+            trace.disable()
 
     def admission_need(self, rid):
         t = self._enter("admission_need")
@@ -125,6 +185,8 @@ class SpanEngine:
         self.sent[rid] = self.free_at.get(slot)
         self._admit_rid = rid
         out = self._call("admit", t, self._engine.admit, cache, slot, rid)
+        if self._routes:
+            self.admit_routes[rid] = self._drain_routes()[:, 0]
         self.admit_calls[rid] = len(self.calls) - 1
         self._pending = len(self.calls) - 1
         return out
@@ -140,6 +202,8 @@ class SpanEngine:
                              for slot, rid in sorted(self.slot_rid.items())]
         logits, cache = self._call("decode", t, self._engine.decode, tokens,
                                    cache)
+        if self._routes:
+            self.decode_routes.append(self._drain_routes()[:, :, 0])
         self.decodes.append((tokens, self._decode_rows))
         self._last_logits = logits
         self._pending = len(self.calls) - 1
@@ -183,4 +247,21 @@ class SpanEngine:
                     out[rid][j - 1] = int(step[slot])
         for r in want:
             out[r][-1] = int(self.finals[r])
+        return out
+
+    def routes_of(self, rids: List[int]) -> Dict[int, Dict[int, torch.Tensor]]:
+        """Each request's routing at every position fed to the model: its
+        prompt's, then each decode's fed token's, in order;
+        ``{rid: {layer: (positions, k) ids}}``, on the device."""
+        want = set(rids)
+        fed: Dict[int, List[torch.Tensor]] = {r: [] for r in want}
+        for step, (_, rows) in zip(self.decode_routes, self.decodes):
+            for slot, rid, j in rows:
+                if rid in want and j >= 1:
+                    fed[rid].append(step[:, slot])
+        out = {}
+        for r in want:
+            ids = torch.cat([self.admit_routes[r]]
+                            + [t[:, None] for t in fed[r]], dim=1)
+            out[r] = dict(zip(self.route_layers, ids))
         return out

@@ -8,6 +8,14 @@ its files and its entry, without editing this module.
     bench/traffic/<traffic>.json    a traffic mix (parameters only)
     bench/metrics/<metric>.py       one per-layer metric's reader
     bench/refs/<reference>.py       a configuration's plain reference
+    bench/systems/<system>.py       a configuration's program adapter:
+                                    ``plan(conf)``, the leaves of the
+                                    weights ``weights.py`` draws;
+                                    ``make_engine(conf, W, prompts, *,
+                                    slots, max_len)``, the port's engine
+                                    over them; ``routed(conf)``, whether
+                                    the check follows the program's
+                                    expert routing
     bench/limits/<cell>.json        the limits of a cell's comparison
 """
 from __future__ import annotations
@@ -79,6 +87,12 @@ def metric_reader(name: str):
 def reference_module(name: str):
     """``bench/refs/<name>.py``: a configuration's plain reference."""
     return _load_module(BENCH_DIR / "refs" / f"{name}.py", f"bench_ref_{name}")
+
+
+def system_module(name: str):
+    """``bench/systems/<name>.py``: a configuration's program adapter."""
+    return _load_module(BENCH_DIR / "systems" / f"{name}.py",
+                        f"bench_system_{name}")
 
 
 def check_names(bench: Dict) -> List[str]:

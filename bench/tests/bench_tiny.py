@@ -5,7 +5,6 @@ kernels) in float32."""
 from __future__ import annotations
 
 import copy
-import json
 import sys
 import time
 from pathlib import Path
@@ -21,23 +20,12 @@ import cell  # noqa: E402
 import spec  # noqa: E402
 
 CELLS = ("deepseek-67b-int8.chat", "deepseek-moe-16b.code")
-# A configuration and mix kept under bench/ for a later cell, with no
-# entry in BENCHMARK.json and no limits of their own: run here at the
-# small size under the limit of the dense cell's kind.
-STAGED = {"deepseek-moe-16b.code": {
-    "name": "deepseek-moe-16b.code", "config": "deepseek-moe-16b",
-    "traffic": "code_c32", "chips": 1}}
-STAGED_LIMITS = {"max_logit_gap": 0.75}
 
 
 def tiny(name: str, dtype: str = "float32"):
     bench = spec.load_benchmark()
-    if name in STAGED:
-        c = STAGED[name]
-        conf = json.loads((BENCH / "configs" / f"{c['config']}.json").read_text())
-    else:
-        c = spec.workload(bench, name)
-        conf = copy.deepcopy(spec.load_config(bench, c["config"]))
+    c = spec.workload(bench, name)
+    conf = copy.deepcopy(spec.load_config(bench, c["config"]))
     cc = conf["config"]
     gqa = cc["num_key_value_heads"] < cc["num_attention_heads"]
     cc.update(hidden_size=64, num_attention_heads=4,
@@ -62,8 +50,7 @@ def run(name: str, seed: int = 2 ** 31 + 7, wrap=None, extra=None,
     try:
         out = cell.run_cell(bench, c, seed, seconds, False,
                             t_start=time.perf_counter(), device="cpu",
-                            conf=conf, mix=mix, wrap=wrap, extra=extra,
-                            limits=STAGED_LIMITS if name in STAGED else None)
+                            conf=conf, mix=mix, wrap=wrap, extra=extra)
     finally:
         torch.set_num_threads(threads)
     return bench, c, out

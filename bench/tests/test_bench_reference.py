@@ -92,43 +92,56 @@ def test_a_broken_path_is_not_correct(name, fault):
     assert cell.result_line(bench, c, out, False, "cpu")["correct"] is False
 
 
+def _controls(got):
+    def extra(W, conf, prompts, served, routes):
+        got.extend(control.readings(W, conf, prompts, served, routes))
+        return got
+    return extra
+
+
 @pytest.mark.parametrize("name", CELLS)
 def test_the_control_reads_far_above_the_program(name):
     """At this size the cell's limits, set at the cell's own size, do not
-    carry over; the control still reads at least three times the program
-    (which reads 0 here, float32 on both sides) on every compared number."""
-    got = {}
-
-    def extra(W, conf, prompts, served):
-        got.update(control.readings(W, conf, prompts, served))
-        return got
-
-    _, _, out = bench_tiny.run(name, extra=extra)
-    for k in out["limits"]:
-        assert got[k] > max(3 * out["check"][k], 0.05)
+    carry over; each control still reads at least three times the program
+    (which reads 0 here, float32 on both sides) on a compared number: the
+    chat cell's one, the MoE cell's logit gap (int8 weights move its
+    routing less at this width than at the cell's)."""
+    got = []
+    _, _, out = bench_tiny.run(name, extra=_controls(got))
+    assert [c["control"] for c in got] == [
+        low.name for low in control.controls_for(out["ctx"]["conf"])]
+    for ctl in got:
+        assert ctl["max_logit_gap"] > max(3 * out["check"]["max_logit_gap"],
+                                          0.05)
 
 
 @pytest.mark.parametrize("name", CELLS)
 def test_the_control_is_judged_not_correct(name):
-    """The control's readings through the run's own judge, under limits
-    this size reaches (the chat cell's own; the kept MoE configuration's
-    stand-in): the program is correct, the control is not."""
-    got = {}
-
-    def extra(W, conf, prompts, served):
-        got.update(control.readings(W, conf, prompts, served))
-        return got
-
-    _, _, out = bench_tiny.run(name, seed=2 ** 31 + 19, extra=extra)
-    assert cell.judge(out["check"], out["limits"])[0] is True
-    correct, read = cell.judge(got, out["limits"])
+    """Each control's readings, through the routes path where the cell has
+    routed experts, by the run's own judge under the cell's own limits:
+    the program is correct, and the configuration's first control (int4
+    weights for the chat cell, fp8 for the MoE cell) is not.  The MoE
+    cell's int8-weights control reads under those limits at this width
+    and depth; it is held to three times the program by the test above
+    and judged not correct at the cell's own size on the chip."""
+    got = []
+    _, _, out = bench_tiny.run(name, seed=2 ** 31 + 19, extra=_controls(got))
+    lim = out["limits"]
+    assert cell.judge(out["check"], lim)[0] is True
+    assert len(got) == len(control.controls_for(out["ctx"]["conf"]))
+    for ctl in got:
+        assert ("max_layer_route_gap" in ctl) == ("max_layer_route_gap" in lim)
+    correct, read = cell.judge(got[0], lim)
     assert correct is False
-    assert all(read[k] == got[k] for k in out["limits"])
+    assert all(read[k] == got[0][k] for k in lim)
 
 
 def test_control_precisions():
     w = torch.linspace(-1, 1, 64).reshape(2, 4, 8)
-    q4 = control.Int4Weights.weight(w)
+    q4 = control.IntWeights(4).weight(w)
     assert len(torch.unique(q4[0])) <= 15
+    q8 = control.IntWeights(8).weight(w)
+    assert len(torch.unique(q8[0])) <= 255
+    assert torch.allclose(q8, w, atol=1 / 127)
     assert torch.allclose(control.Fp8.weight(w), w, rtol=0.07)
     assert not torch.equal(control.Fp8.act(w), w)

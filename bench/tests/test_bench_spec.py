@@ -49,18 +49,29 @@ def test_entries_have_only_their_keys(bench):
         assert "\n" not in m["layer"] and len(m["layer"]) <= 200
 
 
-@pytest.mark.parametrize("kind", ["config", "traffic", "limits"])
+@pytest.mark.parametrize("kind", ["config", "system", "traffic", "limits"])
 def test_every_cell_finds_its_files(bench, kind):
     for w in bench["workloads"]:
         if kind == "config":
             conf = spec.load_config(bench, w["config"])
             assert conf["name"] == w["config"]
             spec.reference_module(conf["reference"])
+        elif kind == "system":
+            conf = spec.load_config(bench, w["config"])
+            system = spec.system_module(conf["system"])
+            for fn in ("plan", "make_engine", "routed"):
+                assert callable(getattr(system, fn))
+            plan = system.plan(conf)
+            assert plan and all(kind in ("int8", "compute", "f32")
+                                for _, _, _, kind in plan)
+            lim = spec.load_limits(w["name"])
+            assert ("max_layer_route_gap" in lim) == system.routed(conf)
         elif kind == "traffic":
             assert spec.load_traffic(w["traffic"])["clients"] >= 1
         else:
             lim = spec.load_limits(w["name"])
-            assert lim and set(lim) <= {"max_logit_gap", "mean_logit_gap"}
+            assert lim and set(lim) <= {"max_logit_gap", "mean_logit_gap",
+                                        "max_layer_route_gap"}
             assert all(v > 0 for v in lim.values())
 
 
